@@ -38,9 +38,43 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``bilevel.update``), and the device's busy and idle share against the
    unprofiled step of phase 4.
 
-The line before the last is the kernels' JSON record; the last line is
-``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
-repository beside it, the script exits non-zero and prints no result.
+The transformer's prefill (the second slice):
+
+7. Model kernels: RMSNorm (kernel D) and flash attention (kernel E) against
+   their plain versions at the prefill's shapes: x (4·4096, 4096) in bf16
+   and f32, and d = 1000; q/k/v (4, 4096, 32, 128) bf16, causal and not;
+   f32 at (4, 4096, 32, 128) causal, (2, 256, 4, 128) and hd = 64; and
+   (1, 32768, 32, 128) bf16 causal (the ``prefill_32k`` length).
+   Tolerances: |err| ≤ atol + rtol·|ref| elementwise. In f32 those of
+   ``tests/test_kernels.py``, atol = rtol = 1e-5 (RMSNorm) and 2e-5
+   (flash); RMSNorm in bf16 likewise at 2e-2. Flash in bf16 is held to one
+   bf16 ulp, rtol 2⁻⁷ and atol 1e-5: both sides widen the same bf16 values
+   and compute in f32, and only the final rounding to bf16 differs. The
+   dense plain attention is evaluated per batch row, and per head at 32k,
+   to bound its (S, T) f32 scores. ``library_ms`` is
+   ``F.rms_norm`` or ``F.scaled_dot_product_attention`` (yardsticks; the
+   port never calls them). Flash FLOPs are 4·B·H·S·T·hd, halved when
+   causal, over the bf16 peak where the inputs are bf16.
+8. Prefill: Yi-9B at full width and depth (48 layers, 8.8 B parameters),
+   ``use_pallas=True``, random bf16 weights from a seeded generator
+   (``serve_params``), a warm-up prefill, then 3 requests of 4 prompts ×
+   4096 random tokens through ``build_prefill_step``. Each request must give
+   finite logits (4, 64000) and launch RMSNorm exactly 96 times (ln1 and
+   ln2 of 48 layers) and flash 48 times. The same first request through the
+   plain path (``use_pallas=False``) gives the relative L2 of the logits
+   and the share of argmax tokens that agree, ungated.
+9. Where the prefill's time goes: one prefill under ``torch.profiler``,
+   device time split into kernel E, kernel D, GEMMs and the rest, and the
+   device's idle share against the unprofiled prefill.
+10. Parity on the card at full width, depth cut to 4 layers, B = 2,
+    S = 2048: the kernel path against the plain path on the last
+    position's logits, relative L2 ≤ 1e-4 in f32 (params and compute) and
+    ≤ 2e-2 in bf16 serving.
+
+The line before the last is the kernels' JSON record (seven rows); the last
+line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
+without the repository beside it, the script exits non-zero and prints no
+result.
 """
 import json
 import math
@@ -57,6 +91,9 @@ RHO = 1e-2
 MAIN_P, MAIN_K, M = 26122, 10, 32
 LARGE_P, LARGE_K = 2 ** 24, 64
 REPS, WARM = 20, 3
+PREFILL_B, PREFILL_S, N_REQUESTS = 4, 4096, 3
+PARITY_LAYERS, PARITY_B, PARITY_S = 4, 2, 2048
+LONG_S = 32768        # the prefill_32k shape's sequence length
 
 ROWS = [  # name, CUDA kernel, source, the TPU kernel it replaces
     ('nystrom_gram', 'atb', 'src/repro_torch/csrc/atb.cu',
@@ -70,6 +107,11 @@ ROWS = [  # name, CUDA kernel, source, the TPU kernel it replaces
     ('woodbury_apply_block', 'woodbury_apply',
      'src/repro_torch/csrc/woodbury_apply.cu',
      'src/repro/kernels/woodbury.py:136'),
+    ('rmsnorm', 'rmsnorm', 'src/repro_torch/csrc/rmsnorm.cu',
+     'src/repro/kernels/rmsnorm.py:29'),
+    ('flash_attention', 'flash_attention',
+     'src/repro_torch/csrc/flash_attention.cu',
+     'src/repro/kernels/flash_attention.py:80'),
 ]
 
 
@@ -78,18 +120,18 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def time_ms(torch, fn) -> float:
-    for _ in range(WARM):
+def time_ms(torch, fn, reps: int = REPS, warm: int = WARM) -> float:
+    for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(REPS):
+    for _ in range(reps):
         fn()
     stop.record()
     stop.synchronize()
-    return start.elapsed_time(stop) / REPS
+    return start.elapsed_time(stop) / reps
 
 
 def cases(torch, ops, ref, p, k, dtype, dev):
@@ -150,23 +192,12 @@ def check_kernels(torch, ops, ref, p, k, dtype, dev, exact_ref: bool):
             raise AssertionError(
                 f'{name} p={p} k={k} {dtype}: kernel disagrees with its plain '
                 f'version, max |err| {max_err:.3e}')
-        t_op, t_b = flops / (PEAK_BF16 if bf16 else PEAK_F32), nbytes / HBM
-        rec = dict(max_abs_err=max_err,
-                   ms=time_ms(torch, lambda: kern(*args)),
-                   plain_ms=time_ms(torch, lambda: plain(*args)),
-                   library_ms=(time_ms(torch, lambda: lib(*args))
-                               if lib is not None else None),
-                   bound_ms=max(t_op, t_b) * 1e3,
-                   bound_by='operations' if t_op > t_b else 'bytes')
-        lib_ms = ('-' if rec['library_ms'] is None
-                  else f"{rec['library_ms']:.4f}")
-        print(f"kernel {name:<21} p={p} k={k} m={M} {str(dtype)[6:]:<8} "
-              f"max_err={max_err:.3e} kernel_ms={rec['ms']:.4f} "
-              f"plain_ms={rec['plain_ms']:.4f} library_ms={lib_ms} "
-              f"bound_ms={rec['bound_ms']:.4f} ({rec['bound_by']})",
-              flush=True)
-        out[name] = rec
         del got, want, err, limit
+        out[name] = _timed(
+            torch, f'{name:<21} p={p} k={k} m={M} {str(dtype)[6:]:<8}',
+            lambda: kern(*args), lambda: plain(*args),
+            (lambda: lib(*args)) if lib is not None else None, flops, nbytes,
+            bf16, max_err, REPS, REPS)
     torch.cuda.empty_cache()
     return out
 
@@ -204,6 +235,267 @@ def trace_phases(torch, solve, problem, config, step_s: float) -> None:
           f'{traced.seconds / n * 1e3:.3f} ms, unprofiled step '
           f'{step_s * 1e3:.3f} ms: device idle '
           f'{100 * (1 - busy / (step_s * 1e3)):.1f}%', flush=True)
+
+
+def _gate(name: str, got, want, atol: float, rtol: float) -> float:
+    """|got − want| ≤ atol + rtol·|want| elementwise, in f32; the max
+    |err|."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    max_err = float(err.max())
+    if not math.isfinite(max_err) or not bool(
+            (err <= atol + rtol * want.abs()).all()):
+        raise AssertionError(
+            f'{name}: kernel disagrees with its plain version, max |err| '
+            f'{max_err:.3e} (atol {atol}, rtol {rtol})')
+    return max_err
+
+
+def _timed(torch, label: str, kern, plain, lib, flops: float, nbytes: float,
+           bf16: bool, max_err: float, reps: int, plain_reps: int) -> dict:
+    """Time kernel, plain version and library call (None where there is
+    none); print and return the record. Operations are counted at the bf16
+    tensor-core peak where every input is bf16, else at the fp32 peak."""
+    warm = min(WARM, reps)
+    t_op, t_b = flops / (PEAK_BF16 if bf16 else PEAK_F32), nbytes / HBM
+    rec = dict(max_abs_err=max_err,
+               ms=time_ms(torch, kern, reps, warm),
+               plain_ms=time_ms(torch, plain, plain_reps,
+                                min(WARM, plain_reps)),
+               library_ms=(time_ms(torch, lib, reps, warm)
+                           if lib is not None else None),
+               bound_ms=max(t_op, t_b) * 1e3,
+               bound_by='operations' if t_op > t_b else 'bytes')
+    lib_ms = ('-' if rec['library_ms'] is None
+              else f"{rec['library_ms']:.4f}")
+    print(f"kernel {label} max_err={max_err:.3e} kernel_ms={rec['ms']:.4f} "
+          f"plain_ms={rec['plain_ms']:.4f} library_ms={lib_ms} "
+          f"bound_ms={rec['bound_ms']:.4f} ({rec['bound_by']})", flush=True)
+    return rec
+
+
+def check_model_kernels(torch, ops, ref, dev) -> dict:
+    """Phase 7: kernels D and E against their plain versions; the records
+    at the prefill's shapes (bf16, causal)."""
+    import torch.nn.functional as F
+    g = torch.Generator().manual_seed(7)
+
+    def rnd(shape, dtype):
+        return torch.randn(shape, generator=g).to(dtype).to(dev)
+
+    out = {}
+    n = PREFILL_B * PREFILL_S
+    for d, dtype in ((4096, torch.bfloat16), (4096, torch.float32),
+                     (1000, torch.bfloat16)):
+        x, sc = rnd((n, d), dtype), rnd((d,), dtype)
+        tol = 1e-5 if dtype == torch.float32 else 2e-2
+        err = _gate(f'rmsnorm d={d} {dtype}', ops.rmsnorm(x, sc, 1e-5),
+                    ref.rmsnorm(x, sc, 1e-5), tol, tol)
+        rec = _timed(torch, f'rmsnorm x=({n},{d}) {str(dtype)[6:]}',
+                     lambda: ops.rmsnorm(x, sc, 1e-5),
+                     lambda: ref.rmsnorm(x, sc, 1e-5),
+                     lambda: F.rms_norm(x, (d,), sc, 1e-5), 4 * n * d,
+                     (2 * n * d + d) * x.element_size(), False, err, REPS,
+                     REPS)
+        if d == 4096 and dtype == torch.bfloat16:
+            out['rmsnorm'] = rec
+        del x, sc
+
+    cases = [((PREFILL_B, PREFILL_S, 32, 128), torch.bfloat16, True),
+             ((PREFILL_B, PREFILL_S, 32, 128), torch.bfloat16, False),
+             ((PREFILL_B, PREFILL_S, 32, 128), torch.float32, True),
+             ((2, 256, 4, 128), torch.float32, True),
+             ((2, 256, 4, 128), torch.float32, False),
+             ((2, 256, 4, 64), torch.float32, True),
+             ((1, LONG_S, 32, 128), torch.bfloat16, True)]
+    for shape, dtype, causal in cases:
+        B, S, H, hd = shape
+        q, k, v = (rnd(shape, dtype) for _ in range(3))
+        # f32: test_kernels.py's 2e-5; bf16: one ulp of the rounded output
+        atol, rtol = ((2e-5, 2e-5) if dtype == torch.float32
+                      else (1e-5, 2.0 ** -7))
+        got = ops.flash_attention(q, k, v, causal=causal)
+        # the dense plain version holds (rows, H, S, S) f32 scores: take it
+        # per batch row, and per head at 32k
+        if S > PREFILL_S:
+            parts = [(slice(None), slice(h, h + 1)) for h in range(H)]
+        else:
+            parts = [(slice(b, b + 1), slice(None)) for b in range(B)]
+        plain = lambda bi, hi: ref.flash_attention(  # noqa: E731
+            q[bi][:, :, hi], k[bi][:, :, hi], v[bi][:, :, hi], causal=causal)
+        err = max(_gate(f'flash {shape} {dtype} causal={causal}',
+                        got[bi][:, :, hi], plain(bi, hi), atol, rtol)
+                  for bi, hi in parts)
+        del got
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        big = S > PREFILL_S
+        rec = _timed(
+            torch, f'flash_attention {shape} {str(dtype)[6:]} causal={causal}',
+            lambda: ops.flash_attention(q, k, v, causal=causal),
+            lambda: [plain(bi, hi) for bi, hi in parts],
+            lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                   is_causal=causal),
+            4 * B * H * S * S * hd / (2 if causal else 1),
+            4 * B * S * H * hd * q.element_size(), dtype == torch.bfloat16,
+            err, 2 if big else 5, 1 if big else 2)
+        if shape[1] == PREFILL_S and causal and dtype == torch.bfloat16:
+            out['flash_attention'] = rec
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+    return out
+
+
+def _rel_l2(a, b) -> float:
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm())
+
+
+def trace_prefill(torch, step, params, batch, prefill_ms: float) -> None:
+    """Phase 9: one prefill under ``torch.profiler``; device time by
+    kernel family and the device's idle share of the unprofiled prefill."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(params, batch)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not getattr(e, 'is_user_annotation', False)]
+    if not kernels:
+        print('prefill trace: the profiler recorded no device events; device '
+              'time not measured', flush=True)
+        return
+    families = {'flash (kernel E)': ('flash_fwd',),
+                'RMSNorm (kernel D)': ('rmsnorm_rows',),
+                'GEMM (cuBLAS)': ('gemm', 'nvjet', 'xmma', 'cutlass',
+                                  'gemv')}
+    split = dict.fromkeys([*families, 'rest'], 0.0)
+    rest: dict = {}
+    for e in kernels:
+        name = e.name.lower()
+        fam = next((f for f, keys in families.items()
+                    if any(key in name for key in keys)), 'rest')
+        ms = e.time_range.elapsed_us() / 1e3
+        split[fam] += ms
+        if fam == 'rest':
+            rest[e.name[:60]] = rest.get(e.name[:60], 0.0) + ms
+    busy = sum(split.values())
+    for fam, ms in split.items():
+        print(f'prefill trace: {fam:<19} {ms:10.3f} ms device '
+              f'({100 * ms / busy:5.1f}%)', flush=True)
+    top = sorted(rest.items(), key=lambda kv: -kv[1])[:4]
+    print(f'prefill trace: {len(kernels)} kernels, {busy:.3f} ms of device '
+          f'time; unprofiled prefill {prefill_ms:.3f} ms: device idle '
+          f'{100 * (1 - busy / prefill_ms):.1f}%; largest of the rest: '
+          + ', '.join(f'{n} {ms:.3f} ms' for n, ms in top), flush=True)
+
+
+def run_prefill(torch, dev) -> dict:
+    """Phases 8 and 9: Yi-9B's serving prefill at full width and depth.
+    Returns the launches of the 3 requests."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core import tree_leaves
+    from repro_torch.kernels import _lib
+    from repro_torch.launch.steps import build_prefill_step, serve_params
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(get_config('yi_9b'), use_pallas=True)
+    t0 = time.perf_counter()
+    # drawn per weight in f32 and stored in bf16 at once (param_dtype),
+    # which keeps the init near its 17.7 GB; serve_params is the serving
+    # load's cast, here already done
+    params = serve_params(build_model(dataclasses.replace(
+        cfg, param_dtype='bfloat16')).init(torch.Generator(dev).manual_seed(0)))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    print(f'prefill: {cfg.name} {cfg.n_layers} layers d={cfg.d_model} '
+          f'H={cfg.n_heads}/{cfg.n_kv_heads} d_ff={cfg.d_ff} '
+          f'vocab={cfg.vocab_size}, {n_params / 1e9:.3f} B bf16 parameters '
+          f'({torch.cuda.memory_allocated() / 1e9:.2f} GB) drawn in '
+          f'{time.perf_counter() - t0:.1f} s', flush=True)
+    step = build_prefill_step(cfg)
+    gen = torch.Generator().manual_seed(1)
+    batches = [{'inputs': torch.randint(0, cfg.vocab_size,
+                                        (PREFILL_B, PREFILL_S), generator=gen)}
+               for _ in range(N_REQUESTS + 1)]
+    t0 = time.perf_counter()
+    step(params, batches[0])
+    torch.cuda.synchronize()
+    print(f'prefill: warm-up request {time.perf_counter() - t0:.3f} s',
+          flush=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    _lib.reset_launches()
+    want = {'rmsnorm': 2 * cfg.n_layers, 'flash_attention': cfg.n_layers}
+    secs, first = [], None
+    for i, batch in enumerate(batches[1:]):
+        before = dict(_lib.LAUNCHES)
+        t0 = time.perf_counter()
+        logits = step(params, batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        per = {k: _lib.LAUNCHES[k] - before[k] for k in want}
+        if tuple(logits.shape) != (PREFILL_B, cfg.padded_vocab) or not bool(
+                torch.isfinite(logits).all()):
+            raise AssertionError(f'request {i}: logits {tuple(logits.shape)} '
+                                 'not finite or of the wrong shape')
+        if per != want:
+            raise AssertionError(f'request {i}: launches {per}, want {want}')
+        print(f'prefill request {i}: {secs[-1] * 1e3:.3f} ms, logits '
+              f'{tuple(logits.shape)} finite, launches {per}, argmax '
+              f'{logits.argmax(-1).tolist()}', flush=True)
+        first = logits if first is None else first
+    launches = dict(_lib.LAUNCHES)
+    ms = sum(secs) / len(secs) * 1e3
+    print(f'prefill: {ms:.3f} ms per prefill of {PREFILL_B} x {PREFILL_S} '
+          f'tokens, {PREFILL_B * PREFILL_S / ms * 1e3:.0f} tokens/s, peak '
+          f'memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB', flush=True)
+
+    _lib.reset_launches()
+    plain = build_prefill_step(dataclasses.replace(cfg, use_pallas=False))(
+        params, batches[1])
+    if _lib.LAUNCHES['rmsnorm'] or _lib.LAUNCHES['flash_attention']:
+        raise AssertionError(f'the plain path launched kernels: '
+                             f'{_lib.LAUNCHES}')
+    agree = float((plain.argmax(-1) == first.argmax(-1)).float().mean())
+    print(f'prefill full depth bf16, kernel path vs plain path: rel L2 '
+          f'{_rel_l2(first, plain):.3e}, argmax agreement {agree:.2f} '
+          '(ungated)', flush=True)
+    trace_prefill(torch, step, params, batches[1], ms)
+    return launches
+
+
+def parity_cut_depth(torch, dev) -> None:
+    """Phase 10: kernel path against plain path at full width, depth 4."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _lib
+    from repro_torch.launch.steps import build_prefill_step, serve_params
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(get_config('yi_9b'), n_layers=PARITY_LAYERS,
+                              compute_dtype='float32')
+    params = build_model(cfg).init(torch.Generator(dev).manual_seed(2))
+    batch = {'inputs': torch.randint(
+        0, cfg.vocab_size, (PARITY_B, PARITY_S),
+        generator=torch.Generator().manual_seed(3))}
+    for label, dtype, prm, tol in (
+            ('f32', 'float32', params, 1e-4),
+            ('bf16 serving', 'bfloat16', serve_params(params), 2e-2)):
+        c = dataclasses.replace(cfg, compute_dtype=dtype)
+        _lib.reset_launches()
+        kern = build_prefill_step(dataclasses.replace(c, use_pallas=True))(
+            prm, batch)
+        counts = (_lib.LAUNCHES['rmsnorm'], _lib.LAUNCHES['flash_attention'])
+        plain = build_prefill_step(dataclasses.replace(c, use_pallas=False))(
+            prm, batch)
+        err = _rel_l2(kern, plain)
+        if not err <= tol or counts != (2 * PARITY_LAYERS, PARITY_LAYERS):
+            raise AssertionError(f'parity {label}: rel L2 {err:.3e} '
+                                 f'(tol {tol}), launches {counts}')
+        print(f'parity {label}: yi-9b full width, depth cut to '
+              f'{PARITY_LAYERS}, B={PARITY_B} S={PARITY_S}: kernel path vs '
+              f'plain path rel L2 {err:.3e} (<= {tol}), launches {counts}',
+              flush=True)
 
 
 def main() -> None:
@@ -329,12 +621,25 @@ def main() -> None:
     # 6. where the time goes ------------------------------------------------
     trace_phases(torch, solve, problem, config, res.seconds / n_outer)
 
-    # 7. records ------------------------------------------------------------
+    # 7. model kernels against their plain versions --------------------------
+    main_rec.update(check_model_kernels(torch, ops, ref, dev))
+
+    # 8-9. the prefill, and where its time goes --------------------------------
+    prefill_launches = run_prefill(torch, dev)
+    torch.cuda.empty_cache()
+
+    # 10. parity at full width, depth cut ------------------------------------
+    parity_cut_depth(torch, dev)
+
+    # records -----------------------------------------------------------------
     records = []
     for kname, kernel, source, replaces in ROWS:
-        path_launches = (block_launches if kname in
-                         ('nystrom_cross', 'woodbury_apply_block')
-                         else main_launches)
+        if kname in ('rmsnorm', 'flash_attention'):
+            path_launches = prefill_launches
+        elif kname in ('nystrom_cross', 'woodbury_apply_block'):
+            path_launches = block_launches
+        else:
+            path_launches = main_launches
         records.append(dict(name=f'{kname} ({kernel})', route='cuda',
                             source=source, replaces=replaces,
                             launches=path_launches[kname], **main_rec[kname]))

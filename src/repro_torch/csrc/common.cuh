@@ -1,5 +1,5 @@
-// Shared pieces of the Nystrom kernels: dtype widening and the
-// deterministic cross-block reduction.
+// Shared pieces of the kernels: dtype conversion and the deterministic
+// cross-block reduction of the Nystrom kernels.
 //
 // The TPU kernels walk p in order into one accumulator that stays in VMEM.
 // On Hopper p is split across thread blocks; each block writes its partial
@@ -25,6 +25,16 @@ __device__ __forceinline__ int64_t imin(int64_t a, int64_t b) {
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+
+// f32 -> T, rounding to nearest even for bf16.
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
 }
 
 // out[o] = sum over b of partial[b * n + o], one block per output o.

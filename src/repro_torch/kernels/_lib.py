@@ -30,7 +30,8 @@ NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 
 #: launches per wrapper, keyed by the TPU kernel each one replaces
 LAUNCHES = {'nystrom_gram': 0, 'nystrom_cross': 0, 'woodbury_ctv': 0,
-            'woodbury_apply': 0, 'woodbury_apply_block': 0}
+            'woodbury_apply': 0, 'woodbury_apply_block': 0, 'rmsnorm': 0,
+            'flash_attention': 0}
 
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -114,7 +115,11 @@ def lib() -> ctypes.CDLL:
         cdll.rt_ctv.argtypes = [p, i, p, i, p, p, ll, i, i, ll, p]
         cdll.rt_woodbury_apply.argtypes = [p, i, p, p, i, p, ll, i, i, f, f,
                                            i, p]
-        for fn in (cdll.rt_atb, cdll.rt_ctv, cdll.rt_woodbury_apply):
+        cdll.rt_rmsnorm.argtypes = [p, i, p, i, p, ll, i, f, p]
+        cdll.rt_flash_attention.argtypes = [p, p, p, p, i, i, i, i, i, i,
+                                            *[ll] * 9, f, i, p]
+        for fn in (cdll.rt_atb, cdll.rt_ctv, cdll.rt_woodbury_apply,
+                   cdll.rt_rmsnorm, cdll.rt_flash_attention):
             fn.restype = ctypes.c_int
         cdll.rt_error_string.argtypes = [ctypes.c_int]
         cdll.rt_error_string.restype = ctypes.c_char_p
@@ -144,3 +149,21 @@ def split_rows(p: int) -> tuple[int, int]:
 def require(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(msg)
+
+
+def device_of(*xs: torch.Tensor) -> str:
+    """The one device type of a wrapper's operands: 'cpu' (the plain
+    version runs) or 'cuda' (the kernel launches); anything else raises."""
+    kinds = {x.device.type for x in xs}
+    require(len(kinds) == 1 and len({x.device for x in xs}) == 1,
+            f'operands on different devices: {[x.device for x in xs]}')
+    kind = kinds.pop()
+    require(kind in ('cpu', 'cuda'), f'unsupported device {kind!r}')
+    return kind
+
+
+def require_no_grad(name: str, *xs: torch.Tensor) -> None:
+    """Raise where a forward-only kernel would be asked for a gradient."""
+    if torch.is_grad_enabled() and any(x.requires_grad for x in xs):
+        raise RuntimeError(f'{name} is a forward-only kernel: run it under '
+                           'torch.no_grad() or torch.inference_mode()')

@@ -18,15 +18,6 @@ def _check_operand(x: torch.Tensor, name: str) -> None:
     _lib.require(x.shape[0] >= 1, f'{name} has no rows')
 
 
-def _device_of(*xs: torch.Tensor) -> str:
-    kinds = {x.device.type for x in xs}
-    _lib.require(len(kinds) == 1 and len({x.device for x in xs}) == 1,
-                 f'operands on different devices: {[x.device for x in xs]}')
-    kind = kinds.pop()
-    _lib.require(kind in ('cpu', 'cuda'), f'unsupported device {kind!r}')
-    return kind
-
-
 def atb(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     """Launch kernel A on CUDA tensors: AᵀB → (k, m) f32. No counting: the
     public wrappers below count."""
@@ -50,7 +41,7 @@ def atb(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
 def nystrom_gram(C: torch.Tensor) -> torch.Tensor:
     """CᵀC for C (p, k) → (k, k) f32."""
     _check_operand(C, 'C')
-    if _device_of(C) == 'cpu':
+    if _lib.device_of(C) == 'cpu':
         return ref.nystrom_gram(C)
     out = atb(C, C)
     _lib.LAUNCHES['nystrom_gram'] += 1
@@ -63,7 +54,7 @@ def nystrom_cross(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     _check_operand(B, 'B')
     _lib.require(A.shape[0] == B.shape[0],
                  f'row mismatch: A has p={A.shape[0]}, B has p={B.shape[0]}')
-    if _device_of(A, B) == 'cpu':
+    if _lib.device_of(A, B) == 'cpu':
         return ref.nystrom_cross(A, B)
     out = atb(A, B)
     _lib.LAUNCHES['nystrom_cross'] += 1

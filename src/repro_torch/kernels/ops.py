@@ -1,18 +1,20 @@
 """Public kernel wrappers, and the Eq. 6 apply composed from them.
 
-The counterpart of ``repro/kernels/ops.py`` for the Nyström kernels. There
-is no interpret mode: a CUDA tensor goes through the hand-written kernel, a
-CPU tensor through its plain version.
+The counterpart of ``repro/kernels/ops.py``. There is no interpret mode: a
+CUDA tensor goes through the hand-written kernel, a CPU tensor through its
+plain version.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.nystrom_gram import nystrom_cross, nystrom_gram
+from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.kernels.woodbury import woodbury_apply, woodbury_ctv
 
 __all__ = ['nystrom_gram', 'nystrom_cross', 'woodbury_ctv', 'woodbury_apply',
-           'nystrom_ihvp_apply']
+           'nystrom_ihvp_apply', 'rmsnorm', 'flash_attention']
 
 
 def nystrom_ihvp_apply(C: torch.Tensor, H_KK: torch.Tensor, v: torch.Tensor,

@@ -1,5 +1,5 @@
-"""Plain PyTorch versions of the Nyström kernels: the ground truth the CUDA
-kernels are held against, and what the wrappers run on CPU tensors.
+"""Plain PyTorch versions of the kernels: the ground truth the CUDA kernels
+are held against, and what the wrappers run on CPU tensors.
 
 Every input is widened to f32 before it is multiplied, as in the reference
 (``repro/kernels/ref.py``): a bf16 sketch is stored in bf16 and accumulated
@@ -38,3 +38,30 @@ def woodbury_apply(C: torch.Tensor, w: torch.Tensor, v: torch.Tensor,
     v (p, m))."""
     corr = _wide(C) @ _wide(w)
     return _wide(v) / rho - corr / (rho * rho)
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
+            eps: float = 1e-5) -> torch.Tensor:
+    """Row RMSNorm over the last axis: variance in f32, then
+    ``y.to(x.dtype) * scale.to(x.dtype)`` (the reference's cast order)."""
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * scale.to(x.dtype)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True,
+                    scale: float | None = None) -> torch.Tensor:
+    """Dense-softmax attention in f32. q (B, S, H, hd), k/v (B, T, H, hd)
+    with H already GQA-expanded; the causal diagonal is aligned
+    bottom-right (``tril(·, T − S)``), as in the reference oracle."""
+    S, hd = q.shape[1], q.shape[-1]
+    scale = hd ** -0.5 if scale is None else scale
+    logits = torch.einsum('bshd,bthd->bhst', q.float(), k.float()) * scale
+    if causal:
+        T = k.shape[1]
+        mask = torch.ones((S, T), dtype=torch.bool,
+                          device=q.device).tril(T - S)
+        logits = logits.masked_fill(~mask, float('-inf'))
+    w = torch.softmax(logits, dim=-1)
+    return torch.einsum('bhst,bthd->bshd', w, v.float()).to(q.dtype)

@@ -15,8 +15,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _lib, ref
-from repro_torch.kernels.nystrom_gram import (_check_operand, _device_of,
-                                              nystrom_cross)
+from repro_torch.kernels.nystrom_gram import _check_operand, nystrom_cross
 
 
 def woodbury_ctv(C: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -28,7 +27,7 @@ def woodbury_ctv(C: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     _lib.require(v.shape == (p,), f'v must be ({p},), got {tuple(v.shape)}')
     _lib.require(v.dtype in _lib.DTYPE_CODE,
                  f'v must be float32 or bfloat16, got {v.dtype}')
-    if _device_of(C, v) == 'cpu':
+    if _lib.device_of(C, v) == 'cpu':
         return ref.woodbury_ctv(C, v)
     _lib.require(C.is_contiguous() and v.is_contiguous(),
                  'woodbury_ctv needs contiguous operands')
@@ -62,7 +61,7 @@ def woodbury_apply(C: torch.Tensor, w: torch.Tensor, v: torch.Tensor,
                  f'v must be float32 or bfloat16, got {v.dtype}')
     rho = float(rho)
     _lib.require(rho > 0.0, f'rho must be positive, got {rho}')
-    if _device_of(C, w, v) == 'cpu':
+    if _lib.device_of(C, w, v) == 'cpu':
         return ref.woodbury_apply(C, w, v, rho)
     _lib.require(C.is_contiguous() and v.is_contiguous(),
                  'woodbury_apply needs contiguous C and v')

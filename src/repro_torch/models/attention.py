@@ -1,0 +1,146 @@
+"""GQA attention for training-shaped and prefill passes: the port of
+``repro/models/attention.py``'s ``multihead_attention`` on one card.
+
+Three regimes, one math, dispatched as in the reference:
+
+* ``use_pallas`` and ``S > cfg.attn_chunk`` → kernel E
+  (:func:`repro_torch.kernels.ops.flash_attention`);
+* ``S > cfg.attn_chunk`` otherwise        → :func:`_chunked_attention`, the
+  plain online-softmax twin of the kernel, a loop over blocks;
+* ``S ≤ cfg.attn_chunk``                  → :func:`_full_attention`, a plain
+  softmax einsum.
+
+KV heads are repeated to the query-head count before attention. Decode and
+cross-attention are not ported yet (``ROADMAP.md`` queue 1 item 12).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import apply_rope, cdtype, dense_init
+
+NEG_INF = -1e30
+
+
+# --------------------------------------------------------------------- params
+def init_attention(cfg: ModelConfig, generator: torch.Generator,
+                   dtype: torch.dtype) -> dict:
+    d, hd = cfg.d_model, cfg.head_dim
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    p = {'wq': dense_init(generator, (d, H * hd), dtype),
+         'wk': dense_init(generator, (d, KV * hd), dtype),
+         'wv': dense_init(generator, (d, KV * hd), dtype),
+         'wo': dense_init(generator, (H * hd, d), dtype)}
+    if cfg.qkv_bias:
+        for name, n in (('bq', H), ('bk', KV), ('bv', KV)):
+            p[name] = torch.zeros((n * hd,), dtype=dtype,
+                                  device=generator.device)
+    return p
+
+
+def _project_qkv(params, x: torch.Tensor, cfg: ModelConfig, rope):
+    """q: (B, S, H, hd), k/v: (B, S, KV, hd), RoPE applied to q and k."""
+    ct = cdtype(cfg)
+    B, S, _ = x.shape
+    q = x @ params['wq'].to(ct)
+    k = x @ params['wk'].to(ct)
+    v = x @ params['wv'].to(ct)
+    if 'bq' in params:
+        q = q + params['bq'].to(ct)
+        k = k + params['bk'].to(ct)
+        v = v + params['bv'].to(ct)
+    q = q.view(B, S, cfg.n_heads, cfg.head_dim)
+    k = k.view(B, S, cfg.n_kv_heads, cfg.head_dim)
+    v = v.view(B, S, cfg.n_kv_heads, cfg.head_dim)
+    return apply_rope(q, rope), apply_rope(k, rope), v
+
+
+def _expand_kv(k: torch.Tensor, group: int) -> torch.Tensor:
+    """(B, S, KV, hd) → (B, S, KV·group, hd), each KV head repeated group
+    times in place (a copy)."""
+    if group == 1:
+        return k
+    B, S, KV, hd = k.shape
+    return k[:, :, :, None, :].expand(B, S, KV, group, hd).reshape(
+        B, S, KV * group, hd)
+
+
+# ------------------------------------------------------------- core attention
+def _full_attention(q, k, v, causal: bool, scale: float) -> torch.Tensor:
+    """(B, S, H, hd) × (B, T, H, hd); materialises (B, H, S, T). The scores
+    are rounded to the compute dtype before the f32 softmax, and the
+    probabilities after it, as in the reference."""
+    logits = torch.einsum('bshd,bthd->bhst', q, k).float() * scale
+    if causal:
+        S, T = logits.shape[-2], logits.shape[-1]
+        mask = torch.ones((S, T), dtype=torch.bool,
+                          device=q.device).tril(T - S)
+        logits = logits.masked_fill(~mask, NEG_INF)
+    w = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum('bhst,bthd->bshd', w, v)
+
+
+def _chunked_attention(q, k, v, causal: bool, scale: float,
+                       chunk: int) -> torch.Tensor:
+    """Online-softmax attention over (chunk × chunk) blocks with running
+    (max, sum, acc) statistics in f32; the probabilities are rounded to the
+    compute dtype before P·V, as in the reference. Under the causal mask
+    (top-left, ``qpos >= kpos``) a key block wholly past a query block adds
+    exactly nothing in the reference (its probabilities are exp(−1e30 − m)
+    = 0 and its rescale exp(0) = 1), so it is skipped here."""
+    B, S, H, hd = q.shape
+    T = k.shape[1]
+    qc, kc = min(chunk, S), min(chunk, T)
+    if S % qc or T % kc:
+        raise ValueError(f'sequence must divide attn_chunk: S={S}, T={T}, '
+                         f'chunk={chunk}')
+    out = torch.empty_like(q)
+    kpos_all = torch.arange(T, device=q.device)
+    for q0 in range(0, S, qc):
+        qb = q[:, q0:q0 + qc].transpose(1, 2)                   # (B,H,qc,hd)
+        qpos = torch.arange(q0, q0 + qc, device=q.device)
+        m = torch.full((B, H, qc), NEG_INF, device=q.device)
+        l = torch.zeros((B, H, qc), device=q.device)
+        acc = torch.zeros((B, H, qc, hd), device=q.device)
+        for k0 in range(0, T, kc):
+            if causal and k0 > q0 + qc - 1:
+                break
+            kb = k[:, k0:k0 + kc].transpose(1, 2)
+            vb = v[:, k0:k0 + kc].transpose(1, 2)
+            logits = torch.einsum('bhqd,bhkd->bhqk', qb, kb).float() * scale
+            if causal:
+                keep = qpos[:, None] >= kpos_all[None, k0:k0 + kc]
+                logits = logits.masked_fill(~keep, NEG_INF)
+            m_new = torch.maximum(m, logits.amax(-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(logits - m_new[..., None])
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                'bhqk,bhkd->bhqd', p.to(qb.dtype), vb).float()
+            m = m_new
+        out[:, q0:q0 + qc] = (acc / l.clamp(min=1e-30)[..., None]).to(
+            q.dtype).transpose(1, 2)
+    return out
+
+
+def multihead_attention(params, x: torch.Tensor, cfg: ModelConfig, *,
+                        rope: tuple[torch.Tensor, torch.Tensor],
+                        causal: bool = True) -> torch.Tensor:
+    """Self-attention of x (B, S, d) → (B, S, d); ``rope`` is the (cos, sin)
+    pair of :func:`~repro_torch.models.layers.rope_tables` at x's
+    positions."""
+    B, S, _ = x.shape
+    q, k, v = _project_qkv(params, x, cfg, rope)
+    group = cfg.n_heads // cfg.n_kv_heads
+    k = _expand_kv(k, group)
+    v = _expand_kv(v, group)
+    scale = cfg.head_dim ** -0.5
+    if cfg.use_pallas and S > cfg.attn_chunk:
+        out = ops.flash_attention(q, k, v, causal=causal, scale=scale)
+    elif S > cfg.attn_chunk:
+        out = _chunked_attention(q, k, v, causal, scale, cfg.attn_chunk)
+    else:
+        out = _full_attention(q, k, v, causal, scale)
+    return out.reshape(B, S, -1) @ params['wo'].to(cdtype(cfg))

@@ -1,0 +1,124 @@
+"""Shared building blocks: dtypes, init, RMSNorm, RoPE, SwiGLU MLP and the
+embeddings. The port of ``repro/models/layers.py`` for the dense path.
+
+Parameters are plain dicts of tensors, in the reference's orientation
+(``w1`` is (d, d_ff), used as ``x @ w1``), so that weights carry across
+without transposes. Compute happens in ``cfg.compute_dtype`` with the
+reference's casts; parameters live in ``cfg.param_dtype`` unless the caller
+of ``init`` asks for another dtype.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops, ref
+from repro_torch.models.config import ModelConfig
+
+_DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16,
+           'float16': torch.float16}
+
+
+def pdtype(cfg: ModelConfig) -> torch.dtype:
+    return _DTYPES[cfg.param_dtype]
+
+
+def cdtype(cfg: ModelConfig) -> torch.dtype:
+    return _DTYPES[cfg.compute_dtype]
+
+
+def dense_init(generator: torch.Generator, shape, dtype: torch.dtype,
+               scale: float | None = None) -> torch.Tensor:
+    """Truncated-normal fan-in init (±3σ), drawn in f32 on the generator's
+    device and cast to ``dtype`` at once."""
+    fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+    std = scale if scale is not None else fan_in ** -0.5
+    w = torch.empty(shape, dtype=torch.float32, device=generator.device)
+    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -3.0, 3.0, generator=generator)
+    return w.mul_(std).to(dtype)
+
+
+# ----------------------------------------------------------------- RMSNorm
+def init_rmsnorm(cfg: ModelConfig, device, dtype: torch.dtype,
+                 dim: int | None = None) -> dict:
+    return {'scale': torch.ones((dim or cfg.d_model,), dtype=dtype,
+                                device=device)}
+
+
+def rmsnorm(params, x: torch.Tensor, eps: float,
+            use_pallas: bool = False) -> torch.Tensor:
+    """``use_pallas`` (the reference's name) routes through kernel D."""
+    return (ops.rmsnorm if use_pallas else ref.rmsnorm)(
+        x, params['scale'], eps)
+
+
+# ----------------------------------------------------------------- RoPE
+def rope_frequencies(head_dim: int, theta: float) -> torch.Tensor:
+    """1 / θ^(2i/hd) in f32, on the host. The exponent is the reference's
+    f32 value; θ to that power is rounded once from f64, which gives the
+    reference's f32 value exactly, where f32 ``pow`` can be one ulp off
+    (the error grows with the position)."""
+    expo = np.arange(0, head_dim, 2, dtype=np.float32) / np.float32(head_dim)
+    powers = (np.float64(theta) ** expo.astype(np.float64)).astype(np.float32)
+    return torch.from_numpy(np.float32(1.0) / powers)
+
+
+def rope_tables(positions: torch.Tensor, head_dim: int,
+                theta: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """cos and sin of the rotation angles for positions (B, S) int, each
+    (B, S, 1, hd/2) in f32. A forward takes them once and every layer's q
+    and k share them."""
+    freqs = rope_frequencies(head_dim, theta).to(positions.device)
+    angles = positions[..., None].float() * freqs           # (B, S, hd/2)
+    return torch.cos(angles)[:, :, None, :], torch.sin(angles)[:, :, None, :]
+
+
+def apply_rope(x: torch.Tensor, rope: tuple[torch.Tensor, torch.Tensor]
+               ) -> torch.Tensor:
+    """x: (B, S, H, hd); rope: (cos, sin) from :func:`rope_tables`.
+    Split-halves rotation, in f32, cast back to x's dtype."""
+    cos, sin = rope
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ----------------------------------------------------------------- SwiGLU MLP
+def init_mlp(cfg: ModelConfig, generator: torch.Generator,
+             dtype: torch.dtype) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+    return {'w1': dense_init(generator, (d, f), dtype),
+            'w3': dense_init(generator, (d, f), dtype),
+            'w2': dense_init(generator, (f, d), dtype)}
+
+
+_ACTS = {'silu': F.silu, 'gelu': lambda x: F.gelu(x, approximate='tanh'),
+         'relu': F.relu, 'leaky_relu': lambda x: F.leaky_relu(x, 0.01)}
+
+
+def mlp(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    ct = cdtype(cfg)
+    h = _ACTS[cfg.act](x @ params['w1'].to(ct)) * (x @ params['w3'].to(ct))
+    return h @ params['w2'].to(ct)
+
+
+# ----------------------------------------------------------------- embeddings
+def init_embedding(cfg: ModelConfig, generator: torch.Generator,
+                   dtype: torch.dtype) -> dict:
+    return {'table': dense_init(generator, (cfg.padded_vocab, cfg.d_model),
+                                dtype, scale=1.0)}
+
+
+def embed(params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    return params['table'].to(cdtype(cfg))[tokens]
+
+
+def unembed(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Logits against the (padded) vocab; pad slots masked to the dtype's
+    lowest value."""
+    logits = x @ params['table'].to(cdtype(cfg)).T
+    if cfg.padded_vocab != cfg.vocab_size:
+        pad = torch.arange(cfg.padded_vocab, device=x.device) >= cfg.vocab_size
+        logits = logits.masked_fill(pad, torch.finfo(logits.dtype).min)
+    return logits

@@ -1,9 +1,14 @@
 """The hand-written CUDA kernels against their plain versions, on the card.
 
 Skips where there is no CUDA card (decided inside the fixture, never at
-import). Tolerance: f32 rtol 1e-5, atol 1e-5·‖ref‖∞; bf16 inputs the same,
-after the identical upcast (both sides widen the same bf16 values to f32
-and accumulate f32, in different orders).
+import). Tolerance of the Nyström kernels: f32 rtol 1e-5, atol 1e-5·‖ref‖∞;
+bf16 inputs the same, after the identical upcast (both sides widen the same
+bf16 values to f32 and accumulate f32, in different orders). RMSNorm and
+flash attention: |err| ≤ atol + rtol·|ref|, in f32 with the tolerances of
+``tests/test_kernels.py`` (atol = rtol = 1e-5 and 2e-5), RMSNorm in bf16
+likewise at 2e-2, and flash in bf16 within one ulp of the rounded output
+(rtol 2⁻⁷, atol 1e-5): both sides compute in f32 from the same widened
+inputs, and only the final rounding differs.
 """
 import pytest
 import torch
@@ -62,7 +67,8 @@ def test_launches_are_counted_and_deterministic(cuda):
     ops.woodbury_apply(C, C[:2].T.contiguous(), C[:, :2].contiguous(), 0.1)
     assert _lib.LAUNCHES == {'nystrom_gram': 2, 'nystrom_cross': 0,
                              'woodbury_ctv': 1, 'woodbury_apply': 1,
-                             'woodbury_apply_block': 1}
+                             'woodbury_apply_block': 1, 'rmsnorm': 0,
+                             'flash_attention': 0}
 
 
 def test_cuda_wrappers_raise_instead_of_falling_back(cuda):
@@ -73,3 +79,74 @@ def test_cuda_wrappers_raise_instead_of_falling_back(cuda):
         ops.woodbury_ctv(C, torch.randn(64))
     with pytest.raises(ValueError, match='k, m <= 256'):
         ops.nystrom_gram(_randn((64, 300), torch.float32, cuda, 7))
+
+
+def _rel_close(got, want, tol, rtol=None):
+    """Elementwise |got − want| ≤ tol + rtol·|want| (rtol defaults to tol),
+    in f32."""
+    torch.cuda.synchronize()
+    got, want = got.float(), want.float()
+    assert torch.isfinite(got).all()
+    err = (got - want).abs()
+    rtol = tol if rtol is None else rtol
+    assert bool((err <= tol + rtol * want.abs()).all()), float(err.max())
+
+
+@pytest.mark.parametrize('dtype,tol', [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize('shape', [(4, 128), (2, 3, 256), (5, 640),
+                                   (64, 4096), (7, 1000), (9, 1001), (3, 5)])
+@pytest.mark.parametrize('scale_dtype', [torch.float32, torch.bfloat16])
+def test_rmsnorm_kernel_matches_plain(cuda, dtype, tol, shape, scale_dtype):
+    x = _randn(shape, dtype, cuda, 8)
+    s = _randn(shape[-1:], scale_dtype, cuda, 9)
+    got = ops.rmsnorm(x, s, 1e-5)
+    assert got.dtype == dtype and got.shape == x.shape
+    _rel_close(got, ref.rmsnorm(x, s, 1e-5), tol)
+
+
+def test_rmsnorm_kernel_takes_unaligned_rows(cuda):
+    """d = 1001 bf16 rows start off the 16-byte grid (scalar head and
+    tail), and a view that starts 2 bytes in is re-based by the wrapper."""
+    x = _randn((6, 1002), torch.bfloat16, cuda, 10)[:, 1:]
+    s = _randn((1001,), torch.bfloat16, cuda, 11)
+    _rel_close(ops.rmsnorm(x, s), ref.rmsnorm(x, s), 2e-2)
+
+
+@pytest.mark.parametrize('dtype,tol,rtol', [(torch.float32, 2e-5, 2e-5),
+                                            (torch.bfloat16, 1e-5, 2 ** -7)])
+@pytest.mark.parametrize('B,S,H,hd', [(1, 128, 2, 64), (2, 256, 4, 128),
+                                      (1, 100, 3, 40), (1, 192, 2, 256),
+                                      (2, 64, 2, 30), (1, 2048, 2, 128)])
+@pytest.mark.parametrize('causal', [True, False])
+def test_flash_kernel_matches_plain(cuda, dtype, tol, rtol, B, S, H, hd,
+                                    causal):
+    q, k, v = (_randn((B, S, H, hd), dtype, cuda, 12 + i) for i in range(3))
+    got = ops.flash_attention(q, k, v, causal=causal, q_block=S, k_block=S)
+    assert got.dtype == dtype and got.shape == q.shape
+    _rel_close(got, ref.flash_attention(q, k, v, causal=causal), tol, rtol)
+
+
+def test_flash_kernel_reads_strided_and_uneven_lengths(cuda):
+    """q, k, v as strided views of one fused projection, T ≠ S unmasked."""
+    B, S, T, H, hd = 2, 96, 160, 4, 64
+    qkv = _randn((B, T, 3, H, hd), torch.float32, cuda, 15)
+    q, k, v = qkv[:, :S, 0], qkv[:, :, 1], qkv[:, :, 2]
+    got = ops.flash_attention(q, k, v, causal=False, q_block=32, k_block=32)
+    _rel_close(got, ref.flash_attention(q, k, v, causal=False), 2e-5)
+
+
+def test_model_kernels_are_counted_and_forward_only(cuda):
+    _lib.reset_launches()
+    x = _randn((8, 64), torch.float32, cuda, 16)
+    ops.rmsnorm(x, torch.ones(64, device=cuda))
+    q = _randn((1, 64, 2, 32), torch.float32, cuda, 17)
+    ops.flash_attention(q, q, q)
+    assert (_lib.LAUNCHES['rmsnorm'], _lib.LAUNCHES['flash_attention']) \
+        == (1, 1)
+    with pytest.raises(RuntimeError, match='forward-only'):
+        ops.rmsnorm(x.requires_grad_(), torch.ones(64, device=cuda))
+    with torch.no_grad():
+        ops.rmsnorm(x, torch.ones(64, device=cuda))
+    with pytest.raises(ValueError, match='divide block'):
+        ops.flash_attention(q, q, q, q_block=48)

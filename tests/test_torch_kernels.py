@@ -156,3 +156,64 @@ def test_row_split_covers_p_in_whole_tiles():
         assert rows % _lib.ROW_TILE == 0
         assert nblocks <= _lib.MAX_BLOCKS
         assert (nblocks - 1) * rows < p <= nblocks * rows
+
+
+# ----------------------------------------------------- kernels D and E
+# Tolerances of tests/test_kernels.py: rmsnorm 1e-5 (f32) / 2e-2 (bf16),
+# flash 2e-5 (f32) / 2e-2 (bf16), as rtol = atol. The Pallas kernels run in
+# interpret mode; on the CPU the port's wrappers run their plain versions.
+def _as_f32(x):
+    return np.asarray(x.float() if isinstance(x, torch.Tensor) else x,
+                      np.float32)
+
+
+@pytest.mark.parametrize('dtype', ['f32', 'bf16'])
+@pytest.mark.parametrize('shape', [(4, 128), (2, 3, 256), (5, 640), (6, 64)])
+def test_rmsnorm_matches_pallas(shape, dtype):
+    jx, tx = _pair(shape, 12, dtype)
+    js, ts = _pair(shape[-1:], 13, dtype)
+    got = ops.rmsnorm(tx, ts, 1e-5)
+    assert got.dtype == tx.dtype and got.shape == tx.shape
+    tol = 1e-5 if dtype == 'f32' else 2e-2
+    np.testing.assert_allclose(
+        _as_f32(got), _as_f32(jops.rmsnorm(jx, js, 1e-5, interpret=True)),
+        rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize('dtype', ['f32', 'bf16'])
+@pytest.mark.parametrize('causal', [True, False])
+@pytest.mark.parametrize('B,S,H,hd', [(1, 128, 2, 64), (2, 256, 4, 128)])
+def test_flash_attention_matches_pallas(B, S, H, hd, causal, dtype):
+    (jq, tq), (jk, tk), (jv, tv) = (_pair((B, S, H, hd), 14 + i, dtype)
+                                    for i in range(3))
+    got = ops.flash_attention(tq, tk, tv, causal=causal, q_block=64,
+                              k_block=64)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    want = jops.flash_attention(jq, jk, jv, causal=causal, q_block=64,
+                                k_block=64, interpret=True)
+    tol = 2e-5 if dtype == 'f32' else 2e-2
+    np.testing.assert_allclose(_as_f32(got), _as_f32(want), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.parametrize('call', [
+    lambda q: ops.flash_attention(q, q, q, q_block=64, k_block=64),
+    lambda q: ops.flash_attention(q, q[:, :64], q[:, :64], causal=True,
+                                  q_block=50, k_block=64),
+    lambda q: ops.flash_attention(*[torch.zeros(1, 64, 2, 300)] * 3),
+    lambda q: ops.rmsnorm(q, torch.ones(63)),
+    lambda q: ops.rmsnorm(q.double(), torch.ones(64, dtype=torch.float64)),
+])
+def test_model_kernels_reject_what_they_do_not_take(call):
+    """S = 100 against blocks of 64 (the Pallas kernel asserts the same),
+    causal with S ≠ T, hd > 256, a scale of the wrong width, float64."""
+    with pytest.raises(ValueError):
+        call(torch.zeros(1, 100, 2, 64))
+
+
+def test_model_kernels_on_cpu_are_not_counted():
+    _lib.reset_launches()
+    x = torch.randn(2, 64, 2, 16)
+    ops.rmsnorm(x, torch.ones(16))
+    ops.flash_attention(x, x, x)
+    assert set(_lib.LAUNCHES.values()) == {0}

@@ -23,12 +23,21 @@ for name in names:
     importlib.import_module(name)
 assert not any(k == 'jax' or k.startswith(('jax.', 'repro.'))
                for k, v in sys.modules.items() if v is not None)
+from repro_torch.configs import get_config
 from repro_torch.core import HypergradConfig, hypergrad_at, solve
+from repro_torch.launch.steps import build_prefill_step
+from repro_torch.models import build_model
+from repro_torch.models.transformer import init_params
 from repro_torch.tasks import build_logreg_weight_decay
 problem = build_logreg_weight_decay(D=5, n=8, device='cpu')
 if not torch.cuda.is_available():
     w = {'w': torch.zeros(5)}
     for name, call in [
+            ('build_prefill_step',
+             lambda: build_prefill_step(get_config('yi_9b').reduced())),
+            ('build_model', lambda: build_model(get_config('qwen2_7b'))),
+            ('init_params', lambda: init_params(
+                get_config('yi_9b').reduced(), torch.Generator())),
             ('solve', lambda: solve(problem, HypergradConfig(k=2,
                                                              backend='cuda'),
                                     n_outer=1)),
