@@ -6,7 +6,10 @@
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. Device: the card's name and power limit (``nvidia-smi``); TF32 off.
-2. Build: ``nvcc`` compiles ``src/repro_torch/csrc/*.cu`` for ``sm_90a``.
+2. Build: ``nvcc`` compiles ``src/repro_torch/csrc/*.cu`` for ``sm_90a``;
+   for each variant of kernel E, what ``-Xptxas -v`` said (registers,
+   spills) and its count of ``HGMMA`` instructions (``cuobjdump -sass``),
+   which must not be 0 for the tensor-core kernel.
 3. Kernels: each of the five Nyström kernel entry points against its plain
    PyTorch version, at the main path's shapes (p = 26,122, k = 10, m = 32)
    and at one large shape (p = 2²⁴, k = 64, m = 32) with f32 and bf16
@@ -44,7 +47,16 @@ The transformer's prefill (the second slice):
    their plain versions at the prefill's shapes: x (4·4096, 4096) in bf16
    and f32, and d = 1000; q/k/v (4, 4096, 32, 128) bf16, causal and not;
    f32 at (4, 4096, 32, 128) causal, (2, 256, 4, 128) and hd = 64; and
-   (1, 32768, 32, 128) bf16 causal (the ``prefill_32k`` length).
+   (1, 32768, 32, 128) bf16 causal (the ``prefill_32k`` length). Then with
+   4 KV heads read in place (Yi-9B's GQA): the prefill's own call, q
+   (4, 4096, 32, 128) and k/v (4, 4096, 4, 128) bf16 causal (the kernel's
+   record), the same at 32k, bf16 hd = 64, a ragged bf16 case (S = T =
+   100, non-causal), and the prefill's call with every base address 8
+   bytes off the 16-byte grid (kernel E's bf16 CUDA-core variant). Each
+   case prints the variant it launched, which must be the one the
+   wrapper's rule names (tensor cores for bf16 with hd 64 or 128 on the
+   16-byte grid), and is held against the plain version on the expanded
+   heads.
    Tolerances: |err| ≤ atol + rtol·|ref| elementwise. In f32 those of
    ``tests/test_kernels.py``, atol = rtol = 1e-5 (RMSNorm) and 2e-5
    (flash); RMSNorm in bf16 likewise at 2e-2. Flash in bf16 is held to one
@@ -53,31 +65,39 @@ The transformer's prefill (the second slice):
    dense plain attention is evaluated per batch row, and per head at 32k,
    to bound its (S, T) f32 scores. ``library_ms`` is
    ``F.rms_norm`` or ``F.scaled_dot_product_attention`` (yardsticks; the
-   port never calls them). Flash FLOPs are 4·B·H·S·T·hd, halved when
-   causal, over the bf16 peak where the inputs are bf16.
+   port never calls them; SDPA with ``enable_gqa`` where KV < H, and once
+   more on the expanded heads for the record case). Flash FLOPs are
+   4·B·H·S·T·hd, halved when causal, over the bf16 peak where the inputs
+   are bf16; flash bytes (2·B·S·H + 2·B·T·KV)·hd·elem, with the heads each
+   tensor has.
 8. Prefill: Yi-9B at full width and depth (48 layers, 8.8 B parameters),
    ``use_pallas=True``, random bf16 weights from a seeded generator
    (``serve_params``), a warm-up prefill, then 3 requests of 4 prompts ×
    4096 random tokens through ``build_prefill_step``. Each request must give
    finite logits (4, 64000) and launch RMSNorm exactly 96 times (ln1 and
-   ln2 of 48 layers) and flash 48 times. The same first request through the
-   plain path (``use_pallas=False``) gives the relative L2 of the logits
-   and the share of argmax tokens that agree, ungated.
+   ln2 of 48 layers) and flash 48 times, all 48 on the tensor-core
+   kernel. The same first request through the plain path
+   (``use_pallas=False``) gives the relative L2 of the logits and the
+   share of argmax tokens that agree, ungated.
 9. Where the prefill's time goes: one prefill under ``torch.profiler``,
    device time split into kernel E, kernel D, GEMMs and the rest, and the
    device's idle share against the unprofiled prefill.
 10. Parity on the card at full width, depth cut to 4 layers, B = 2,
     S = 2048: the kernel path against the plain path on the last
-    position's logits, relative L2 ≤ 1e-4 in f32 (params and compute) and
-    ≤ 2e-2 in bf16 serving.
+    position's logits, relative L2 ≤ 1e-4 in f32 (params and compute;
+    kernel E's CUDA-core variant) and ≤ 2e-2 in bf16 serving (its
+    tensor-core variant).
 
-The line before the last is the kernels' JSON record (seven rows); the last
+The line before the last is the kernels' JSON record (seven rows, kernel
+E's the tensor-core variant at the prefill's own call); the last
 line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 without the repository beside it, the script exits non-zero and prints no
 result.
 """
 import json
 import math
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -109,7 +129,7 @@ ROWS = [  # name, CUDA kernel, source, the TPU kernel it replaces
      'src/repro/kernels/woodbury.py:136'),
     ('rmsnorm', 'rmsnorm', 'src/repro_torch/csrc/rmsnorm.cu',
      'src/repro/kernels/rmsnorm.py:29'),
-    ('flash_attention', 'flash_attention',
+    ('flash_attention', 'flash_fwd_tc',
      'src/repro_torch/csrc/flash_attention.cu',
      'src/repro/kernels/flash_attention.py:80'),
 ]
@@ -174,6 +194,38 @@ def cases(torch, ops, ref, p, k, dtype, dev):
             (C, W, V), 2 * p * k * M + 2 * p * M,
             p * k * isz + 4 * k * M + 8 * p * M, False),
     }
+
+
+def report_flash_build(path) -> None:
+    """Phase 2: what ptxas said of kernel E's variants (registers, spills)
+    and the count of tensor-core instructions (HGMMA) in each one's SASS;
+    the tensor-core variants must hold some."""
+    from repro_torch.kernels import _lib
+    fn = None
+    for line in _lib.build_log().splitlines():
+        m = re.search(r'Function properties for (\S+)', line)
+        if m:
+            fn = m.group(1)
+        elif fn and 'flash_fwd' in fn and ('spill' in line
+                                           or 'Used' in line):
+            print(f'ptxas: {fn}: {line.split(":", 1)[-1].strip()}',
+                  flush=True)
+    tool = shutil.which('cuobjdump') or '/usr/local/cuda/bin/cuobjdump'
+    sass = subprocess.run([tool, '-sass', str(path)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts: dict = {}
+    for line in sass.splitlines():
+        m = re.search(r'Function : (\S+)', line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = 0
+        elif fn in counts and 'HGMMA' in line:
+            counts[fn] += 1
+    for fn, n in counts.items():
+        if 'flash_fwd' in fn:
+            print(f'sass: {fn}: {n} HGMMA instructions', flush=True)
+            if 'flash_fwd_tc' in fn and n == 0:
+                raise AssertionError(f'{fn} holds no HGMMA instruction')
 
 
 def check_kernels(torch, ops, ref, p, k, dtype, dev, exact_ref: bool):
@@ -274,10 +326,23 @@ def _timed(torch, label: str, kern, plain, lib, flops: float, nbytes: float,
     return rec
 
 
+def _shifted(t):
+    """t's values in a tensor whose base address is 8 bytes past the
+    16-byte grid (strides unchanged)."""
+    n = 8 // t.element_size()
+    buf = t.new_empty(t.numel() + n)
+    out = buf[n:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
 def check_model_kernels(torch, ops, ref, dev) -> dict:
     """Phase 7: kernels D and E against their plain versions; the records
-    at the prefill's shapes (bf16, causal)."""
+    at the prefill's shapes (bf16, causal; flash with Yi-9B's 4 KV
+    heads)."""
     import torch.nn.functional as F
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels.flash_attention import expand_kv
     g = torch.Generator().manual_seed(7)
 
     def rnd(shape, dtype):
@@ -301,45 +366,77 @@ def check_model_kernels(torch, ops, ref, dev) -> dict:
             out['rmsnorm'] = rec
         del x, sc
 
-    cases = [((PREFILL_B, PREFILL_S, 32, 128), torch.bfloat16, True),
-             ((PREFILL_B, PREFILL_S, 32, 128), torch.bfloat16, False),
-             ((PREFILL_B, PREFILL_S, 32, 128), torch.float32, True),
-             ((2, 256, 4, 128), torch.float32, True),
-             ((2, 256, 4, 128), torch.float32, False),
-             ((2, 256, 4, 64), torch.float32, True),
-             ((1, LONG_S, 32, 128), torch.bfloat16, True)]
-    for shape, dtype, causal in cases:
+    # (q shape, KV heads, dtype, causal, base address off the 16-byte grid)
+    P4 = (PREFILL_B, PREFILL_S, 32, 128)
+    cases = [(P4, 32, torch.bfloat16, True, False),
+             (P4, 32, torch.bfloat16, False, False),
+             (P4, 32, torch.float32, True, False),
+             ((2, 256, 4, 128), 4, torch.float32, True, False),
+             ((2, 256, 4, 128), 4, torch.float32, False, False),
+             ((2, 256, 4, 64), 4, torch.float32, True, False),
+             ((1, LONG_S, 32, 128), 32, torch.bfloat16, True, False),
+             # the prefill's own call: Yi-9B's 4 KV heads read in place
+             (P4, 4, torch.bfloat16, True, False),
+             ((1, LONG_S, 32, 128), 4, torch.bfloat16, True, False),
+             ((PREFILL_B, PREFILL_S, 32, 64), 4, torch.bfloat16, True, False),
+             ((2, 100, 4, 128), 4, torch.bfloat16, False, False),
+             # the bf16 CUDA-core variant at the prefill's shape
+             (P4, 4, torch.bfloat16, True, True)]
+    for shape, KV, dtype, causal, off_grid in cases:
         B, S, H, hd = shape
-        q, k, v = (rnd(shape, dtype) for _ in range(3))
+        kv_shape = (B, S, KV, hd)
+        q, k, v = rnd(shape, dtype), rnd(kv_shape, dtype), rnd(kv_shape, dtype)
+        if off_grid:   # 8 bytes past the grid: the CUDA-core kernel's
+            q, k, v = (_shifted(t) for t in (q, k, v))   # 8-byte loads
         # f32: test_kernels.py's 2e-5; bf16: one ulp of the rounded output
         atol, rtol = ((2e-5, 2e-5) if dtype == torch.float32
                       else (1e-5, 2.0 ** -7))
+        before = _lib.LAUNCHES['flash_attention_tc']
         got = ops.flash_attention(q, k, v, causal=causal)
+        tc = _lib.LAUNCHES['flash_attention_tc'] > before
+        if tc != (dtype == torch.bfloat16 and hd in (64, 128)
+                  and not off_grid):
+            raise AssertionError(f'flash {shape}: the dispatch rule chose '
+                                 f'tensor cores={tc}')
+        variant = 'tensor-core' if tc else 'cuda-core'
         # the dense plain version holds (rows, H, S, S) f32 scores: take it
-        # per batch row, and per head at 32k
+        # per batch row, and per head at 32k, on the expanded KV heads
         if S > PREFILL_S:
             parts = [(slice(None), slice(h, h + 1)) for h in range(H)]
         else:
             parts = [(slice(b, b + 1), slice(None)) for b in range(B)]
-        plain = lambda bi, hi: ref.flash_attention(  # noqa: E731
-            q[bi][:, :, hi], k[bi][:, :, hi], v[bi][:, :, hi], causal=causal)
-        err = max(_gate(f'flash {shape} {dtype} causal={causal}',
-                        got[bi][:, :, hi], plain(bi, hi), atol, rtol)
-                  for bi, hi in parts)
+
+        def plain(k, v):
+            kx, vx = expand_kv(k, H // KV), expand_kv(v, H // KV)
+            return [ref.flash_attention(q[bi][:, :, hi], kx[bi][:, :, hi],
+                                        vx[bi][:, :, hi], causal=causal)
+                    for bi, hi in parts]
+        label = (f'flash_attention {shape} kv={KV} {str(dtype)[6:]} '
+                 f'causal={causal}{" off-grid" if off_grid else ""} '
+                 f'[{variant}]')
+        err = max(_gate(label, got[bi][:, :, hi], want, atol, rtol)
+                  for (bi, hi), want in zip(parts, plain(k, v)))
         del got
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         big = S > PREFILL_S
         rec = _timed(
-            torch, f'flash_attention {shape} {str(dtype)[6:]} causal={causal}',
+            torch, label,
             lambda: ops.flash_attention(q, k, v, causal=causal),
-            lambda: [plain(bi, hi) for bi, hi in parts],
-            lambda: F.scaled_dot_product_attention(qt, kt, vt,
-                                                   is_causal=causal),
+            lambda: plain(k, v),
+            lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=KV != H),
             4 * B * H * S * S * hd / (2 if causal else 1),
-            4 * B * S * H * hd * q.element_size(), dtype == torch.bfloat16,
-            err, 2 if big else 5, 1 if big else 2)
-        if shape[1] == PREFILL_S and causal and dtype == torch.bfloat16:
+            (2 * B * S * H + 2 * B * S * KV) * hd * q.element_size(),
+            dtype == torch.bfloat16, err, 2 if big else 5, 1 if big else 2)
+        if (shape == P4 and KV == 4 and causal and dtype == torch.bfloat16
+                and not off_grid):
             out['flash_attention'] = rec
+            kx, vx = (expand_kv(t, H // KV).transpose(1, 2) for t in (k, v))
+            ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, kx, vx, is_causal=True), 5, 2)
+            print(f'flash_attention {shape} kv={KV}: SDPA on the expanded '
+                  f'heads {ms:.4f} ms (a yardstick)', flush=True)
+            del kx, vx
         del q, k, v, qt, kt, vt
         torch.cuda.empty_cache()
     return out
@@ -426,7 +523,9 @@ def run_prefill(torch, dev) -> dict:
 
     torch.cuda.reset_peak_memory_stats()
     _lib.reset_launches()
-    want = {'rmsnorm': 2 * cfg.n_layers, 'flash_attention': cfg.n_layers}
+    # every flash launch of a request on the tensor-core kernel
+    want = {'rmsnorm': 2 * cfg.n_layers, 'flash_attention': cfg.n_layers,
+            'flash_attention_tc': cfg.n_layers}
     secs, first = [], None
     for i, batch in enumerate(batches[1:]):
         before = dict(_lib.LAUNCHES)
@@ -485,11 +584,15 @@ def parity_cut_depth(torch, dev) -> None:
         _lib.reset_launches()
         kern = build_prefill_step(dataclasses.replace(c, use_pallas=True))(
             prm, batch)
-        counts = (_lib.LAUNCHES['rmsnorm'], _lib.LAUNCHES['flash_attention'])
+        counts = (_lib.LAUNCHES['rmsnorm'], _lib.LAUNCHES['flash_attention'],
+                  _lib.LAUNCHES['flash_attention_tc'])
         plain = build_prefill_step(dataclasses.replace(c, use_pallas=False))(
             prm, batch)
         err = _rel_l2(kern, plain)
-        if not err <= tol or counts != (2 * PARITY_LAYERS, PARITY_LAYERS):
+        # f32 runs kernel E's CUDA-core variant, bf16 its tensor-core one
+        tc = PARITY_LAYERS if dtype == 'bfloat16' else 0
+        if not err <= tol or counts != (2 * PARITY_LAYERS, PARITY_LAYERS,
+                                        tc):
             raise AssertionError(f'parity {label}: rel L2 {err:.3e} '
                                  f'(tol {tol}), launches {counts}')
         print(f'parity {label}: yi-9b full width, depth cut to '
@@ -524,6 +627,7 @@ def main() -> None:
     path, secs = _lib.build()
     _lib.lib()
     print(f'build: {path.name} in {secs:.1f} s', flush=True)
+    report_flash_build(path)
 
     # 3. kernels against their plain versions --------------------------------
     main_rec = check_kernels(torch, ops, ref, MAIN_P, MAIN_K, torch.float32,
@@ -634,7 +738,9 @@ def main() -> None:
     # records -----------------------------------------------------------------
     records = []
     for kname, kernel, source, replaces in ROWS:
-        if kname in ('rmsnorm', 'flash_attention'):
+        if kname == 'flash_attention':   # the row of the tensor-core kernel
+            path_launches = {kname: prefill_launches['flash_attention_tc']}
+        elif kname == 'rmsnorm':
             path_launches = prefill_launches
         elif kname in ('nystrom_cross', 'woodbury_apply_block'):
             path_launches = block_launches

@@ -1,38 +1,87 @@
 // Kernel E: attention forward, out = softmax(q k^T * scale [causal]) v, for
-// q (B, S, H, hd) and k, v (B, T, H, hd) with H already GQA-expanded,
-// hd <= 256, in f32 or bf16; out (B, S, H, hd) contiguous, in q's dtype.
+// q (B, S, H, hd) and k, v (B, T, KV, hd) with H % KV == 0: query head h
+// reads KV head h / (H / KV) in place (GQA, no expanded copy). out is
+// (B, S, H, hd) contiguous, in q's dtype.
 //
 // Replaces src/repro/kernels/flash_attention.py:flash_attention
 // (_make_kernel), the attention of every layer of a prefill longer than
 // attn_chunk.
 //
-// What it computes is the TPU kernel's arithmetic: inputs widened to f32,
-// scores, softmax statistics, probabilities and the accumulator all in f32,
-// the online-softmax recurrence over key tiles, out = acc / max(l, 1e-30).
-// The causal diagonal is aligned top-left (a query at position i sees keys
-// 0..i), as in the TPU kernel; with S == T that is the usual mask.
+// What it computes is the TPU kernel's arithmetic: q k^T accumulated in
+// f32, then times scale in f32; the softmax statistics, probabilities and
+// accumulator in f32; the online-softmax recurrence over key tiles;
+// out = acc / max(l, 1e-30), rounded once. The causal diagonal is aligned
+// top-left (a query at position i sees keys 0..i), as in the TPU kernel;
+// with S == T that is the usual mask.
 //
-// What bounds it on an H100: operations. 4 B H S T hd FLOP (half of it
-// when causal) against (2 B S + 2 B T) H hd elements moved; at prefill
-// lengths that is thousands of FLOP per byte. This kernel multiplies on
-// the CUDA cores in f32 (67 TFLOP/s), not on the tensor cores: it is the
-// right-first version, and its bound is stated against the bf16 tensor-core
-// peak where the inputs are bf16.
+// What bounds it on an H100: operations. 4 B H S T hd FLOP (half of it when
+// causal) against (2 B S H + 2 B T KV) hd elements moved; at prefill
+// lengths that is thousands of FLOP per byte, far above the card's ~295.
 //
-// Design: one block of 256 threads per (64-query tile, head, batch row);
-// grid (ceil(S/64), H, B), the latest query tiles first, since under the
-// causal mask they carry the most key tiles. The query tile stays in shared
-// memory; key and value tiles of 64 rows are staged in shared memory in
-// turn, read in place through q/k/v's strides (no (B*H, S, hd) copy).
-// Thread (ty, tx) of a 16 x 16 grid owns a 4 x 4 register tile of the
-// scores (rows 4ty..4ty+3, columns tx + 16j) and the same four rows of the
-// accumulator (columns tx + 16j, j < HD/16): per 4-deep step of q k^T it
-// makes 8 16-byte shared loads for 64 FMAs, per 4 keys of p v it makes
-// 4 + 4 HD/16 loads for 4 HD FMAs. A row's max and sum fold over its 16
-// lanes with shuffles (the lanes are one half-warp). Key tiles wholly past
-// the diagonal are not visited; the diagonal tile is masked element by
-// element, as are keys past T and queries past S. The probabilities are
-// staged through shared memory, in the buffer the key tile used.
+// Two kernels; the wrapper (kernels/flash_attention.py) picks one by an
+// explicit rule on dtype, hd and alignment:
+//
+// flash_fwd_tc<HD> -- bf16, hd in {64, 128}, every base address and stride
+// on the 16-byte grid. Both products on the tensor cores (wgmma):
+//   * CTA = 128 query rows of one (head, batch row): two consumer
+//     warpgroups of 64 rows and one producer warp; grid (H, B, S / 128),
+//     the latest query tiles (the most key tiles under the mask) first.
+//   * The producer warp loads Q once and K/V tiles of 64 keys into a
+//     2-stage ring with TMA (cp.async.bulk.tensor), completion counted in
+//     bytes on an mbarrier per stage; each consumer warp releases a stage
+//     (an "empty" mbarrier of 8 arrivals) once both of its products are
+//     done. Tensor maps are built on the host in each call over the tensors
+//     as they lie (4-d: hd, heads, rows, batch, through their strides) and
+//     passed as __grid_constant__ parameters; cuTensorMapEncodeTiled is
+//     reached through cudaGetDriverEntryPoint, so no -lcuda. TMA fills rows
+//     past S or T with zeros; a zero key scores 0, not -1e30, so keys past
+//     T are still masked in registers.
+//   * S = Q K^T: wgmma m64n64k16, both operands K-major in shared memory
+//     (rows contiguous along hd, the reduction axis), f32 accumulators.
+//   * Softmax in registers on the accumulator layout: a row's 16 values a
+//     lane, its max and sum folded over the quad of lanes that share it.
+//     Only the diagonal tile and a ragged last tile are masked; tiles
+//     wholly past a warpgroup's diagonal are skipped (but still released).
+//   * O += P V: P stays in registers as the A operand, split into two bf16
+//     fragments hi = bf16(P) and lo = bf16(P - hi), two wgmma m64n{HD}k16
+//     into one f32 accumulator. P in bf16 alone misses the one-ulp gate on
+//     near-zero outputs; hi + lo carries 16 bits of P and stays within it
+//     (tests/test_torch_kernels.py simulates both on the CPU). The
+//     split makes the tensor-core work 1.5x the algorithm's. V is the B
+//     operand from shared memory, MN-major (its rows run along hd = N):
+//     the transpose bit, allowed for 16-bit types.
+//   * 64-key tiles, not 128: a consumer lane then holds 32 score, 16 + 16
+//     P-fragment and HD/2 output registers (128 at hd = 128) and needs no
+//     setmaxnreg; at 128 keys the split's fragments would double to 64
+//     registers beside 64 scores and 64 outputs. Shared memory is 32 KB of
+//     Q plus 2 x 32 KB of K/V at hd = 128, one CTA per SM.
+//   Trouble spots: (1) the 128-byte swizzle: a 256-byte row at hd = 128 is
+//   loaded as two 64-column boxes, each its own 1024-byte-aligned block of
+//   128-byte rows; a descriptor steps 32 bytes along a row per 16 columns
+//   (K-major) or 2048 bytes per 16 keys (V), and LBO = the box's size
+//   reaches V's second 64 columns. (2) The accumulator layout turned into
+//   A fragments: registers 8kk..8kk+7 of the scores are the A fragment of
+//   keys 16kk..16kk+15, pairs packed low column first. (3) Registers:
+//   -Xptxas -v is printed by chip_smoke.py; no setmaxnreg unless it spills.
+//   (4) mbarrier phases: tile i uses stage i % 2 and waits for parity
+//   (i / 2) & 1; the producer waits for the previous round's release.
+//
+// flash_fwd<T, HD> -- everything else: f32 inputs (the tensor cores cannot
+// give IEEE f32; f32 attention serves parity checks, not serving), and bf16
+// with hd not in {64, 128} or off the 16-byte grid. It multiplies on the
+// CUDA cores in f32 (67 TFLOP/s): one block of 256 threads per (64-query
+// tile, head, batch row); grid (ceil(S/64), H, B), the latest query tiles
+// first. The query tile stays in shared memory; key and value tiles of 64
+// rows are staged in shared memory in turn, read in place through q/k/v's
+// strides. Thread (ty, tx) of a 16 x 16 grid owns a 4 x 4 register tile of
+// the scores (rows 4ty..4ty+3, columns tx + 16j) and the same four rows of
+// the accumulator (columns tx + 16j, j < HD/16). A row's max and sum fold
+// over its 16 lanes with shuffles. Key tiles wholly past the diagonal are
+// not visited; the diagonal tile is masked element by element, as are keys
+// past T and queries past S. The probabilities are staged through shared
+// memory, in the buffer the key tile used.
+#include <cuda.h>
+
 #include "common.cuh"
 
 namespace rt {
@@ -109,8 +158,8 @@ template <typename T, int HD>
 __global__ void __launch_bounds__(kFlashThreads, HD <= 128 ? 2 : 1)
     flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, T* __restrict__ out, int S, int Tn,
-              int H, int hd, Strides qs, Strides ks, Strides vs, float scale,
-              int causal, int vec_q, int vec_k, int vec_v) {
+              int H, int group, int hd, Strides qs, Strides ks, Strides vs,
+              float scale, int causal, int vec_q, int vec_k, int vec_v) {
   constexpr int LD = Tile<HD>::LD;
   constexpr int NJ = HD / 16;   // accumulator columns per thread
   extern __shared__ float4 smem4[];
@@ -122,8 +171,8 @@ __global__ void __launch_bounds__(kFlashThreads, HD <= 128 ? 2 : 1)
   const int h = blockIdx.y, b = blockIdx.z;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const T* qh = q + b * qs.b + h * qs.h;
-  const T* kh = k + b * ks.b + h * ks.h;
-  const T* vh = v + b * vs.b + h * vs.h;
+  const T* kh = k + b * ks.b + (h / group) * ks.h;   // GQA: KV head h/group
+  const T* vh = v + b * vs.b + (h / group) * vs.h;
 
   load_tile<T, HD>(sQ, qh, qs.s, q0, S, hd, vec_q);
 
@@ -249,8 +298,9 @@ static bool vec_ok(const void* p, const Strides& st, int hd) {
 
 template <typename T, int HD>
 static int launch(const void* q, const void* k, const void* v, void* out,
-                  int B, int S, int Tn, int H, int hd, Strides qs, Strides ks,
-                  Strides vs, float scale, int causal, cudaStream_t stream) {
+                  int B, int S, int Tn, int H, int group, int hd, Strides qs,
+                  Strides ks, Strides vs, float scale, int causal,
+                  cudaStream_t stream) {
   auto kernel = flash_fwd<T, HD>;
   const size_t smem = Tile<HD>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
@@ -259,51 +309,563 @@ static int launch(const void* q, const void* k, const void* v, void* out,
   const dim3 grid((S + kBQ - 1) / kBQ, H, B);
   kernel<<<grid, kFlashThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), S, Tn, H, hd, qs, ks,
-      vs, scale, causal, vec_ok<T>(q, qs, hd), vec_ok<T>(k, ks, hd),
+      static_cast<const T*>(v), static_cast<T*>(out), S, Tn, H, group, hd,
+      qs, ks, vs, scale, causal, vec_ok<T>(q, qs, hd), vec_ok<T>(k, ks, hd),
       vec_ok<T>(v, vs, hd));
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 static int dispatch_hd(const void* q, const void* k, const void* v,
-                       void* out, int B, int S, int Tn, int H, int hd,
-                       Strides qs, Strides ks, Strides vs, float scale,
-                       int causal, cudaStream_t st) {
+                       void* out, int B, int S, int Tn, int H, int group,
+                       int hd, Strides qs, Strides ks, Strides vs,
+                       float scale, int causal, cudaStream_t st) {
   if (hd <= 32)
-    return launch<T, 32>(q, k, v, out, B, S, Tn, H, hd, qs, ks, vs, scale,
-                         causal, st);
+    return launch<T, 32>(q, k, v, out, B, S, Tn, H, group, hd, qs, ks, vs,
+                         scale, causal, st);
   if (hd <= 64)
-    return launch<T, 64>(q, k, v, out, B, S, Tn, H, hd, qs, ks, vs, scale,
-                         causal, st);
+    return launch<T, 64>(q, k, v, out, B, S, Tn, H, group, hd, qs, ks, vs,
+                         scale, causal, st);
   if (hd <= 128)
-    return launch<T, 128>(q, k, v, out, B, S, Tn, H, hd, qs, ks, vs, scale,
-                          causal, st);
-  return launch<T, 256>(q, k, v, out, B, S, Tn, H, hd, qs, ks, vs, scale,
-                        causal, st);
+    return launch<T, 128>(q, k, v, out, B, S, Tn, H, group, hd, qs, ks, vs,
+                          scale, causal, st);
+  return launch<T, 256>(q, k, v, out, B, S, Tn, H, group, hd, qs, ks, vs,
+                        scale, causal, st);
+}
+
+// ===================================================================
+// The tensor-core kernel: bf16, hd in {64, 128}, TMA + wgmma (see the
+// note at the top of the file).
+// ===================================================================
+
+constexpr int kTcBQ = 128;                // queries per CTA
+constexpr int kTcBK = 64;                 // keys per K/V tile
+constexpr int kTcStages = 2;              // K/V ring depth
+constexpr int kTcConsumerWarps = 8;       // two warpgroups of 64 query rows
+constexpr int kTcThreads = 32 * kTcConsumerWarps + 32;   // + producer warp
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int HD>
+struct TcTile {
+  static constexpr int HALVES = HD / 64;      // 128-byte column boxes a row
+  static constexpr int Q_HALF = kTcBQ * 128;  // bytes of one Q column box
+  static constexpr int KV_HALF = kTcBK * 128;
+  static constexpr int Q_BYTES = HALVES * Q_HALF;
+  static constexpr int KV_BYTES = HALVES * KV_HALF;   // one K or V tile
+  static constexpr int STAGE_BYTES = 2 * KV_BYTES;    // K then V
+  static constexpr int BAR_OFFSET = Q_BYTES + kTcStages * STAGE_BYTES;
+  // 1024 bytes of slack to put the swizzled tiles on a 1024-byte grid
+  static constexpr size_t bytes =
+      1024 + BAR_OFFSET + sizeof(uint64_t) * (1 + 2 * kTcStages);
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Wait until the phase of the barrier with this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One TMA box of a (hd, heads, rows, batch) map into shared memory;
+// completion is counted in bytes on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int col, int head,
+                                         int row, int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(head),
+      "r"(row), "r"(batch)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a tile stored as 128-byte rows with
+// TMA's 128-byte swizzle (8-row atoms of 1024 bytes on a 1024-byte grid).
+// K-major (q, k): lbo unused, sbo = 1024 (next 8 rows). MN-major (v):
+// lbo = the distance to the next 64 columns of N, sbo = 1024 (next 8 rows
+// of K).
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 |
+         static_cast<uint64_t>(1) << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Keep the compiler from moving reads of a wgmma accumulator above the
+// wait that completes it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// D (64 x N, f32) [+]= A (64 x 16) * B (16 x N), bf16. wgmma_ss: A and B
+// K-major in shared memory (scale_d = 0 overwrites D). wgmma_rs: A in
+// registers (four bf16 pairs a lane), B MN-major in shared memory.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+__device__ __forceinline__ void wgmma_rs(float (&d)[64],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat162 x) {
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+
+// grid (H, B, ceil(S / 128)), the latest query tiles first; 288 threads:
+// warps 0-7 are two consumer warpgroups (query rows 0-63 and 64-127 of the
+// tile), warp 8 the producer. Thread layout of a consumer (the wgmma
+// accumulator's): warp w of the group, lane l holds rows 16w + l/4 and
+// 16w + l/4 + 8, columns 8j + 2(l%4) + {0, 1} for each 8-column group j.
+template <int HD>
+__global__ void __launch_bounds__(kTcThreads, 1)
+    flash_fwd_tc(const __grid_constant__ CUtensorMap qmap,
+                 const __grid_constant__ CUtensorMap kmap,
+                 const __grid_constant__ CUtensorMap vmap,
+                 __nv_bfloat16* __restrict__ out, int S, int Tn, int H,
+                 int group, float scale, int causal) {
+  using L = TcTile<HD>;
+  constexpr int NS = kTcBK / 2;   // score registers a lane
+  constexpr int NO = HD / 2;      // output registers a lane
+  constexpr int KSTEPS = kTcBK / 16;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sQ = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t sKV = sQ + L::Q_BYTES;   // stage s: K, then V
+  const uint32_t bars = sQ + L::BAR_OFFSET;
+  const uint32_t q_full = bars;
+  auto full = [&](int s) { return bars + 8 * (1 + s); };
+  auto empty = [&](int s) { return bars + 8 * (1 + kTcStages + s); };
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kTcBQ;
+  // keys past the tile's last query are never visited under the mask
+  const int k_end = causal ? min(Tn, q0 + kTcBQ) : Tn;
+  const int n_tiles = (k_end + kTcBK - 1) / kTcBK;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kTcStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), kTcConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kTcConsumerWarps) {
+    // producer: one lane issues every copy
+    if (lane == 0) {
+      const int kvh = h / group;   // GQA: KV head read in place
+      mbar_expect_tx(q_full, L::Q_BYTES);
+#pragma unroll
+      for (int c = 0; c < L::HALVES; ++c)
+        tma_load(sQ + c * L::Q_HALF, &qmap, q_full, 64 * c, h, q0, b);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % kTcStages, round = i / kTcStages;
+        if (round > 0) mbar_wait(empty(s), (round - 1) & 1);
+        mbar_expect_tx(full(s), L::STAGE_BYTES);
+        const uint32_t sK = sKV + s * L::STAGE_BYTES, sV = sK + L::KV_BYTES;
+#pragma unroll
+        for (int c = 0; c < L::HALVES; ++c) {
+          tma_load(sK + c * L::KV_HALF, &kmap, full(s), 64 * c, kvh,
+                   i * kTcBK, b);
+          tma_load(sV + c * L::KV_HALF, &vmap, full(s), 64 * c, kvh,
+                   i * kTcBK, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers
+  const int wg = warp / 4, wi = warp % 4;
+  const int q_first = q0 + 64 * wg;               // the group's first row
+  const int row_a = q_first + 16 * wi + lane / 4;
+  const int row_b = row_a + 8;
+  const int col_l = 2 * (lane % 4);
+  const uint32_t sQg = sQ + 64 * wg * 128;        // the group's 64 rows
+
+  float o[NO], sc[NS];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) o[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < NS; ++i) sc[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  mbar_wait(q_full, 0);
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i % kTcStages;
+    const int k0 = i * kTcBK;
+    const uint32_t sK = sKV + s * L::STAGE_BYTES, sV = sK + L::KV_BYTES;
+    mbar_wait(full(s), (i / kTcStages) & 1);
+    // a tile wholly past this group's diagonal adds nothing: skip it
+    if (!causal || k0 <= q_first + 63) {
+      // S = Q K^T: hd/16 steps of 16 columns, 32 bytes along each row
+      wgmma_fence();
+#pragma unroll
+      for (int c = 0; c < L::HALVES; ++c)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss(sc,
+                   sw128_desc(sQg + c * L::Q_HALF + 32 * kk, 16, 1024),
+                   sw128_desc(sK + c * L::KV_HALF + 32 * kk, 16, 1024),
+                   (c | kk) != 0);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(sc);
+
+      // online softmax in f32 on the accumulator layout
+      const bool edge = (causal && k0 + kTcBK - 1 > q_first) ||
+                        k0 + kTcBK > Tn;
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int j = 0; j < NS / 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = sc[4 * j + e] * scale;
+          if (edge) {
+            const int kpos = k0 + 8 * j + col_l + (e & 1);
+            const int qpos = e < 2 ? row_a : row_b;
+            if (kpos >= Tn || (causal && kpos > qpos)) x = kNegInf;
+          }
+          sc[4 * j + e] = x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+      float alpha[2], part[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        // a row lives on the four lanes of one quad
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m[r], mx[r]);
+        alpha[r] = exp2f((m[r] - m_new) * kLog2e);
+        m[r] = m_new;
+      }
+#pragma unroll
+      for (int i2 = 0; i2 < NS; ++i2) {
+        const int r = (i2 >> 1) & 1;
+        sc[i2] = exp2f((sc[i2] - m[r]) * kLog2e);
+        part[r] += sc[i2];
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + part[r];
+#pragma unroll
+      for (int i2 = 0; i2 < NO; ++i2) o[i2] *= alpha[(i2 >> 1) & 1];
+
+      // P = hi + lo, two bf16 A fragments; the accumulator's layout is
+      // the A operand's: 16 keys kk hold registers 8kk .. 8kk + 7
+      uint32_t hi[KSTEPS][4], lo[KSTEPS][4];
+#pragma unroll
+      for (int kk = 0; kk < KSTEPS; ++kk)
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          const float p0 = sc[8 * kk + 2 * t], p1 = sc[8 * kk + 2 * t + 1];
+          const __nv_bfloat162 h2 = __floats2bfloat162_rn(p0, p1);
+          const float2 hf = __bfloat1622float2(h2);
+          hi[kk][t] = pack_bf16(h2);
+          lo[kk][t] = pack_bf16(__floats2bfloat162_rn(p0 - hf.x, p1 - hf.y));
+        }
+
+      // O += P V: 16 keys (2048 bytes of V) a step, V MN-major
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < KSTEPS; ++kk) {
+        const uint64_t dv = sw128_desc(sV + 2048 * kk, L::KV_HALF, 1024);
+        wgmma_rs(o, hi[kk], dv);
+        wgmma_rs(o, lo[kk], dv);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(o);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(s));   // both products are done
+  }
+
+  // out = acc / max(l, 1e-30), rounded once to bf16
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    l[r] = fmaxf(l[r], 1e-30f);
+  }
+  const int64_t ld = (int64_t)H * HD;
+  __nv_bfloat16* oa = out + ((int64_t)b * S + row_a) * ld + (int64_t)h * HD;
+  __nv_bfloat16* ob = oa + 8 * ld;
+#pragma unroll
+  for (int j = 0; j < NO / 4; ++j) {
+    const int col = 8 * j + col_l;
+    if (row_a < S)
+      *reinterpret_cast<__nv_bfloat162*>(oa + col) = __floats2bfloat162_rn(
+          o[4 * j] / l[0], o[4 * j + 1] / l[0]);
+    if (row_b < S)
+      *reinterpret_cast<__nv_bfloat162*>(ob + col) = __floats2bfloat162_rn(
+          o[4 * j + 2] / l[1], o[4 * j + 3] / l[1]);
+  }
+}
+
+// cuTensorMapEncodeTiled, reached through the runtime (no -lcuda)
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+static EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                     cudaEnableDefault, &found);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                            &found);
+#endif
+    if (found == cudaDriverEntryPointSuccess) fn = (EncodeTiled)p;
+  }
+  return fn;
+}
+
+// A (hd, heads, rows, batch) map over a bf16 tensor as it lies, boxes of
+// 64 columns x box_rows rows of one head, 128-byte swizzle, rows past the
+// end read as zeros.
+static bool encode_map(CUtensorMap* map, const void* ptr, int hd, int heads,
+                       int rows, int batch, const Strides& st,
+                       int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads,
+                              (cuuint64_t)rows, (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)st.h * 2, (cuuint64_t)st.s * 2,
+                                 (cuuint64_t)st.b * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)box_rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int HD>
+static int launch_tc(const void* q, const void* k, const void* v, void* out,
+                     int B, int S, int Tn, int H, int KV, Strides qs,
+                     Strides ks, Strides vs, float scale, int causal,
+                     cudaStream_t stream) {
+  CUtensorMap qmap, kmap, vmap;
+  if (!encode_map(&qmap, q, HD, H, S, B, qs, kTcBQ) ||
+      !encode_map(&kmap, k, HD, KV, Tn, B, ks, kTcBK) ||
+      !encode_map(&vmap, v, HD, KV, Tn, B, vs, kTcBK))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = flash_fwd_tc<HD>;
+  const size_t smem = TcTile<HD>::bytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(H, B, (S + kTcBQ - 1) / kTcBQ);
+  kernel<<<grid, kTcThreads, smem, stream>>>(
+      qmap, kmap, vmap, static_cast<__nv_bfloat16*>(out), S, Tn, H, H / KV,
+      scale, causal);
+  return (int)cudaGetLastError();
+}
+
+// TMA's condition on a bf16 tensor: base address and strides (positive)
+// on the 16-byte grid.
+static bool aligned16(const void* p, const Strides& st) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && st.b > 0 &&
+         st.s > 0 && st.h > 0 && st.b % 8 == 0 && st.s % 8 == 0 &&
+         st.h % 8 == 0;
 }
 
 }  // namespace rt
 
-// Strides in elements, each (batch, sequence, head); the hd axis must have
-// stride 1. q, k, v and out share one dtype; out is (B, S, H, hd)
-// contiguous.
+// Both entry points: q (B, S, H, hd), k and v (B, T, KV, hd) with H % KV
+// == 0 (query head h reads KV head h / (H / KV)); strides in elements,
+// each (batch, sequence, head), the hd axis of stride 1; out (B, S, H, hd)
+// contiguous, in q's dtype.
+
+// The CUDA-core kernel: f32 or bf16, hd <= 256.
 extern "C" int rt_flash_attention(
     const void* q, const void* k, const void* v, void* out, int dtype, int B,
-    int S, int T, int H, int hd, long long qsb, long long qss, long long qsh,
-    long long ksb, long long kss, long long ksh, long long vsb, long long vss,
-    long long vsh, float scale, int causal, void* stream) {
+    int S, int T, int H, int KV, int hd, long long qsb, long long qss,
+    long long qsh, long long ksb, long long kss, long long ksh,
+    long long vsb, long long vss, long long vsh, float scale, int causal,
+    void* stream) {
   using namespace rt;
-  if (B < 1 || S < 1 || T < 1 || H < 1 || hd < 1 || hd > 256 || B > 65535 ||
-      H > 65535)
+  if (B < 1 || S < 1 || T < 1 || H < 1 || KV < 1 || H % KV != 0 || hd < 1 ||
+      hd > 256 || B > 65535 || H > 65535)
     return (int)cudaErrorInvalidValue;
   const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh};
   auto st = static_cast<cudaStream_t>(stream);
   if (dtype == kF32)
-    return dispatch_hd<float>(q, k, v, out, B, S, T, H, hd, qs, ks, vs,
-                              scale, causal, st);
+    return dispatch_hd<float>(q, k, v, out, B, S, T, H, H / KV, hd, qs, ks,
+                              vs, scale, causal, st);
   if (dtype == kBF16)
-    return dispatch_hd<__nv_bfloat16>(q, k, v, out, B, S, T, H, hd, qs, ks,
-                                      vs, scale, causal, st);
+    return dispatch_hd<__nv_bfloat16>(q, k, v, out, B, S, T, H, H / KV, hd,
+                                      qs, ks, vs, scale, causal, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The tensor-core kernel: bf16, hd 64 or 128, every base address and
+// stride on the 16-byte grid, the strides positive.
+extern "C" int rt_flash_attention_tc(
+    const void* q, const void* k, const void* v, void* out, int B, int S,
+    int T, int H, int KV, int hd, long long qsb, long long qss,
+    long long qsh, long long ksb, long long kss, long long ksh,
+    long long vsb, long long vss, long long vsh, float scale, int causal,
+    void* stream) {
+  using namespace rt;
+  const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh};
+  if (B < 1 || S < 1 || T < 1 || H < 1 || KV < 1 || H % KV != 0 ||
+      B > 65535 || S > 65535 * kTcBQ || !aligned16(q, qs) ||
+      !aligned16(k, ks) || !aligned16(v, vs))
+    return (int)cudaErrorInvalidValue;
+  auto st = static_cast<cudaStream_t>(stream);
+  if (hd == 64)
+    return launch_tc<64>(q, k, v, out, B, S, T, H, KV, qs, ks, vs, scale,
+                         causal, st);
+  if (hd == 128)
+    return launch_tc<128>(q, k, v, out, B, S, T, H, KV, qs, ks, vs, scale,
+                          causal, st);
   return (int)cudaErrorInvalidValue;
 }

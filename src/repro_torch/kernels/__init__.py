@@ -5,7 +5,9 @@ csrc/atb.cu              kernel A: AᵀB (gram CᵀC and the m-query cross CᵀV
 csrc/ctv.cu              kernel B: Cᵀv
 csrc/woodbury_apply.cu   kernel C: V/ρ − C W/ρ², any m ≥ 1, ρ at run time
 csrc/rmsnorm.cu          kernel D: row RMSNorm
-csrc/flash_attention.cu  kernel E: attention forward (online softmax, f32)
+csrc/flash_attention.cu  kernel E: attention forward (online softmax),
+                         bf16 on the tensor cores (TMA + wgmma) or f32
+                         arithmetic on the CUDA cores
 
 nystrom_gram.py / woodbury.py /
 rmsnorm.py / flash_attention.py  wrappers (checks, launch, launch counters)

@@ -5,7 +5,8 @@ At first use every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a``
 shared library with a plain C interface, loaded with ``ctypes``. The library
 is named by a hash of the sources and flags, so an edited source rebuilds
 and a finished build is reused. The build directory is ``_build/`` beside
-this package (listed in ``.gitignore``).
+this package (listed in ``.gitignore``); beside the library, ``.log`` keeps
+what ``nvcc -Xptxas -v`` said of each kernel (registers, spills).
 
 Each wrapper bumps its entry in :data:`LAUNCHES` where it launches its
 kernel and nowhere else, so a run can show that it went through the kernel.
@@ -27,11 +28,14 @@ CSRC = Path(__file__).resolve().parents[1] / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[1] / '_build'
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-Xcompiler', '-fPIC']
+COMPILE_FLAGS = ['-Xptxas', '-v']   # ptxas reports registers and spills
 
 #: launches per wrapper, keyed by the TPU kernel each one replaces
 LAUNCHES = {'nystrom_gram': 0, 'nystrom_cross': 0, 'woodbury_ctv': 0,
             'woodbury_apply': 0, 'woodbury_apply_block': 0, 'rmsnorm': 0,
-            'flash_attention': 0}
+            'flash_attention': 0,
+            # the share of flash_attention's launches on the tensor cores
+            'flash_attention_tc': 0}
 
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -61,12 +65,18 @@ def _sources() -> list[Path]:
 
 
 def library_path() -> Path:
-    h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(' '.join(NVCC_FLAGS + COMPILE_FLAGS).encode())
     for src in sorted(CSRC.iterdir()):
         if src.suffix in ('.cu', '.cuh'):
             h.update(src.name.encode())
             h.update(src.read_bytes())
     return BUILD_DIR / f'libnystrom_kernels_{h.hexdigest()[:16]}.so'
+
+
+def build_log() -> str:
+    """What ``ptxas -v`` printed for the current build (registers, shared
+    memory and spills per kernel)."""
+    return library_path().with_suffix('.log').read_text()
 
 
 def build() -> tuple[Path, float]:
@@ -84,13 +94,15 @@ def build() -> tuple[Path, float]:
             obj = Path(tmp) / (src.stem + '.o')
             objs.append(obj)
             procs.append((src, subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, '-c', str(src), '-o', str(obj)],
+                [nvcc, *NVCC_FLAGS, *COMPILE_FLAGS, '-c', str(src), '-o',
+                 str(obj)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-        failed = []
+        failed, logs = [], []
         for src, proc in procs:
             log, _ = proc.communicate()
+            logs.append(f'{src.name}:\n{log}')
             if proc.returncode != 0:
-                failed.append(f'{src.name}:\n{log}')
+                failed.append(logs[-1])
         if failed:
             raise RuntimeError('nvcc failed:\n' + '\n'.join(failed))
         so = Path(tmp) / out.name
@@ -99,6 +111,7 @@ def build() -> tuple[Path, float]:
                               capture_output=True, text=True)
         if link.returncode != 0:
             raise RuntimeError(f'nvcc link failed:\n{link.stdout}{link.stderr}')
+        out.with_suffix('.log').write_text('\n'.join(logs))
         os.replace(so, out)
     return out, time.perf_counter() - t0
 
@@ -116,10 +129,13 @@ def lib() -> ctypes.CDLL:
         cdll.rt_woodbury_apply.argtypes = [p, i, p, p, i, p, ll, i, i, f, f,
                                            i, p]
         cdll.rt_rmsnorm.argtypes = [p, i, p, i, p, ll, i, f, p]
-        cdll.rt_flash_attention.argtypes = [p, p, p, p, i, i, i, i, i, i,
+        cdll.rt_flash_attention.argtypes = [p, p, p, p, i, i, i, i, i, i, i,
                                             *[ll] * 9, f, i, p]
+        cdll.rt_flash_attention_tc.argtypes = [p, p, p, p, i, i, i, i, i, i,
+                                               *[ll] * 9, f, i, p]
         for fn in (cdll.rt_atb, cdll.rt_ctv, cdll.rt_woodbury_apply,
-                   cdll.rt_rmsnorm, cdll.rt_flash_attention):
+                   cdll.rt_rmsnorm, cdll.rt_flash_attention,
+                   cdll.rt_flash_attention_tc):
             fn.restype = ctypes.c_int
         cdll.rt_error_string.argtypes = [ctypes.c_int]
         cdll.rt_error_string.restype = ctypes.c_char_p

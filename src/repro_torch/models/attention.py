@@ -10,14 +10,17 @@ Three regimes, one math, dispatched as in the reference:
 * ``S ≤ cfg.attn_chunk``                  → :func:`_full_attention`, a plain
   softmax einsum.
 
-KV heads are repeated to the query-head count before attention. Decode and
-cross-attention are not ported yet (``ROADMAP.md`` queue 1 item 12).
+Kernel E reads the KV heads in place (query head h reads KV head
+h // group); the two plain paths repeat them to the query-head count first,
+as the reference does. Decode and cross-attention are not ported yet
+(``ROADMAP.md`` queue 1 item 12).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import expand_kv
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import apply_rope, cdtype, dense_init
 
@@ -55,16 +58,6 @@ def _project_qkv(params, x: torch.Tensor, cfg: ModelConfig, rope):
     k = k.view(B, S, cfg.n_kv_heads, cfg.head_dim)
     v = v.view(B, S, cfg.n_kv_heads, cfg.head_dim)
     return apply_rope(q, rope), apply_rope(k, rope), v
-
-
-def _expand_kv(k: torch.Tensor, group: int) -> torch.Tensor:
-    """(B, S, KV, hd) → (B, S, KV·group, hd), each KV head repeated group
-    times in place (a copy)."""
-    if group == 1:
-        return k
-    B, S, KV, hd = k.shape
-    return k[:, :, :, None, :].expand(B, S, KV, group, hd).reshape(
-        B, S, KV * group, hd)
 
 
 # ------------------------------------------------------------- core attention
@@ -134,13 +127,13 @@ def multihead_attention(params, x: torch.Tensor, cfg: ModelConfig, *,
     B, S, _ = x.shape
     q, k, v = _project_qkv(params, x, cfg, rope)
     group = cfg.n_heads // cfg.n_kv_heads
-    k = _expand_kv(k, group)
-    v = _expand_kv(v, group)
     scale = cfg.head_dim ** -0.5
     if cfg.use_pallas and S > cfg.attn_chunk:
         out = ops.flash_attention(q, k, v, causal=causal, scale=scale)
-    elif S > cfg.attn_chunk:
-        out = _chunked_attention(q, k, v, causal, scale, cfg.attn_chunk)
     else:
-        out = _full_attention(q, k, v, causal, scale)
+        k, v = expand_kv(k, group), expand_kv(v, group)
+        if S > cfg.attn_chunk:
+            out = _chunked_attention(q, k, v, causal, scale, cfg.attn_chunk)
+        else:
+            out = _full_attention(q, k, v, causal, scale)
     return out.reshape(B, S, -1) @ params['wo'].to(cdtype(cfg))

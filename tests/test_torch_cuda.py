@@ -8,12 +8,16 @@ flash attention: |err| ≤ atol + rtol·|ref|, in f32 with the tolerances of
 ``tests/test_kernels.py`` (atol = rtol = 1e-5 and 2e-5), RMSNorm in bf16
 likewise at 2e-2, and flash in bf16 within one ulp of the rounded output
 (rtol 2⁻⁷, atol 1e-5): both sides compute in f32 from the same widened
-inputs, and only the final rounding differs.
+inputs, and only the final rounding differs. Kernel E's tensor-core
+variant is held to the same one-ulp gate: its products take the bf16
+inputs exactly and accumulate in f32, and its probabilities enter P·V as
+two bf16 fragments (hi + lo) that carry 16 bits of them.
 """
 import pytest
 import torch
 
 from repro_torch.kernels import _lib, ops, ref
+from repro_torch.kernels.flash_attention import expand_kv
 
 pytestmark = pytest.mark.gpu
 
@@ -68,7 +72,7 @@ def test_launches_are_counted_and_deterministic(cuda):
     assert _lib.LAUNCHES == {'nystrom_gram': 2, 'nystrom_cross': 0,
                              'woodbury_ctv': 1, 'woodbury_apply': 1,
                              'woodbury_apply_block': 1, 'rmsnorm': 0,
-                             'flash_attention': 0}
+                             'flash_attention': 0, 'flash_attention_tc': 0}
 
 
 def test_cuda_wrappers_raise_instead_of_falling_back(cuda):
@@ -150,3 +154,86 @@ def test_model_kernels_are_counted_and_forward_only(cuda):
         ops.rmsnorm(x, torch.ones(64, device=cuda))
     with pytest.raises(ValueError, match='divide block'):
         ops.flash_attention(q, q, q, q_block=48)
+
+
+def _flash_checked(q, k, v, causal, tensor_cores):
+    """Kernel E on q, k, v (KV heads in place), held to one bf16 ulp (or
+    2e-5 in f32) against the plain version on the expanded heads; the
+    variant that launched must be ``tensor_cores``."""
+    H, KV = q.shape[2], k.shape[2]
+    before = dict(_lib.LAUNCHES)
+    got = ops.flash_attention(q, k, v, causal=causal, q_block=q.shape[1],
+                              k_block=k.shape[1])
+    assert _lib.LAUNCHES['flash_attention'] == before['flash_attention'] + 1
+    assert (_lib.LAUNCHES['flash_attention_tc']
+            - before['flash_attention_tc']) == int(tensor_cores)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    want = ref.flash_attention(q, expand_kv(k, H // KV), expand_kv(v, H // KV),
+                               causal=causal)
+    if q.dtype == torch.float32:
+        _rel_close(got, want, 2e-5)
+    else:
+        _rel_close(got, want, 1e-5, 2 ** -7)
+
+
+@pytest.mark.parametrize('hd', [64, 128])
+@pytest.mark.parametrize('S', [64, 100, 2048])
+@pytest.mark.parametrize('causal', [True, False])
+def test_flash_tensor_core_kernel_matches_plain(cuda, hd, S, causal):
+    B, H = (1, 2) if S == 2048 else (2, 4)
+    q, k, v = (_randn((B, S, H, hd), torch.bfloat16, cuda, 20 + i)
+               for i in range(3))
+    _flash_checked(q, k, v, causal, tensor_cores=True)
+
+
+@pytest.mark.parametrize('hd', [64, 128])
+@pytest.mark.parametrize('KV', [1, 2])
+@pytest.mark.parametrize('causal', [True, False])
+def test_flash_kernel_reads_gqa_heads_in_place(cuda, hd, KV, causal):
+    B, S, H = 2, 320, 8
+    q = _randn((B, S, H, hd), torch.bfloat16, cuda, 23)
+    k, v = (_randn((B, S, KV, hd), torch.bfloat16, cuda, 24 + i)
+            for i in range(2))
+    _flash_checked(q, k, v, causal, tensor_cores=True)
+
+
+@pytest.mark.parametrize('causal', [True, False])
+def test_flash_tensor_cores_read_views_of_a_fused_projection(cuda, causal):
+    """q, k, v as strided head ranges of one (B, S, H + 2 KV, hd)
+    projection: TMA reads them through their strides."""
+    B, S, H, KV, hd = 2, 256, 8, 2, 128
+    qkv = _randn((B, S, H + 2 * KV, hd), torch.bfloat16, cuda, 26)
+    q, k, v = qkv[:, :, :H], qkv[:, :, H:H + KV], qkv[:, :, H + KV:]
+    assert not q.is_contiguous()
+    _flash_checked(q, k, v, causal, tensor_cores=True)
+
+
+@pytest.mark.parametrize('dtype,hd,shift,tensor_cores', [
+    (torch.bfloat16, 128, 0, True),
+    (torch.bfloat16, 128, 4, False),   # base 8 bytes off the 16-byte grid
+    (torch.bfloat16, 96, 0, False),    # hd not in {64, 128}
+    (torch.float32, 128, 0, False),    # f32 stays on the CUDA cores
+])
+def test_flash_variant_follows_the_dispatch_rule(cuda, dtype, hd, shift,
+                                                 tensor_cores):
+    B, S, H, KV = 1, 192, 4, 2
+
+    def shifted(shape, seed):
+        x = _randn(shape, dtype, cuda, seed)
+        buf = x.new_empty(x.numel() + shift)
+        out = buf[shift:].view(shape)
+        out.copy_(x)
+        return out
+    q = shifted((B, S, H, hd), 27)
+    k, v = (shifted((B, S, KV, hd), 28 + i) for i in range(2))
+    _flash_checked(q, k, v, True, tensor_cores)
+
+
+def test_flash_takes_broadcast_kv_views(cuda):
+    """k and v broadcast over their heads (stride 0, which TMA cannot
+    address) run the CUDA-core kernel and still read the heads in place."""
+    B, S, H, KV, hd = 2, 128, 4, 2, 128
+    q = _randn((B, S, H, hd), torch.bfloat16, cuda, 31)
+    k, v = (_randn((B, S, 1, hd), torch.bfloat16, cuda, 32 + i).expand(
+        B, S, KV, hd) for i in range(2))
+    _flash_checked(q, k, v, True, tensor_cores=False)

@@ -18,7 +18,8 @@ import torch
 
 from repro.kernels import ops as jops
 from repro_torch.kernels import _lib
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.flash_attention import expand_kv
 
 DTYPES = {'f32': (jnp.float32, torch.float32),
           'bf16': (jnp.bfloat16, torch.bfloat16)}
@@ -194,6 +195,71 @@ def test_flash_attention_matches_pallas(B, S, H, hd, causal, dtype):
     tol = 2e-5 if dtype == 'f32' else 2e-2
     np.testing.assert_allclose(_as_f32(got), _as_f32(want), rtol=tol,
                                atol=tol)
+
+
+@pytest.mark.parametrize('dtype', ['f32', 'bf16'])
+@pytest.mark.parametrize('causal', [True, False])
+@pytest.mark.parametrize('H,KV', [(8, 1), (8, 2), (4, 4)])
+def test_flash_attention_reads_kv_heads_in_place(H, KV, causal, dtype):
+    """k, v with KV < H heads: bit for bit the call on heads repeated as
+    ``expand_kv`` repeats them, and within the tolerance of the Pallas
+    kernel (interpret mode) on those expanded heads."""
+    B, S, hd = 2, 128, 64
+    jq, tq = _pair((B, S, H, hd), 17, dtype)
+    (jk, tk), (jv, tv) = (_pair((B, S, KV, hd), 18 + i, dtype)
+                          for i in range(2))
+    got = ops.flash_attention(tq, tk, tv, causal=causal, q_block=64,
+                              k_block=64)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    tx, vx = (expand_kv(t, H // KV) for t in (tk, tv))
+    assert torch.equal(got, ops.flash_attention(tq, tx, vx, causal=causal,
+                                                q_block=64, k_block=64))
+    # the reference's own repeat, jnp.repeat along the head axis
+    jx, jvx = (jnp.repeat(t, H // KV, axis=2) for t in (jk, jv))
+    np.testing.assert_array_equal(_as_f32(tx), _as_f32(jx))
+    want = jops.flash_attention(jq, jx, jvx, causal=causal, q_block=64,
+                                k_block=64, interpret=True)
+    tol = 2e-5 if dtype == 'f32' else 2e-2
+    np.testing.assert_allclose(_as_f32(got), _as_f32(want), rtol=tol,
+                               atol=tol)
+
+
+def test_flash_attention_rejects_heads_that_do_not_group():
+    q, k = torch.zeros(1, 64, 3, 16), torch.zeros(1, 64, 2, 16)
+    with pytest.raises(ValueError, match='multiple of KV heads'):
+        ops.flash_attention(q, k, k)
+
+
+def _p_split_misses(rounding) -> int:
+    """Outputs of a (1, 512, 4, 128) causal bf16 attention off by more than
+    one bf16 ulp (2⁻⁷·|ref| + 1e-5) when the tensor-core kernel's
+    probabilities P = exp(s − m) (f32) go into P·V through ``rounding``
+    (each product and sum in f32, l summed from the f32 P, as the kernel
+    does)."""
+    S, H, hd = 512, 4, 128
+    q, k, v = (torch.tensor(np.random.RandomState(30 + i).randn(
+        1, S, H, hd).astype(np.float32)).bfloat16() for i in range(3))
+    s = torch.einsum('bshd,bthd->bhst', q.float(), k.float()) * hd ** -0.5
+    s = s.masked_fill(~torch.ones(S, S, dtype=torch.bool).tril(), -1e30)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    out = torch.einsum('bhst,bthd->bshd', rounding(p), v.float())
+    out = (out / p.sum(-1).transpose(1, 2)[..., None]).bfloat16().float()
+    want = ref.flash_attention(q, k, v, causal=True).float()
+    return int(((out - want).abs() > 1e-5 + 2 ** -7 * want.abs()).sum())
+
+
+def test_p_split_keeps_the_one_ulp_gate():
+    """Why kernel E's tensor-core variant splits P into two bf16
+    fragments: P rounded once to bf16 misses the one-ulp gate of
+    ``chip_smoke.py`` and ``tests/test_torch_cuda.py`` (near-zero
+    outputs), hi + lo = bf16(P) + bf16(P − bf16(P)) does not."""
+    def hi(p):
+        return p.bfloat16().float()
+
+    def hi_lo(p):
+        return hi(p) + (p - hi(p)).bfloat16().float()
+    assert _p_split_misses(hi) > 0
+    assert _p_split_misses(hi_lo) == 0
 
 
 @pytest.mark.parametrize('call', [
