@@ -7,22 +7,33 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. Device: the card's name and power limit (``nvidia-smi``); TF32 off.
 2. Build: ``nvcc`` compiles ``src/repro_torch/csrc/*.cu`` for ``sm_90a``;
-   for each variant of kernel E, what ``-Xptxas -v`` said (registers,
-   spills) and its count of ``HGMMA`` instructions (``cuobjdump -sass``),
-   which must not be 0 for the tensor-core kernel.
+   for each variant of kernels A, C and E, what ``-Xptxas -v`` said
+   (registers, spills), and for kernels A and E each variant's count of
+   ``HGMMA`` instructions (``cuobjdump -sass``), which must not be 0 for
+   the tensor-core variants (``atb_tc``, ``flash_fwd_tc``).
 3. Kernels: each of the five Nyström kernel entry points against its plain
    PyTorch version, at the main path's shapes (p = 26,122, k = 10, m = 32)
    and at one large shape (p = 2²⁴, k = 64, m = 32) with f32 and bf16
-   sketches. Tolerance: rtol 1e-5 and atol 1e-5·‖ref‖∞. At the main shapes
+   sketches, and there a bf16 × bf16 cross too. Each case prints the
+   variant or load path it took: kernel A's launched variant (tensor-core
+   launch counters) must be ``_lib.atb_variant``'s answer; for kernel C it
+   prints the path the rule ``_lib.rows16`` names, which the C entry
+   re-checks (a launch reports no path of its own). Tolerance: rtol 1e-5
+   and atol 1e-5·‖ref‖∞.
+   At the main shapes
    the reference is the plain version itself (f32). At p = 2²⁴ it is the
    plain version evaluated in f64 on the same values: over 16M rows the
    f32 rounding of cuBLAS's own sums is as large as the tolerance. Times
    are CUDA-event means over 20 launches after 3 warm-ups; ``library_ms``
    is one ``torch`` call computing the same function (a yardstick only;
-   the port never calls it); ``bound_ms`` is max(FLOPs / peak, bytes /
+   the port never calls it): ``mm``, ``mv``, ``addmv``, ``addmm`` in f32,
+   and ``mm(..., out_dtype=float32)`` for bf16 × bf16; its largest error
+   against the same reference is printed, not gated; ``bound_ms`` is max(FLOPs / peak, bytes /
    3.35 TB/s), each input read once and each output written once, with the
    fp32 peak of 67 TFLOP/s (989 TFLOP/s where every input is bf16); gram
-   counts the k(k+1)/2 distinct entries of the symmetric CᵀC.
+   counts the k(k+1)/2 distinct entries of the symmetric CᵀC. Then
+   ``tests/test_torch_cuda.py`` (the ``gpu``-marked kernel tests) runs in a
+   pytest subprocess and must pass.
 4. Main path: ``solve(build_reweighting(), HypergradConfig(solver='nystrom',
    k=10, backend='cuda'), n_outer=5)``, after a one-step warm-up solve that
    takes the first-call set-up; the outer loss must be finite and
@@ -89,13 +100,17 @@ The transformer's prefill (the second slice):
     tensor-core variant).
 
 The line before the last is the kernels' JSON record (seven rows, kernel
-E's the tensor-core variant at the prefill's own call); the last
+E's the tensor-core variant at the prefill's own call; rows 1–5 also
+carry their p = 2²⁴ f32 and bf16 times under ``p24``, and row 2 its
+bf16 × bf16 cross, each entry with the variant that launched; a row's
+name carries the main path's variant); the last
 line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 without the repository beside it, the script exits non-zero and prints no
 result.
 """
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
@@ -115,16 +130,17 @@ PREFILL_B, PREFILL_S, N_REQUESTS = 4, 4096, 3
 PARITY_LAYERS, PARITY_B, PARITY_S = 4, 2, 2048
 LONG_S = 32768        # the prefill_32k shape's sequence length
 
-ROWS = [  # name, CUDA kernel, source, the TPU kernel it replaces
-    ('nystrom_gram', 'atb', 'src/repro_torch/csrc/atb.cu',
+ROWS = [  # name, CUDA kernel (the main path's variant), source, the TPU
+    # kernel it replaces
+    ('nystrom_gram', 'atb_cc', 'src/repro_torch/csrc/atb.cu',
      'src/repro/kernels/nystrom_gram.py:58'),
-    ('nystrom_cross', 'atb', 'src/repro_torch/csrc/atb.cu',
+    ('nystrom_cross', 'atb_cc', 'src/repro_torch/csrc/atb.cu',
      'src/repro/kernels/nystrom_gram.py:79'),
     ('woodbury_ctv', 'ctv', 'src/repro_torch/csrc/ctv.cu',
      'src/repro/kernels/woodbury.py:44'),
-    ('woodbury_apply', 'woodbury_apply', 'src/repro_torch/csrc/woodbury_apply.cu',
+    ('woodbury_apply', 'apply_vec', 'src/repro_torch/csrc/woodbury_apply.cu',
      'src/repro/kernels/woodbury.py:103'),
-    ('woodbury_apply_block', 'woodbury_apply',
+    ('woodbury_apply_block', 'apply_block',
      'src/repro_torch/csrc/woodbury_apply.cu',
      'src/repro/kernels/woodbury.py:136'),
     ('rmsnorm', 'rmsnorm', 'src/repro_torch/csrc/rmsnorm.cu',
@@ -167,14 +183,18 @@ def cases(torch, ops, ref, p, k, dtype, dev):
     w, W = rnd(k), rnd(k, M)
     isz = C.element_size()
     f32 = dtype == torch.float32
-    return {
+
+    def mm_f32(A, B):   # AᵀB in f32; bf16 x bf16 with an f32 result
+        return (torch.mm(A.T, B) if f32 else
+                torch.mm(A.T, B, out_dtype=torch.float32))
+
+    out = {
         'nystrom_gram': (
-            ops.nystrom_gram, ref.nystrom_gram,
-            (lambda C: torch.mm(C.T, C)) if f32 else None, (C,),
+            ops.nystrom_gram, ref.nystrom_gram, lambda C: mm_f32(C, C), (C,),
             p * k * (k + 1), p * k * isz + 4 * k * k, not f32),  # G symmetric
         'nystrom_cross': (
             ops.nystrom_cross, ref.nystrom_cross,
-            (lambda C, V: torch.mm(C.T, V)) if f32 else None, (C, V),
+            mm_f32 if f32 else None, (C, V),
             2 * p * k * M, p * k * isz + 4 * p * M + 4 * k * M, False),
         'woodbury_ctv': (
             ops.woodbury_ctv, ref.woodbury_ctv,
@@ -194,20 +214,26 @@ def cases(torch, ops, ref, p, k, dtype, dev):
             (C, W, V), 2 * p * k * M + 2 * p * M,
             p * k * isz + 4 * k * M + 8 * p * M, False),
     }
+    if not f32 and p == LARGE_P:   # the tensor-core cross: bf16 queries
+        out['nystrom_cross_bf16'] = (
+            ops.nystrom_cross, ref.nystrom_cross, mm_f32, (C, V.to(dtype)),
+            2 * p * k * M, (p * k + p * M) * isz + 4 * k * M, True)
+    return out
 
 
-def report_flash_build(path) -> None:
-    """Phase 2: what ptxas said of kernel E's variants (registers, spills)
-    and the count of tensor-core instructions (HGMMA) in each one's SASS;
-    the tensor-core variants must hold some."""
+def report_build(path) -> None:
+    """Phase 2: what ptxas said of the variants of kernels A, C and E
+    (registers, spills) and the count of tensor-core instructions (HGMMA)
+    in kernels A's and E's SASS; the tensor-core variants must hold some."""
     from repro_torch.kernels import _lib
+    kernels = ('flash_fwd', 'atb_', 'apply_')
     fn = None
     for line in _lib.build_log().splitlines():
         m = re.search(r'Function properties for (\S+)', line)
         if m:
             fn = m.group(1)
-        elif fn and 'flash_fwd' in fn and ('spill' in line
-                                           or 'Used' in line):
+        elif fn and any(k in fn for k in kernels) and ('spill' in line
+                                                      or 'Used' in line):
             print(f'ptxas: {fn}: {line.split(":", 1)[-1].strip()}',
                   flush=True)
     tool = shutil.which('cuobjdump') or '/usr/local/cuda/bin/cuobjdump'
@@ -222,18 +248,21 @@ def report_flash_build(path) -> None:
         elif fn in counts and 'HGMMA' in line:
             counts[fn] += 1
     for fn, n in counts.items():
-        if 'flash_fwd' in fn:
+        if 'flash_fwd' in fn or 'atb_' in fn:
             print(f'sass: {fn}: {n} HGMMA instructions', flush=True)
-            if 'flash_fwd_tc' in fn and n == 0:
+            if ('flash_fwd_tc' in fn or 'atb_tc' in fn) and n == 0:
                 raise AssertionError(f'{fn} holds no HGMMA instruction')
 
 
 def check_kernels(torch, ops, ref, p, k, dtype, dev, exact_ref: bool):
     """Hold each kernel against its plain version; time all three."""
+    from repro_torch.kernels import _lib
     out = {}
     for name, (kern, plain, lib, args, flops, nbytes, bf16) in cases(
             torch, ops, ref, p, k, dtype, dev).items():
+        before = dict(_lib.LAUNCHES)
         got = kern(*args)
+        variant = _variant(_lib, name, args, before)
         want = (plain(*[a.double() for a in args]).float() if exact_ref
                 else plain(*args))
         torch.cuda.synchronize()
@@ -244,14 +273,64 @@ def check_kernels(torch, ops, ref, p, k, dtype, dev, exact_ref: bool):
             raise AssertionError(
                 f'{name} p={p} k={k} {dtype}: kernel disagrees with its plain '
                 f'version, max |err| {max_err:.3e}')
+        # the library call against the same reference: printed, not gated
+        lib_err = ('-' if lib is None else
+                   f'{float((lib(*args) - want).abs().max()):.3e}')
         del got, want, err, limit
         out[name] = _timed(
-            torch, f'{name:<21} p={p} k={k} m={M} {str(dtype)[6:]:<8}',
+            torch, f'{name:<21} p={p} k={k} m={M} {str(dtype)[6:]:<8} '
+            f'[{variant}] library_max_err={lib_err}',
             lambda: kern(*args), lambda: plain(*args),
             (lambda: lib(*args)) if lib is not None else None, flops, nbytes,
             bf16, max_err, REPS, REPS)
+        out[name]['variant'] = variant
     torch.cuda.empty_cache()
     return out
+
+
+def _variant(_lib, name: str, args, before: dict) -> str:
+    """Kernel A's variant that a phase 3 launch took, read from the
+    tensor-core launch counters, which must be ``atb_variant``'s answer;
+    for kernel C, the load path the rule ``rows16`` names (the rule's
+    answer: the launch reports no path of its own)."""
+    C = args[0]
+    if name.startswith('nystrom'):
+        B = C if name == 'nystrom_gram' else args[1]
+        rule = _lib.atb_variant(C.dtype, B.dtype, C.shape[0], C.shape[1],
+                                B.shape[1], (C.data_ptr(), B.data_ptr()))
+        key = 'nystrom_gram' if name == 'nystrom_gram' else 'nystrom_cross'
+        tc = _lib.LAUNCHES[key + '_tc'] > before[key + '_tc']
+        if tc != (rule == 'tensor_cores'):
+            raise AssertionError(f'{name}: launched tensor cores={tc}, the '
+                                 f'rule names {rule}')
+        return 'atb_tc' if tc else 'atb_cc'
+    if name.startswith('woodbury_apply'):
+        rows = _lib.rows16(C.dtype, C.shape[1], C.data_ptr())
+        return 'rows16 rule: ' + ('16-byte rows' if rows else 'scalar rows')
+    return 'ctv'
+
+
+def _p24(rec: dict) -> dict:
+    return dict(variant=rec['variant'], kernel_ms=rec['ms'],
+                bound_ms=rec['bound_ms'], library_ms=rec['library_ms'])
+
+
+def run_kernel_tests() -> None:
+    """The ``gpu``-marked kernel tests on the card, in a subprocess (the
+    repository's conftest imports JAX, which the port never needs)."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, '-m', 'pytest', '-q', '--noconftest', '-p',
+         'no:cacheprovider', '-m', 'gpu', 'tests/test_torch_cuda.py'],
+        cwd=SRC.parent, env=env, capture_output=True, text=True, timeout=900)
+    tail = (res.stdout + res.stderr).strip().splitlines()[-15:]
+    print('\n'.join(f'kernel tests: {line}' for line in tail), flush=True)
+    if res.returncode != 0:
+        raise AssertionError(f'tests/test_torch_cuda.py failed '
+                             f'(rc {res.returncode})')
+    print(f'kernel tests: passed in {time.perf_counter() - t0:.1f} s',
+          flush=True)
 
 
 def trace_phases(torch, solve, problem, config, step_s: float) -> None:
@@ -627,16 +706,17 @@ def main() -> None:
     path, secs = _lib.build()
     _lib.lib()
     print(f'build: {path.name} in {secs:.1f} s', flush=True)
-    report_flash_build(path)
+    report_build(path)
 
     # 3. kernels against their plain versions --------------------------------
     main_rec = check_kernels(torch, ops, ref, MAIN_P, MAIN_K, torch.float32,
                              dev, exact_ref=False)
     check_kernels(torch, ops, ref, MAIN_P, MAIN_K, torch.bfloat16, dev,
                   exact_ref=False)
-    for dtype in (torch.float32, torch.bfloat16):
-        check_kernels(torch, ops, ref, LARGE_P, LARGE_K, dtype, dev,
-                      exact_ref=True)
+    large = {str(dtype)[6:]: check_kernels(torch, ops, ref, LARGE_P, LARGE_K,
+                                           dtype, dev, exact_ref=True)
+             for dtype in (torch.float32, torch.bfloat16)}
+    run_kernel_tests()
 
     # 4. main path --------------------------------------------------------------
     from repro_torch.core import (ExactIHVP, HypergradConfig, PyTreeIndexer,
@@ -746,9 +826,16 @@ def main() -> None:
             path_launches = block_launches
         else:
             path_launches = main_launches
-        records.append(dict(name=f'{kname} ({kernel})', route='cuda',
-                            source=source, replaces=replaces,
-                            launches=path_launches[kname], **main_rec[kname]))
+        rec = dict(name=f'{kname} ({kernel})', route='cuda', source=source,
+                   replaces=replaces, launches=path_launches[kname],
+                   **main_rec[kname])
+        if kname in large['float32']:   # rows 1-5 at p = 2^24
+            rec['p24'] = {dt: _p24(recs[kname])
+                          for dt, recs in large.items()}
+            if kname == 'nystrom_cross':
+                rec['p24']['bfloat16 x bfloat16'] = _p24(
+                    large['bfloat16']['nystrom_cross_bf16'])
+        records.append(rec)
     print(smi)
     print(json.dumps({'kernels': records}))
     print(json.dumps({'ok': True, 'device': {

@@ -39,15 +39,22 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
 
 // out[o] = sum over b of partial[b * n + o], one block per output o.
 // Thread t sums b = t, t + 256, ... in order; the block then folds its 256
-// sums with a fixed tree.
+// sums with a fixed tree. sym_k > 0 marks a symmetric (sym_k, sym_k) result
+// whose partials hold the upper triangle only: out[i, j] with i > j is
+// summed from entry (j, i), so the result is exactly symmetric.
 static __global__ void reduce_partials(const float* __restrict__ partial,
                                        float* __restrict__ out, int nblocks,
-                                       int n) {
+                                       int n, int sym_k = 0) {
   __shared__ float red[kThreads];
   const int o = blockIdx.x;
+  int src = o;
+  if (sym_k > 0) {
+    const int i = o / sym_k, j = o - i * sym_k;
+    if (i > j) src = j * sym_k + i;
+  }
   float s = 0.f;
   for (int b = threadIdx.x; b < nblocks; b += kThreads)
-    s += partial[(int64_t)b * n + o];
+    s += partial[(int64_t)b * n + src];
   red[threadIdx.x] = s;
   __syncthreads();
   for (int width = kThreads / 2; width > 0; width >>= 1) {
@@ -55,6 +62,44 @@ static __global__ void reduce_partials(const float* __restrict__ partial,
     __syncthreads();
   }
   if (threadIdx.x == 0) out[o] = red[0];
+}
+
+// 16 bytes of T (4 f32 or 8 bf16 values) widened to f32.
+template <typename T>
+__device__ __forceinline__ void widen16(uint4 raw, float* x);
+template <>
+__device__ __forceinline__ void widen16<float>(uint4 raw, float* x) {
+  x[0] = __uint_as_float(raw.x);
+  x[1] = __uint_as_float(raw.y);
+  x[2] = __uint_as_float(raw.z);
+  x[3] = __uint_as_float(raw.w);
+}
+template <>
+__device__ __forceinline__ void widen16<__nv_bfloat16>(uint4 raw, float* x) {
+  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+    x[2 * i] = f.x;
+    x[2 * i + 1] = f.y;
+  }
+}
+
+// Asynchronous 16-byte copy global -> shared (cp.async, bypassing L1) and
+// its group bookkeeping.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(smem))),
+               "l"(gmem)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 }  // namespace rt

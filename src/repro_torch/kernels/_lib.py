@@ -14,6 +14,7 @@ kernel and nowhere else, so a run can show that it went through the kernel.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -34,15 +35,19 @@ COMPILE_FLAGS = ['-Xptxas', '-v']   # ptxas reports registers and spills
 LAUNCHES = {'nystrom_gram': 0, 'nystrom_cross': 0, 'woodbury_ctv': 0,
             'woodbury_apply': 0, 'woodbury_apply_block': 0, 'rmsnorm': 0,
             'flash_attention': 0,
-            # the share of flash_attention's launches on the tensor cores
+            # the shares of gram's, cross's and flash_attention's launches
+            # on the tensor cores
+            'nystrom_gram_tc': 0, 'nystrom_cross_tc': 0,
             'flash_attention_tc': 0}
 
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
-# p is cut into at most this many runs of rows (4 blocks per SM on the
-# H100's 132 SMs), each a multiple of 16 rows (the atb kernel's tile).
-MAX_BLOCKS = 4 * 132
+# kernel B cuts p into at most 4 runs of rows per SM, each a multiple of
+# 16 rows
+CTV_BLOCKS_PER_SM = 4
 ROW_TILE = 16
+# kernel A's stage: 128 rows of p (both of its variants), one block per SM
+ATB_ROWS = 128
 
 _lib: ctypes.CDLL | None = None
 
@@ -124,10 +129,10 @@ def lib() -> ctypes.CDLL:
         cdll = ctypes.CDLL(str(path))
         p, i, ll, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                        ctypes.c_float)
-        cdll.rt_atb.argtypes = [p, i, p, i, p, p, ll, i, i, i, ll, p]
+        cdll.rt_atb.argtypes = [p, i, p, i, p, p, ll, i, i, i, i, i, ll, p]
         cdll.rt_ctv.argtypes = [p, i, p, i, p, p, ll, i, i, ll, p]
         cdll.rt_woodbury_apply.argtypes = [p, i, p, p, i, p, ll, i, i, f, f,
-                                           i, p]
+                                           i, i, p]
         cdll.rt_rmsnorm.argtypes = [p, i, p, i, p, ll, i, f, p]
         cdll.rt_flash_attention.argtypes = [p, p, p, p, i, i, i, i, i, i, i,
                                             *[ll] * 9, f, i, p]
@@ -154,12 +159,44 @@ def stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
-def split_rows(p: int) -> tuple[int, int]:
-    """(number of blocks, rows per block) for a p-row pass."""
-    tiles = max(1, -(-p // ROW_TILE))
-    nblocks = min(MAX_BLOCKS, tiles)
-    rows = -(-tiles // nblocks) * ROW_TILE
+def split_rows(p: int, tile: int, max_blocks: int) -> tuple[int, int]:
+    """(number of blocks, rows per block) for a p-row pass: at most
+    ``max_blocks`` runs of rows, each a whole number of ``tile`` rows."""
+    tiles = max(1, -(-p // tile))
+    nblocks = min(max_blocks, tiles)
+    rows = -(-tiles // nblocks) * tile
     return -(-p // rows) if p else 1, rows
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The card's count of streaming multiprocessors, which sets the grids
+    of kernels A, B and C."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def atb_variant(a_dtype: torch.dtype, b_dtype: torch.dtype, p: int, k: int,
+                m: int, ptrs: tuple[int, ...]) -> str:
+    """Kernel A's variant, by one rule: bf16 × bf16 with k and m multiples
+    of 8, every base address on the 16-byte grid and p < 2³¹ rows (what TMA
+    can address: its row coordinate is an int32) runs on the tensor cores
+    (``'tensor_cores'``, ``atb_tc``: ``wgmma``, f32 accumulators);
+    everything else, f32 and mixed operands included, on the CUDA cores in
+    IEEE f32 (``'cuda_cores'``, ``atb_cc``, whose rows are int64)."""
+    if (a_dtype == torch.bfloat16 and b_dtype == torch.bfloat16
+            and k % 8 == 0 and m % 8 == 0 and p < 2 ** 31
+            and all(ptr % 16 == 0 for ptr in ptrs)):
+        return 'tensor_cores'
+    return 'cuda_cores'
+
+
+def rows16(dtype: torch.dtype, k: int, ptr: int) -> bool:
+    """Kernel C's rule: C's rows are read as whole 16-byte chunks (and, by
+    the vector form, one row by a group of lanes) where C's base lies on
+    the 16-byte grid and a row is 1 to 64 whole chunks; otherwise by scalar
+    (vector form) or plain (block form) loads."""
+    row_bytes = k * dtype.itemsize
+    return ptr % 16 == 0 and row_bytes % 16 == 0 and row_bytes <= 1024
 
 
 def require(cond: bool, msg: str) -> None:

@@ -32,7 +32,8 @@ def woodbury_ctv(C: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     _lib.require(C.is_contiguous() and v.is_contiguous(),
                  'woodbury_ctv needs contiguous operands')
     _lib.require(k <= 256, f'woodbury_ctv takes k <= 256, got {k}')
-    nblocks, rows = _lib.split_rows(p)
+    nblocks, rows = _lib.split_rows(
+        p, _lib.ROW_TILE, _lib.CTV_BLOCKS_PER_SM * _lib.sm_count(C.device))
     partial = torch.empty((nblocks, k), dtype=torch.float32, device=C.device)
     out = torch.empty((k,), dtype=torch.float32, device=C.device)
     code = _lib.lib().rt_ctv(
@@ -68,11 +69,11 @@ def woodbury_apply(C: torch.Tensor, w: torch.Tensor, v: torch.Tensor,
     _lib.require(k * m <= 8192, f'woodbury_apply takes k*m <= 8192, got {k * m}')
     w = w.float().contiguous()
     out = torch.empty(want_v, dtype=torch.float32, device=C.device)
-    nblocks = max(1, min(-(-p * m // 256), 16 * 132))
     code = _lib.lib().rt_woodbury_apply(
         C.data_ptr(), _lib.DTYPE_CODE[C.dtype], w.data_ptr(), v.data_ptr(),
         _lib.DTYPE_CODE[v.dtype], out.data_ptr(), p, k, m, 1.0 / rho,
-        1.0 / (rho * rho), nblocks, _lib.stream())
+        1.0 / (rho * rho), int(_lib.rows16(C.dtype, k, C.data_ptr())),
+        _lib.sm_count(C.device), _lib.stream())
     _lib.check(code, 'woodbury_apply')
     _lib.LAUNCHES['woodbury_apply_block' if block else 'woodbury_apply'] += 1
     return out

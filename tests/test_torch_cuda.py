@@ -72,7 +72,14 @@ def test_launches_are_counted_and_deterministic(cuda):
     assert _lib.LAUNCHES == {'nystrom_gram': 2, 'nystrom_cross': 0,
                              'woodbury_ctv': 1, 'woodbury_apply': 1,
                              'woodbury_apply_block': 1, 'rmsnorm': 0,
-                             'flash_attention': 0, 'flash_attention_tc': 0}
+                             'flash_attention': 0, 'nystrom_gram_tc': 0,
+                             'nystrom_cross_tc': 0, 'flash_attention_tc': 0}
+    Cb = C.bfloat16()
+    ops.nystrom_gram(Cb)
+    ops.nystrom_cross(Cb, Cb[:, :8].contiguous())
+    assert (_lib.LAUNCHES['nystrom_gram'], _lib.LAUNCHES['nystrom_gram_tc'],
+            _lib.LAUNCHES['nystrom_cross'],
+            _lib.LAUNCHES['nystrom_cross_tc']) == (3, 1, 1, 1)
 
 
 def test_cuda_wrappers_raise_instead_of_falling_back(cuda):
@@ -83,6 +90,183 @@ def test_cuda_wrappers_raise_instead_of_falling_back(cuda):
         ops.woodbury_ctv(C, torch.randn(64))
     with pytest.raises(ValueError, match='k, m <= 256'):
         ops.nystrom_gram(_randn((64, 300), torch.float32, cuda, 7))
+    # kernel A's C entry, asked for the tensor-core variant on operands it
+    # cannot take, refuses them and runs nothing in their place
+    Cb = _shifted(_randn((3001, 64), torch.bfloat16, cuda, 8))
+    for A in (Cb, C, Cb[:, :10].contiguous()):
+        with pytest.raises(RuntimeError, match='invalid argument'):
+            _lib.check(_rt_atb(A, tensor_cores=1), 'atb')
+
+
+def _rt_atb(A, tensor_cores):
+    """Kernel A's C entry on the gram of A, with the variant forced."""
+    p, k = A.shape
+    nblocks, rows = _lib.split_rows(p, _lib.ATB_ROWS, _lib.sm_count(A.device))
+    partial = torch.empty((nblocks, k * k), device=A.device)
+    out = torch.empty((k, k), device=A.device)
+    return _lib.lib().rt_atb(
+        A.data_ptr(), _lib.DTYPE_CODE[A.dtype], A.data_ptr(),
+        _lib.DTYPE_CODE[A.dtype], partial.data_ptr(), out.data_ptr(), p, k, k,
+        1, tensor_cores, nblocks, rows, _lib.stream())
+
+
+def _shifted(t):
+    """t's values in a tensor whose base address is 8 bytes past the
+    16-byte grid (strides unchanged)."""
+    n = 8 // t.element_size()
+    buf = t.new_empty(t.numel() + n)
+    out = buf[n:].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16 == 8
+    return out
+
+
+def _atb_checked(A, B, gram):
+    """Kernel A on A, B (gram: B is A), held to the plain version; the
+    variant it launched must be the rule's; two calls agree bit for bit and
+    a gram is exactly symmetric."""
+    p, k = A.shape
+    m = B.shape[1]
+    rule = _lib.atb_variant(A.dtype, B.dtype, p, k, m,
+                            (A.data_ptr(), B.data_ptr()))
+    name = 'nystrom_gram' if gram else 'nystrom_cross'
+    before = dict(_lib.LAUNCHES)
+    got = ops.nystrom_gram(A) if gram else ops.nystrom_cross(A, B)
+    assert _lib.LAUNCHES[name] == before[name] + 1
+    assert (_lib.LAUNCHES[name + '_tc'] - before[name + '_tc']
+            == int(rule == 'tensor_cores'))
+    assert got.dtype == torch.float32 and got.shape == (k, m)
+    _close(got, ref.nystrom_gram(A) if gram else ref.nystrom_cross(A, B))
+    again = ops.nystrom_gram(A) if gram else ops.nystrom_cross(A, B)
+    assert torch.equal(got, again)
+    if gram:
+        assert torch.equal(got, got.T)
+    return rule
+
+
+ATB_KS = [1, 10, 16, 64, 100, 256]
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('k', ATB_KS)
+def test_gram_variants_match_plain(cuda, dtype, k):
+    """p = 3001 is a whole number of no tile (16, 128 rows); bf16 with
+    k % 8 == 0 runs on the tensor cores, the rest on the CUDA cores."""
+    C = _randn((3001, k), dtype, cuda, 40 + k)
+    rule = _atb_checked(C, C, gram=True)
+    assert (rule == 'tensor_cores') == (dtype == torch.bfloat16
+                                        and k % 8 == 0)
+
+
+@pytest.mark.parametrize('dtypes', [(torch.float32, torch.float32),
+                                    (torch.bfloat16, torch.float32),
+                                    (torch.float32, torch.bfloat16),
+                                    (torch.bfloat16, torch.bfloat16)],
+                         ids=['f32', 'bf16-f32', 'f32-bf16', 'bf16'])
+@pytest.mark.parametrize('m', [1, 3, 32, 256])
+@pytest.mark.parametrize('k', ATB_KS)
+def test_cross_variants_match_plain(cuda, dtypes, k, m):
+    A = _randn((3001, k), dtypes[0], cuda, 50 + k)
+    B = _randn((3001, m), dtypes[1], cuda, 60 + m)
+    rule = _atb_checked(A, B, gram=False)
+    assert (rule == 'tensor_cores') == (dtypes == (torch.bfloat16,) * 2
+                                        and k % 8 == 0 and m % 8 == 0)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_atb_off_the_grid_takes_the_cuda_cores(cuda, dtype):
+    """Bases 8 bytes off the 16-byte grid: the rule names the CUDA-core
+    variant, whose staging then takes plain loads."""
+    C = _shifted(_randn((5000, 64), dtype, cuda, 70))
+    V = _shifted(_randn((5000, 32), dtype, cuda, 71))
+    assert _atb_checked(C, C, gram=True) == 'cuda_cores'
+    assert _atb_checked(C, V, gram=False) == 'cuda_cores'
+
+
+def test_atb_large_bf16_gram_on_the_tensor_cores(cuda):
+    """Many stages per block, against the plain version in f64."""
+    C = _randn((1_000_003, 64), torch.bfloat16, cuda, 72)
+    before = _lib.LAUNCHES['nystrom_gram_tc']
+    got = ops.nystrom_gram(C)
+    assert _lib.LAUNCHES['nystrom_gram_tc'] == before + 1
+    _close(got, ref.nystrom_gram(C.double()).float())
+    assert torch.equal(got, got.T)
+
+
+def test_atb_past_int32_rows_takes_the_cuda_cores(cuda):
+    """p ≥ 2³¹ rows (an 8.6 GB f32 column of ones): beyond TMA's int32 row
+    coordinate, so the rule names the CUDA-core variant, whose rows are
+    int64; the gram is p."""
+    p = 2 ** 31 + 5
+    C = torch.ones((p, 1), device=cuda)
+    assert _lib.atb_variant(C.dtype, C.dtype, p, 1, 1,
+                            (C.data_ptr(),)) == 'cuda_cores'
+    before = _lib.LAUNCHES['nystrom_gram']
+    got = ops.nystrom_gram(C)
+    assert _lib.LAUNCHES['nystrom_gram'] == before + 1
+    torch.cuda.synchronize()
+    assert abs(float(got) - p) <= 1e-5 * p
+    del C
+
+
+APPLY_KM = [(k, m) for k in ATB_KS for m in (1, 3, 32, 256)
+            if k * m <= 8192]
+
+
+@pytest.mark.parametrize('v_dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('c_dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('k,m', APPLY_KM)
+def test_apply_forms_match_plain(cuda, c_dtype, v_dtype, k, m):
+    """Kernel C, vector (m = 1) and block form; p = 3001 is a whole number
+    of no stage; two calls agree bit for bit."""
+    p = 3001
+    C = _randn((p, k), c_dtype, cuda, 80 + k)
+    V = _randn((p, m), v_dtype, cuda, 81)
+    W = _randn((k, m), torch.float32, cuda, 82)
+    if m == 1:
+        V, W = V[:, 0].contiguous(), W[:, 0].contiguous()
+    before = dict(_lib.LAUNCHES)
+    got = ops.woodbury_apply(C, W, V, 0.05)
+    name = 'woodbury_apply' if m == 1 else 'woodbury_apply_block'
+    assert _lib.LAUNCHES[name] == before[name] + 1
+    _close(got, ref.woodbury_apply(C, W, V, 0.05))
+    assert torch.equal(got, ops.woodbury_apply(C, W, V, 0.05))
+
+
+@pytest.mark.parametrize('c_dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('k,m', [(10, 512), (1, 8192), (16, 300),
+                                 (512, 16), (300, 3), (4096, 2), (8192, 1),
+                                 (1000, 1)])
+def test_apply_takes_every_k_m_up_to_8192(cuda, c_dtype, k, m):
+    """Kernel C takes any k·m ≤ 8192: the block form in slices of at most
+    256 columns of W and V, and, where W's slice and two rows of C do not
+    fit in shared memory (k = 4096, m = 2), the vector form once a
+    column."""
+    p = 3001
+    C = _randn((p, k), c_dtype, cuda, 100 + k)
+    V = _randn((p, m), torch.float32, cuda, 101)
+    W = _randn((k, m), torch.float32, cuda, 102)
+    if m == 1:
+        V, W = V[:, 0].contiguous(), W[:, 0].contiguous()
+    name = 'woodbury_apply' if m == 1 else 'woodbury_apply_block'
+    before = _lib.LAUNCHES[name]
+    got = ops.woodbury_apply(C, W, V, 0.05)
+    assert _lib.LAUNCHES[name] == before + 1
+    _close(got, ref.woodbury_apply(C, W, V, 0.05))
+    assert torch.equal(got, ops.woodbury_apply(C, W, V, 0.05))
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('m', [1, 32])
+def test_apply_off_the_grid_reads_plain(cuda, dtype, m):
+    """C 8 bytes off the 16-byte grid: the rule (``_lib.rows16``) sends it
+    to the scalar (vector form) or plain (block form) loads."""
+    p, k = 4099, 64
+    C = _shifted(_randn((p, k), dtype, cuda, 90))
+    assert not _lib.rows16(C.dtype, k, C.data_ptr())
+    V = _shifted(_randn((p, m), torch.float32, cuda, 91)).squeeze(1)
+    W = _randn((k, m), torch.float32, cuda, 92).squeeze(1)
+    _close(ops.woodbury_apply(C, W, V, 0.1), ref.woodbury_apply(C, W, V, 0.1))
 
 
 def _rel_close(got, want, tol, rtol=None):

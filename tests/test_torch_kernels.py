@@ -152,11 +152,102 @@ def test_wrappers_reject_what_the_kernels_do_not_take(call):
 
 
 def test_row_split_covers_p_in_whole_tiles():
-    for p in (1, 15, 16, 17, 26122, 2 ** 24):
-        nblocks, rows = _lib.split_rows(p)
-        assert rows % _lib.ROW_TILE == 0
-        assert nblocks <= _lib.MAX_BLOCKS
-        assert (nblocks - 1) * rows < p <= nblocks * rows
+    """Kernel B's split (16-row tiles, up to 528 blocks) and kernel A's
+    (128-row stages, one block per SM of an H100)."""
+    for tile, max_blocks in ((_lib.ROW_TILE, _lib.CTV_BLOCKS_PER_SM * 132),
+                             (_lib.ATB_ROWS, 132)):
+        for p in (1, 15, 16, 17, 127, 128, 129, 26122, 2 ** 24):
+            nblocks, rows = _lib.split_rows(p, tile, max_blocks)
+            assert rows % tile == 0
+            assert nblocks <= max_blocks
+            assert (nblocks - 1) * rows < p <= nblocks * rows
+    # kernel B at the main path's p: 409 runs of 64 rows
+    assert _lib.split_rows(26122, _lib.ROW_TILE,
+                           _lib.CTV_BLOCKS_PER_SM * 132) == (409, 64)
+
+
+BF, F = torch.bfloat16, torch.float32
+
+
+P = 26122   # the main path's p
+
+
+@pytest.mark.parametrize('a,b,p,k,m,ptrs,variant', [
+    (BF, BF, P, 64, 64, (0, 0), 'tensor_cores'),       # gram of a bf16 sketch
+    (BF, BF, P, 64, 32, (4096, 256), 'tensor_cores'),  # bf16 cross
+    (BF, BF, P, 8, 256, (16, 32), 'tensor_cores'),
+    (BF, BF, 2 ** 31 - 1, 64, 64, (0, 0), 'tensor_cores'),
+    (BF, BF, 2 ** 31, 64, 64, (0, 0), 'cuda_cores'),   # TMA's int32 rows
+    (BF, BF, P, 10, 10, (0, 0), 'cuda_cores'),         # k not a multiple of 8
+    (BF, BF, P, 64, 3, (0, 0), 'cuda_cores'),          # m not a multiple of 8
+    (BF, BF, P, 64, 64, (8, 8), 'cuda_cores'),         # 8 bytes off the grid
+    (BF, BF, P, 64, 32, (0, 24), 'cuda_cores'),
+    (BF, F, P, 64, 32, (0, 0), 'cuda_cores'),          # bf16 sketch, f32 queries
+    (F, BF, P, 64, 32, (0, 0), 'cuda_cores'),
+    (F, F, P, 64, 64, (0, 0), 'cuda_cores'),           # IEEE f32: no TF32
+    (F, F, 2 ** 31 + 5, 1, 1, (0, 0), 'cuda_cores'),
+])
+def test_atb_variant_rule(a, b, p, k, m, ptrs, variant):
+    assert _lib.atb_variant(a, b, p, k, m, ptrs) == variant
+
+
+@pytest.mark.parametrize('dtype,k,ptr,whole', [
+    (F, 64, 0, True), (F, 4, 16, True), (F, 256, 0, True),
+    (F, 10, 0, False),     # 40-byte rows
+    (F, 64, 8, False),     # base off the 16-byte grid
+    (F, 260, 0, False),    # more than 64 chunks a row
+    (BF, 64, 0, True), (BF, 512, 0, True), (BF, 8, 48, True),
+    (BF, 100, 0, False),   # 200-byte rows
+    (BF, 64, 8, False),
+])
+def test_apply_rows16_rule(dtype, k, ptr, whole):
+    assert _lib.rows16(dtype, k, ptr) == whole
+
+
+def _two_level_gram(C: torch.Tensor, nblocks: int, stage: int = 128,
+                    depth: int = 16) -> torch.Tensor:
+    """Kernel A's summation order for a bf16 sketch on the tensor cores,
+    in f32 on the CPU: p cut into nblocks runs of whole stages; in a stage
+    each 16-row slice's products (exact in f32) summed, the slice sums
+    added in turn into the stage's sum, the stage's sum added into the
+    block's running f32 sum; then the blocks' partials folded as
+    reduce_partials folds them (one per thread, then a fixed tree)."""
+    p, k = C.shape
+    tiles = -(-p // stage)
+    rows = -(-tiles // nblocks) * stage
+    X = torch.zeros(nblocks * rows, k)
+    X[:p] = C.float()
+    X = X.view(nblocks, rows // stage, stage // depth, depth, k)
+    acc = torch.zeros(nblocks, k, k)
+    for s in range(rows // stage):
+        slices = X[:, s]                          # (blocks, slices, 16, k)
+        part = slices.transpose(-1, -2) @ slices  # each slice's 16 rows
+        d = part[:, 0].clone()
+        for t in range(1, stage // depth):        # the stage's slices
+            d += part[:, t]
+        acc += d                                  # the running sum
+    red = torch.zeros(256, k, k)
+    red[:nblocks] = acc
+    width = 128
+    while width:                                  # reduce_partials' tree
+        red[:width] += red[width:2 * width]
+        width //= 2
+    return red[0]
+
+
+def test_two_level_sum_keeps_the_large_p_gate():
+    """At p = 2^20, k = 64 (bf16 values, one block per SM of an H100:
+    7,936 rows, 62 stages a block), the kernel's two-level order stays
+    within chip_smoke.py's gate against the f64 sum: rtol 1e-5 and
+    atol 1e-5·‖ref‖∞."""
+    p, k = 2 ** 20, 64
+    rng = np.random.RandomState(3)
+    C = torch.tensor(rng.randn(p, k).astype(np.float32)).bfloat16()
+    want = C.double().T @ C.double()
+    got = _two_level_gram(C, 132).double()
+    err = (got - want).abs()
+    limit = 1e-5 * want.abs() + 1e-5 * float(want.abs().max())
+    assert bool((err <= limit).all()), float((err / limit).max())
 
 
 # ----------------------------------------------------- kernels D and E
