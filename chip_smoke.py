@@ -7,23 +7,26 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. Device: the card's name and power limit (``nvidia-smi``); TF32 off.
 2. Build: ``nvcc`` compiles ``src/repro_torch/csrc/*.cu`` for ``sm_90a``;
-   for each variant of kernels A, C and E, what ``-Xptxas -v`` said
+   for each variant of kernels A, B, C and E, what ``-Xptxas -v`` said
    (registers, spills), and for kernels A and E each variant's count of
    ``HGMMA`` instructions (``cuobjdump -sass``), which must not be 0 for
    the tensor-core variants (``atb_tc``, ``flash_fwd_tc``).
 3. Kernels: each of the five Nyström kernel entry points against its plain
-   PyTorch version, at the main path's shapes (p = 26,122, k = 10, m = 32)
-   and at one large shape (p = 2²⁴, k = 64, m = 32) with f32 and bf16
-   sketches, and there a bf16 × bf16 cross too. Each case prints the
-   variant or load path it took: kernel A's launched variant (tensor-core
-   launch counters) must be ``_lib.atb_variant``'s answer; for kernel C it
-   prints the path the rule ``_lib.rows16`` names, which the C entry
-   re-checks (a launch reports no path of its own). Tolerance: rtol 1e-5
-   and atol 1e-5·‖ref‖∞.
+   PyTorch version, at the main path's shapes (p = 26,122, k = 10, m = 32),
+   at one large shape (p = 2²⁴, k = 64, m = 32) and at p = 2²⁰ with
+   (k, m) = (512, 512) and (64, 256) (beyond the k, m ≤ 256 and k·m ≤ 8192
+   that earlier kernels took), each with f32 and bf16 sketches, and at the
+   large shapes a bf16 × bf16 cross too. Each case prints the variant or
+   load path it took: kernel A's launched variant (tensor-core launch
+   counters) must be ``_lib.atb_variant``'s answer; for kernels B and C it
+   prints the path the rules ``_lib.ctv_path`` and ``_lib.rows16`` name,
+   which the C entries re-check (a launch reports no path of its own).
+   Tolerance: rtol 1e-5 and atol 1e-5·‖ref‖∞.
    At the main shapes
-   the reference is the plain version itself (f32). At p = 2²⁴ it is the
-   plain version evaluated in f64 on the same values: over 16M rows the
-   f32 rounding of cuBLAS's own sums is as large as the tolerance. Times
+   the reference is the plain version itself (f32). At p = 2²⁴ and 2²⁰ it
+   is the plain version evaluated in f64 on the same values: over millions
+   of rows the f32 rounding of cuBLAS's own sums is as large as the
+   tolerance. Times
    are CUDA-event means over 20 launches after 3 warm-ups; ``library_ms``
    is one ``torch`` call computing the same function (a yardstick only;
    the port never calls it): ``mm``, ``mv``, ``addmv``, ``addmm`` in f32,
@@ -101,9 +104,10 @@ The transformer's prefill (the second slice):
 
 The line before the last is the kernels' JSON record (seven rows, kernel
 E's the tensor-core variant at the prefill's own call; rows 1–5 also
-carry their p = 2²⁴ f32 and bf16 times under ``p24``, and row 2 its
-bf16 × bf16 cross, each entry with the variant that launched; a row's
-name carries the main path's variant); the last
+carry their p = 2²⁴ f32 and bf16 times under ``p24`` and the p = 2²⁰
+shapes' under ``p20``, and row 2 its bf16 × bf16 cross, each entry with
+the variant or load path that launched; a row's name carries the main
+path's variant); the last
 line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 without the repository beside it, the script exits non-zero and prints no
 result.
@@ -125,6 +129,7 @@ HBM = 3.35e12         # H100 SXM HBM3, bytes/s
 RHO = 1e-2
 MAIN_P, MAIN_K, M = 26122, 10, 32
 LARGE_P, LARGE_K = 2 ** 24, 64
+F1_P, F1_KM = 2 ** 20, ((512, 512), (64, 256))   # k, m beyond 256 and 8192
 REPS, WARM = 20, 3
 PREFILL_B, PREFILL_S, N_REQUESTS = 4, 4096, 3
 PARITY_LAYERS, PARITY_B, PARITY_S = 4, 2, 2048
@@ -136,7 +141,7 @@ ROWS = [  # name, CUDA kernel (the main path's variant), source, the TPU
      'src/repro/kernels/nystrom_gram.py:58'),
     ('nystrom_cross', 'atb_cc', 'src/repro_torch/csrc/atb.cu',
      'src/repro/kernels/nystrom_gram.py:79'),
-    ('woodbury_ctv', 'ctv', 'src/repro_torch/csrc/ctv.cu',
+    ('woodbury_ctv', 'ctv_scalar', 'src/repro_torch/csrc/ctv.cu',
      'src/repro/kernels/woodbury.py:44'),
     ('woodbury_apply', 'apply_vec', 'src/repro_torch/csrc/woodbury_apply.cu',
      'src/repro/kernels/woodbury.py:103'),
@@ -170,7 +175,7 @@ def time_ms(torch, fn, reps: int = REPS, warm: int = WARM) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def cases(torch, ops, ref, p, k, dtype, dev):
+def cases(torch, ops, ref, p, k, dtype, dev, M=M):
     """Per kernel entry point: (kernel call, plain call, library call or
     None, inputs, FLOPs, bytes, every input bf16)."""
     g = torch.Generator().manual_seed(p + k)
@@ -214,7 +219,7 @@ def cases(torch, ops, ref, p, k, dtype, dev):
             (C, W, V), 2 * p * k * M + 2 * p * M,
             p * k * isz + 4 * k * M + 8 * p * M, False),
     }
-    if not f32 and p == LARGE_P:   # the tensor-core cross: bf16 queries
+    if not f32 and p >= F1_P:   # the tensor-core cross: bf16 queries
         out['nystrom_cross_bf16'] = (
             ops.nystrom_cross, ref.nystrom_cross, mm_f32, (C, V.to(dtype)),
             2 * p * k * M, (p * k + p * M) * isz + 4 * k * M, True)
@@ -222,11 +227,11 @@ def cases(torch, ops, ref, p, k, dtype, dev):
 
 
 def report_build(path) -> None:
-    """Phase 2: what ptxas said of the variants of kernels A, C and E
+    """Phase 2: what ptxas said of the variants of kernels A, B, C and E
     (registers, spills) and the count of tensor-core instructions (HGMMA)
     in kernels A's and E's SASS; the tensor-core variants must hold some."""
     from repro_torch.kernels import _lib
-    kernels = ('flash_fwd', 'atb_', 'apply_')
+    kernels = ('flash_fwd', 'atb_', 'apply_', 'ctv_')
     fn = None
     for line in _lib.build_log().splitlines():
         m = re.search(r'Function properties for (\S+)', line)
@@ -254,12 +259,13 @@ def report_build(path) -> None:
                 raise AssertionError(f'{fn} holds no HGMMA instruction')
 
 
-def check_kernels(torch, ops, ref, p, k, dtype, dev, exact_ref: bool):
+def check_kernels(torch, ops, ref, p, k, dtype, dev, exact_ref: bool,
+                  m: int = M):
     """Hold each kernel against its plain version; time all three."""
     from repro_torch.kernels import _lib
     out = {}
     for name, (kern, plain, lib, args, flops, nbytes, bf16) in cases(
-            torch, ops, ref, p, k, dtype, dev).items():
+            torch, ops, ref, p, k, dtype, dev, m).items():
         before = dict(_lib.LAUNCHES)
         got = kern(*args)
         variant = _variant(_lib, name, args, before)
@@ -278,7 +284,7 @@ def check_kernels(torch, ops, ref, p, k, dtype, dev, exact_ref: bool):
                    f'{float((lib(*args) - want).abs().max()):.3e}')
         del got, want, err, limit
         out[name] = _timed(
-            torch, f'{name:<21} p={p} k={k} m={M} {str(dtype)[6:]:<8} '
+            torch, f'{name:<21} p={p} k={k} m={m} {str(dtype)[6:]:<8} '
             f'[{variant}] library_max_err={lib_err}',
             lambda: kern(*args), lambda: plain(*args),
             (lambda: lib(*args)) if lib is not None else None, flops, nbytes,
@@ -291,8 +297,10 @@ def check_kernels(torch, ops, ref, p, k, dtype, dev, exact_ref: bool):
 def _variant(_lib, name: str, args, before: dict) -> str:
     """Kernel A's variant that a phase 3 launch took, read from the
     tensor-core launch counters, which must be ``atb_variant``'s answer;
-    for kernel C, the load path the rule ``rows16`` names (the rule's
-    answer: the launch reports no path of its own)."""
+    for kernels B and C, the load path the rules ``ctv_path`` and
+    ``rows16`` name (the rules' answers: a launch reports no path of its
+    own; ``tests/test_torch_cuda.py`` reads kernel B's from the
+    profiler)."""
     C = args[0]
     if name.startswith('nystrom'):
         B = C if name == 'nystrom_gram' else args[1]
@@ -307,7 +315,7 @@ def _variant(_lib, name: str, args, before: dict) -> str:
     if name.startswith('woodbury_apply'):
         rows = _lib.rows16(C.dtype, C.shape[1], C.data_ptr())
         return 'rows16 rule: ' + ('16-byte rows' if rows else 'scalar rows')
-    return 'ctv'
+    return _lib.ctv_path(C.dtype, C.shape[1], C.data_ptr())
 
 
 def _p24(rec: dict) -> dict:
@@ -716,6 +724,9 @@ def main() -> None:
     large = {str(dtype)[6:]: check_kernels(torch, ops, ref, LARGE_P, LARGE_K,
                                            dtype, dev, exact_ref=True)
              for dtype in (torch.float32, torch.bfloat16)}
+    f1 = {f'{str(dtype)[6:]} k={k} m={m}': check_kernels(
+        torch, ops, ref, F1_P, k, dtype, dev, exact_ref=True, m=m)
+        for k, m in F1_KM for dtype in (torch.float32, torch.bfloat16)}
     run_kernel_tests()
 
     # 4. main path --------------------------------------------------------------
@@ -829,12 +840,15 @@ def main() -> None:
         rec = dict(name=f'{kname} ({kernel})', route='cuda', source=source,
                    replaces=replaces, launches=path_launches[kname],
                    **main_rec[kname])
-        if kname in large['float32']:   # rows 1-5 at p = 2^24
-            rec['p24'] = {dt: _p24(recs[kname])
-                          for dt, recs in large.items()}
-            if kname == 'nystrom_cross':
-                rec['p24']['bfloat16 x bfloat16'] = _p24(
-                    large['bfloat16']['nystrom_cross_bf16'])
+        if kname in large['float32']:   # rows 1-5 at p = 2^24 and 2^20
+            for key, runs in (('p24', large), ('p20', f1)):
+                rec[key] = {dt: _p24(recs[kname])
+                            for dt, recs in runs.items()}
+                if kname == 'nystrom_cross':
+                    rec[key].update({
+                        f'{dt} x bfloat16': _p24(recs['nystrom_cross_bf16'])
+                        for dt, recs in runs.items()
+                        if 'nystrom_cross_bf16' in recs})
         records.append(rec)
     print(smi)
     print(json.dumps({'kernels': records}))

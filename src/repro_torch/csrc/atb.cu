@@ -15,15 +15,21 @@
 // bf16 sketch halves the bytes and doubles the FLOP per byte, beyond what
 // the CUDA cores can give at the memory's rate; the tensor cores take it.
 //
-// Both variants cut p into one contiguous run of rows per block (gridDim.x,
-// a multiple of kStageRows rows each) and the k x m result into 64 x 64
-// output tiles (gridDim.y; gram takes only the tiles on or above the
-// diagonal). Each block sums its rows in two levels, a stage of 128 rows
-// at a time added into a running f32 sum, so the rounding of a long run
-// grows with its count of stages; it writes its partial sums to f32
-// scratch, and reduce_partials adds the blocks' partials in a fixed order
-// (gram reading the upper triangle for both halves, so G equals G^T
-// bit for bit). No atomics: two calls give the same bits.
+// Both variants cut the k x m result into 64 x 64 output tiles (gridDim.x;
+// gram takes only the tiles on or above the diagonal) and p into one
+// contiguous run of rows per block (gridDim.y, a multiple of kStageRows
+// rows each). The tiles are the grid's fast dimension, so the blocks that
+// run together are mostly the tiles of one run of rows, which then reads
+// from L2 for all but the first of them. Each block sums its rows in two
+// levels, a stage of 128 rows at a time added into a running f32 sum, so
+// the rounding of a long run grows with its count of stages; it writes its
+// partial sums to f32 scratch, and reduce_partials (reduce_columns from
+// 65,536 outputs on) adds the blocks' partials in a fixed order (gram
+// reading the upper triangle for both halves, so G equals G^T bit for
+// bit). No atomics: two calls give the same bits. Any k and m with
+// k m < 2^31 (an 8 GB result): the wrapper caps gridDim.y so that the
+// scratch, gridDim.y k m floats, stays within _lib.ATB_SCRATCH_BYTES (one
+// block where one partial alone is larger).
 //
 // atb_cc<TA, TB, V, STAGES, SYM> -- IEEE f32 on the CUDA cores, any
 // f32/bf16 mix (TF32 is not allowed: f32 means IEEE f32); SYM: gram's.
@@ -93,8 +99,8 @@ __host__ __device__ inline int n_tiles(int n) {
   return (n + kTileN - 1) / kTileN;
 }
 
-// Tile t of gridDim.y: gram walks the upper triangle row by row.
-__device__ inline OutTile out_tile(int t, int k, int m, int sym) {
+// Tile t (blockIdx.x): gram walks the upper triangle row by row.
+__device__ inline OutTile out_tile(int64_t t, int k, int m, int sym) {
   int a = 0, b;
   if (sym) {
     const int nk = n_tiles(k);
@@ -102,10 +108,10 @@ __device__ inline OutTile out_tile(int t, int k, int m, int sym) {
       t -= nk - a;
       ++a;
     }
-    b = a + t;
+    b = a + (int)t;
   } else {
-    a = t / n_tiles(m);
-    b = t - a * n_tiles(m);
+    a = (int)(t / n_tiles(m));
+    b = (int)(t - (int64_t)a * n_tiles(m));
   }
   OutTile o;
   o.i0 = a * kTileN;
@@ -116,8 +122,8 @@ __device__ inline OutTile out_tile(int t, int k, int m, int sym) {
   return o;
 }
 
-static int out_tile_count(int k, int m, int sym) {
-  const int nk = n_tiles(k);
+static int64_t out_tile_count(int k, int m, int sym) {
+  const int64_t nk = n_tiles(k);
   return sym ? nk * (nk + 1) / 2 : nk * n_tiles(m);
 }
 
@@ -322,7 +328,7 @@ __global__ void __launch_bounds__(kCcMaxThreads, 1)
            float* __restrict__ partial, int64_t p, int k, int m, int sym,
            int64_t rows_per_block, int mode_a, int mode_b) {
   extern __shared__ __align__(16) uint8_t smem[];
-  const OutTile t = out_tile(blockIdx.y, k, m, sym);
+  const OutTile t = out_tile(blockIdx.x, k, m, sym);
   const int a_bytes = stage_bytes<TA>(min(k, kTileN));
   const int stride = ring_stride<TA, TB>(k, m, sym);
   auto sa = [&](int s) {
@@ -337,7 +343,7 @@ __global__ void __launch_bounds__(kCcMaxThreads, 1)
 
   const Role me = role_of(t);   // t.diag only where SYM
 
-  const int64_t r0 = (int64_t)blockIdx.x * rows_per_block;
+  const int64_t r0 = (int64_t)blockIdx.y * rows_per_block;
   const int64_t r1 = imin(p, r0 + rows_per_block);
   const int nst = (int)((r1 - r0 + kStageRows - 1) / kStageRows);
   auto stage_rows = [&](int s) {
@@ -420,7 +426,7 @@ __global__ void __launch_bounds__(kCcMaxThreads, 1)
   if (me.active && me.g == 0) {
     // a diagonal tile's entries on or above the diagonal, each computed by
     // exactly one thread
-    float* out = partial + (int64_t)blockIdx.x * k * m;
+    float* out = partial + (int64_t)blockIdx.y * k * m;
 #pragma unroll
     for (int x = 0; x < kTR; ++x) {
       const int ci = kTR * me.pa + x;
@@ -477,7 +483,7 @@ static int launch_cc(const void* A, const void* B, float* partial,
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(nblocks, out_tile_count(k, m, sym));
+  const dim3 grid((unsigned)out_tile_count(k, m, sym), nblocks);
   kernel<<<grid, threads, smem, stream>>>(
       static_cast<const TA*>(A), static_cast<const TB*>(B), partial, p, k, m,
       sym, rows_per_block, copy_mode<TA>(A, k), copy_mode<TB>(B, m));
@@ -505,8 +511,8 @@ __global__ void __launch_bounds__(kTcThreadsA, 1)
   auto empty = [&](int s) { return bars + 8 * (kTcRing + s); };
   auto box_a = [&](int s) { return base + 2 * s * kTcBox; };
   auto box_b = [&](int s) { return base + (2 * s + 1) * kTcBox; };
-  const OutTile t = out_tile(blockIdx.y, k, m, sym);
-  const int64_t r0 = (int64_t)blockIdx.x * rows_per_block;
+  const OutTile t = out_tile(blockIdx.x, k, m, sym);
+  const int64_t r0 = (int64_t)blockIdx.y * rows_per_block;
   const int64_t r1 = imin(p, r0 + rows_per_block);
   const int nst = (int)((r1 - r0 + kStageRows - 1) / kStageRows);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -558,7 +564,7 @@ __global__ void __launch_bounds__(kTcThreadsA, 1)
     for (int i = 0; i < 32; ++i) acc[i] += d[i];
   }
 
-  float* out = partial + (int64_t)blockIdx.x * k * m;
+  float* out = partial + (int64_t)blockIdx.y * k * m;
   const int row = 16 * warp + lane / 4, col = 2 * (lane % 4);
 #pragma unroll
   for (int j = 0; j < 8; ++j)
@@ -599,10 +605,33 @@ static int launch_tc(const void* A, const void* B, float* partial, int64_t p,
   cudaError_t err = cudaFuncSetAttribute(
       atb_tc, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kTcSmem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(nblocks, out_tile_count(k, m, sym));
+  const dim3 grid((unsigned)out_tile_count(k, m, sym), nblocks);
   atb_tc<<<grid, kTcThreadsA, kTcSmem, stream>>>(amap, bmap, partial, p, k, m,
                                                  sym, rows_per_block);
   return (int)cudaGetLastError();
+}
+
+// out[o] = sum over b of partial[b * n + o] for results of kColumnsFrom
+// outputs or more, where reduce_partials would launch a block of 256
+// threads per output: here one thread an output, b in order, neighbouring
+// threads on neighbouring words. sym_k as in reduce_partials: out[i, j]
+// with i > j is summed from entry (j, i), in the same order, so the result
+// is exactly symmetric.
+constexpr int kColumnsFrom = 65536;
+
+static __global__ void reduce_columns(const float* __restrict__ partial,
+                                      float* __restrict__ out, int nblocks,
+                                      int n, int sym_k) {
+  const int o = blockIdx.x * kThreads + threadIdx.x;
+  if (o >= n) return;
+  int src = o;
+  if (sym_k > 0) {
+    const int i = o / sym_k, j = o - i * sym_k;
+    if (i > j) src = j * sym_k + i;
+  }
+  float s = 0.f;
+  for (int b = 0; b < nblocks; ++b) s += partial[(int64_t)b * n + src];
+  out[o] = s;
 }
 
 }  // namespace rt
@@ -611,13 +640,15 @@ static int launch_tc(const void* A, const void* B, float* partial, int64_t p,
 // (k, m)). sym: A is B (gram), only the upper triangle is computed and
 // mirrored. tensor_cores: atb_tc (bf16 x bf16, k and m multiples of 8, both
 // bases on the 16-byte grid), else atb_cc. rows_per_block is a multiple of
-// 128. Returns cudaGetLastError() after both launches.
+// 128, nblocks at most 65,535 (gridDim.y). Any k, m >= 1 with k m < 2^31.
+// Returns cudaGetLastError() after both launches.
 extern "C" int rt_atb(const void* A, int a_dtype, const void* B, int b_dtype,
                       void* partial, void* out, long long p, int k, int m,
                       int sym, int tensor_cores, int nblocks,
                       long long rows_per_block, void* stream) {
   using namespace rt;
-  if (k < 1 || m < 1 || k > 256 || m > 256 || nblocks < 1 || p < 1 ||
+  if (k < 1 || m < 1 || nblocks < 1 || nblocks > kMaxGridY || p < 1 ||
+      (int64_t)k * m > INT32_MAX ||
       rows_per_block % kStageRows != 0 ||
       (int64_t)nblocks * rows_per_block < p ||
       (sym && (A != B || k != m || a_dtype != b_dtype)))
@@ -649,7 +680,12 @@ extern "C" int rt_atb(const void* A, int a_dtype, const void* B, int b_dtype,
   else
     code = (int)cudaErrorInvalidValue;
   if (code != 0) return code;
-  reduce_partials<<<k * m, kThreads, 0, s>>>(part, static_cast<float*>(out),
-                                             nblocks, k * m, sym ? k : 0);
+  const int n = k * m;
+  if (n < kColumnsFrom)
+    reduce_partials<<<n, kThreads, 0, s>>>(part, static_cast<float*>(out),
+                                           nblocks, n, sym ? k : 0);
+  else
+    reduce_columns<<<(n + kThreads - 1) / kThreads, kThreads, 0, s>>>(
+        part, static_cast<float*>(out), nblocks, n, sym ? k : 0);
   return (int)cudaGetLastError();
 }

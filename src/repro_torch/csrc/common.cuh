@@ -17,8 +17,9 @@ namespace rt {
 enum DType : int { kF32 = 0, kBF16 = 1 };
 
 constexpr int kThreads = 256;
+constexpr int kMaxGridY = 65535;   // gridDim.y's limit
 
-__device__ __forceinline__ int64_t imin(int64_t a, int64_t b) {
+__host__ __device__ __forceinline__ int64_t imin(int64_t a, int64_t b) {
   return a < b ? a : b;
 }
 
@@ -84,6 +85,11 @@ __device__ __forceinline__ void widen16<__nv_bfloat16>(uint4 raw, float* x) {
     x[2 * i] = f.x;
     x[2 * i + 1] = f.y;
   }
+}
+
+// 16 bytes through the read-only data path.
+__device__ __forceinline__ uint4 ldg16(const void* p) {
+  return __ldg(reinterpret_cast<const uint4*>(p));
 }
 
 // Asynchronous 16-byte copy global -> shared (cp.async, bypassing L1) and

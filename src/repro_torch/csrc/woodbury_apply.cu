@@ -25,8 +25,10 @@
 // the group's sums with __shfl_xor_sync. A warp takes 32 rows at a time
 // (four rows' loads in flight per lane), gathers the 32 dots into lane
 // order with shuffles, and reads v and writes u coalesced. Without rows16
-// (k = 10 in f32: 40-byte rows) a lane walks its own row with scalar loads
-// against w in shared memory.
+// (k = 10 in f32: 40-byte rows; rows of more than 64 chunks) a lane walks
+// its own row with scalar loads against w in shared memory, or, where w
+// has more than kMaxW values, against w read through __ldg (the warp's
+// lanes read the same value of w at once: one broadcast load).
 //
 // apply_block (m > 1). W, zero-padded to whole 8-column groups, is staged
 // once per block in shared memory. Stages of R rows of C come into a
@@ -40,10 +42,13 @@
 // before the FMAs, and U is written with 16-byte stores where m % 8 == 0.
 // bf16 C and V are widened to f32 in registers after the load. A block-form
 // launch takes at most 256 columns of W and V; wider blocks run in slices
-// of 256 columns, each reading C again. Where W's slice and the ring do not
-// fit in a block's shared memory (k in the thousands), the slice runs as
-// the vector form, once a column (strided v, w and u). Nothing is reduced
-// across blocks, so the result is deterministic.
+// of 256 columns, each reading C again. Where a 256-column slice of W and a
+// ring of 4 rows do not fit a block's shared memory (k = 512 in f32), the
+// slice narrows by whole 8-column groups to the width that gives the most
+// threads a tile (slice_cols). Only where not even 8 columns fit (k in the
+// thousands) does the slice run as the vector form, once a column (strided
+// v, w and u). Any k and m. Nothing is reduced across blocks, so the
+// result is deterministic.
 #include "common.cuh"
 
 namespace rt {
@@ -54,10 +59,6 @@ constexpr int kBlkTR = 4;          // rows of a block-form thread tile
 constexpr int kBlkTC = 8;          // columns of it
 constexpr int kBlkBudget = 200 * 1024;   // shared memory of a block
 constexpr int kBlkSlice = 256;     // columns of W and V a block-form launch
-
-__device__ __forceinline__ uint4 ldg16(const void* p) {
-  return __ldg(reinterpret_cast<const uint4*>(p));
-}
 
 template <typename TC, typename TV>
 __global__ void __launch_bounds__(kThreads)
@@ -70,15 +71,22 @@ __global__ void __launch_bounds__(kThreads)
   const int64_t nwarps = (int64_t)gridDim.x * (kThreads / 32);
   int64_t task = ((int64_t)blockIdx.x * kThreads + threadIdx.x) / 32;
   if (!rows16) {
+    // w staged in shared memory where it fits, else read through __ldg
     __shared__ float sw[kMaxW];
-    for (int e = threadIdx.x; e < k; e += kThreads) sw[e] = w[e * ld];
+    const bool staged = k <= kMaxW;
+    if (staged)
+      for (int e = threadIdx.x; e < k; e += kThreads) sw[e] = w[e * ld];
     __syncthreads();
     for (; task < tasks; task += nwarps) {
       const int64_t r = task * 32 + lane;
       if (r >= p) continue;
       const TC* row = C + r * k;
       float s = 0.f;
-      for (int i = 0; i < k; ++i) s = fmaf(to_f32(row[i]), sw[i], s);
+      if (staged)
+        for (int i = 0; i < k; ++i) s = fmaf(to_f32(row[i]), sw[i], s);
+      else
+        for (int i = 0; i < k; ++i)
+          s = fmaf(to_f32(row[i]), __ldg(w + (int64_t)i * ld), s);
       u[r * ld] = to_f32(v[r * ld]) * inv_rho - s * inv_rho2;
     }
     return;
@@ -150,12 +158,35 @@ __host__ __device__ inline BlockShape block_shape(int k, int m) {
   b.kp = (k + E - 1) / E * E;
   b.ldc = b.kp + ((b.kp / E) % 2 == 0 ? E : 0);
   b.mp = (m + kBlkTC - 1) / kBlkTC * kBlkTC;
-  b.w_bytes = b.kp * b.mp * 4;
-  const int row_bytes = b.ldc * (int)sizeof(TC);
-  const int fit = (kBlkBudget - b.w_bytes) / (2 * row_bytes);
+  const int64_t w_bytes = (int64_t)b.kp * b.mp * 4;
+  b.w_bytes = w_bytes < kBlkBudget ? (int)w_bytes : kBlkBudget;
+  const int64_t row_bytes = (int64_t)b.ldc * sizeof(TC);
+  const int64_t fit = (kBlkBudget - w_bytes) / (2 * row_bytes);
   const int want = kBlkTR * (kThreads / (b.mp / kBlkTC));
-  b.rows = (want < fit ? want : fit) / kBlkTR * kBlkTR;
+  b.rows = fit < kBlkTR ? 0 : (int)(want < fit ? want : fit) / kBlkTR * kBlkTR;
   return b;
+}
+
+// The columns of W and V a block-form launch takes: kBlkSlice, or all that
+// are left if fewer. Where W's slice and a ring of kBlkTR rows do not fit
+// kBlkBudget, fewer whole 8-column groups: of the widths that fit, the one
+// that gives the most threads a tile (ties to the wider, which reads C
+// fewer times). 0 where not even 8 columns fit.
+template <typename TC>
+static int slice_cols(int k, int left) {
+  const int top = left < kBlkSlice ? left : kBlkSlice;
+  if (block_shape<TC>(k, top).rows >= kBlkTR) return top;
+  int best = 0, busy = 0;
+  for (int ms = (top - 1) / kBlkTC * kBlkTC; ms >= kBlkTC; ms -= kBlkTC) {
+    const BlockShape b = block_shape<TC>(k, ms);
+    if (b.rows < kBlkTR) continue;
+    const int tiles = b.rows / kBlkTR * (b.mp / kBlkTC);
+    if ((tiles < kThreads ? tiles : kThreads) > busy) {
+      best = ms;
+      busy = tiles < kThreads ? tiles : kThreads;
+    }
+  }
+  return best;
 }
 
 template <typename TC, typename TV>
@@ -308,17 +339,18 @@ static int launch(const void* C, const float* W, const void* V, float* U,
     return launch_vec<TC, TV>(C, W, V, U, p, k, 1, 0, inv_rho, inv_rho2,
                               rows16, sms, stream);
   auto kernel = apply_block<TC, TV>;
-  for (int j0 = 0; j0 < m; j0 += kBlkSlice) {
-    const int ms = m - j0 < kBlkSlice ? m - j0 : kBlkSlice;
-    const BlockShape b = block_shape<TC>(k, ms);
-    if (b.rows < kBlkTR) {   // W's slice and a ring do not fit: by column
-      for (int j = j0; j < j0 + ms; ++j) {
+  for (int j0 = 0, ms; j0 < m; j0 += ms) {
+    ms = slice_cols<TC>(k, m - j0);
+    if (ms == 0) {   // not even 8 columns of W and a ring fit: by column
+      ms = m - j0;
+      for (int j = j0; j < m; ++j) {
         const int code = launch_vec<TC, TV>(C, W, V, U, p, k, m, j, inv_rho,
                                             inv_rho2, rows16, sms, stream);
         if (code != 0) return code;
       }
       continue;
     }
+    const BlockShape b = block_shape<TC>(k, ms);
     const int smem = b.w_bytes + 2 * b.rows * b.ldc * (int)sizeof(TC);
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -346,7 +378,7 @@ static int launch(const void* C, const float* W, const void* V, float* U,
 }  // namespace rt
 
 // rows16: C's rows are read as whole 16-byte chunks (the wrapper's rule;
-// refused here if C does not satisfy it). Takes any k * m <= 8192. sms: the
+// refused here if C does not satisfy it). Takes any k, m >= 1. sms: the
 // card's SM count, which sets the grids.
 extern "C" int rt_woodbury_apply(const void* C, int c_dtype, const void* W,
                                  const void* V, int v_dtype, void* U,
@@ -355,7 +387,7 @@ extern "C" int rt_woodbury_apply(const void* C, int c_dtype, const void* W,
                                  void* stream) {
   using namespace rt;
   const int esize = c_dtype == kBF16 ? 2 : 4;
-  if (k < 1 || m < 1 || p < 1 || sms < 1 || (int64_t)k * m > kMaxW ||
+  if (k < 1 || m < 1 || p < 1 || sms < 1 ||
       (rows16 && (reinterpret_cast<uintptr_t>(C) % 16 != 0 ||
                   (k * esize) % 16 != 0 || k * esize > 16 * kVecMaxChunks)))
     return (int)cudaErrorInvalidValue;

@@ -42,12 +42,15 @@ LAUNCHES = {'nystrom_gram': 0, 'nystrom_cross': 0, 'woodbury_ctv': 0,
 
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
-# kernel B cuts p into at most 4 runs of rows per SM, each a multiple of
-# 16 rows
-CTV_BLOCKS_PER_SM = 4
-ROW_TILE = 16
+# kernel B: at most 2 blocks an SM (over its column windows too), each a
+# sweep of rows or more; fewer partials for the last block to add than 3
+# or 4 an SM, and as fast at streaming C (H100, p = 2^20 and 2^24)
+CTV_BLOCKS_PER_SM = 2
 # kernel A's stage: 128 rows of p (both of its variants), one block per SM
 ATB_ROWS = 128
+# kernel A's scratch: one partial (k, m) sum in f32 per block along p,
+# capped at this many bytes (fewer blocks where k·m is large; one at least)
+ATB_SCRATCH_BYTES = 256 * 2 ** 20
 
 _lib: ctypes.CDLL | None = None
 
@@ -130,7 +133,7 @@ def lib() -> ctypes.CDLL:
         p, i, ll, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                        ctypes.c_float)
         cdll.rt_atb.argtypes = [p, i, p, i, p, p, ll, i, i, i, i, i, ll, p]
-        cdll.rt_ctv.argtypes = [p, i, p, i, p, p, ll, i, i, ll, p]
+        cdll.rt_ctv.argtypes = [p, i, p, i, p, p, p, ll, i, i, i, p]
         cdll.rt_woodbury_apply.argtypes = [p, i, p, p, i, p, ll, i, i, f, f,
                                            i, i, p]
         cdll.rt_rmsnorm.argtypes = [p, i, p, i, p, ll, i, f, p]
@@ -156,7 +159,10 @@ def check(code: int, what: str) -> None:
 
 
 def stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+    """The current device's current CUDA stream, as the raw handle a launch
+    takes (without building a ``torch.cuda.Stream`` object on every
+    launch's host path)."""
+    return torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
 
 
 def split_rows(p: int, tile: int, max_blocks: int) -> tuple[int, int]:
@@ -166,6 +172,63 @@ def split_rows(p: int, tile: int, max_blocks: int) -> tuple[int, int]:
     nblocks = min(max_blocks, tiles)
     rows = -(-tiles // nblocks) * tile
     return -(-p // rows) if p else 1, rows
+
+
+def atb_split(p: int, k: int, m: int, sms: int) -> tuple[int, int]:
+    """Kernel A's (blocks along p, rows a block): whole 128-row stages, at
+    most one block an SM, and at most as many blocks as keep the scratch
+    (blocks · k · m f32 partials) within ``ATB_SCRATCH_BYTES``, but one
+    block at least."""
+    cap = max(1, ATB_SCRATCH_BYTES // (4 * k * m))
+    return split_rows(p, ATB_ROWS, min(sms, cap))
+
+
+def ctv_path(dtype: torch.dtype, k: int, ptr: int) -> str:
+    """Kernel B's load path, by rule: C's base on the 16-byte grid and a row
+    whole 16-byte chunks (any number of them) → ``'ctv_rows16'`` (16-byte
+    loads, a group of lanes a row); otherwise ``'ctv_scalar'``. The test of
+    :func:`rows16` without its 64-chunk limit."""
+    whole = ptr % 16 == 0 and (k * dtype.itemsize) % 16 == 0
+    return 'ctv_rows16' if whole else 'ctv_scalar'
+
+
+@functools.lru_cache(maxsize=1024)
+def ctv_blocks(p: int, k: int, itemsize: int, rows16: bool, sms: int) -> int:
+    """Kernel B's blocks along p (gridDim.x; its column windows go on
+    gridDim.y): ``CTV_BLOCKS_PER_SM`` an SM shared among the windows, and no
+    more than p's sweeps, a sweep being the rows the block's 256 threads
+    take at once (``ctv.cu``: 8 rows a lane in flight)."""
+    if rows16:
+        chunks = k * itemsize // 16
+        lanes = 1
+        while lanes < chunks and lanes < 32:
+            lanes *= 2
+        windows = -(-chunks // lanes)
+        sweep = 8 * 32 * max(1, 8 // lanes)   # 8 warps' tasks
+    else:
+        width = min(k, 256)
+        windows = -(-k // width)
+        sweep = 256 // width * 8              # groups, 8 rows each
+    per = max(1, CTV_BLOCKS_PER_SM * sms // min(windows, 65535))
+    return max(1, min(per, -(-p // sweep)))
+
+
+_CTV_SCRATCH: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def ctv_scratch(device: torch.device, stream: int,
+                floats: int) -> torch.Tensor:
+    """Kernel B's scratch for launches on ``stream``: its first 16 bytes a
+    zeroed ticket counter, which the kernel's last block sets back to 0,
+    then room for ``floats`` f32 partials. One buffer per (device, stream),
+    kept and grown as calls need: launches on one stream run in turn, so
+    they can share it."""
+    key = (device.index, stream)
+    buf = _CTV_SCRATCH.get(key)
+    if buf is None or buf.numel() < 4 + floats:
+        buf = torch.zeros(4 + floats, dtype=torch.float32, device=device)
+        _CTV_SCRATCH[key] = buf
+    return buf
 
 
 @functools.lru_cache(maxsize=None)
@@ -206,13 +269,14 @@ def require(cond: bool, msg: str) -> None:
 
 def device_of(*xs: torch.Tensor) -> str:
     """The one device type of a wrapper's operands: 'cpu' (the plain
-    version runs) or 'cuda' (the kernel launches); anything else raises."""
-    kinds = {x.device.type for x in xs}
-    require(len(kinds) == 1 and len({x.device for x in xs}) == 1,
-            f'operands on different devices: {[x.device for x in xs]}')
-    kind = kinds.pop()
-    require(kind in ('cpu', 'cuda'), f'unsupported device {kind!r}')
-    return kind
+    version runs) or 'cuda' (the kernel launches); anything else raises.
+    (A loop, not sets: this runs on every launch's host path.)"""
+    dev = xs[0].device
+    for x in xs[1:]:
+        require(x.device == dev,
+                f'operands on different devices: {[x.device for x in xs]}')
+    require(dev.type in ('cpu', 'cuda'), f'unsupported device {dev.type!r}')
+    return dev.type
 
 
 def require_no_grad(name: str, *xs: torch.Tensor) -> None:

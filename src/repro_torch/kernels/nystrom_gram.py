@@ -32,10 +32,9 @@ def atb(A: torch.Tensor, B: torch.Tensor, *,
     m = B.shape[1]
     _lib.require(A.is_contiguous() and B.is_contiguous(),
                  'atb needs contiguous row-major operands')
-    _lib.require(k <= 256 and m <= 256, f'atb takes k, m <= 256; got {k}, {m}')
     variant = _lib.atb_variant(A.dtype, B.dtype, p, k, m,
                                (A.data_ptr(), B.data_ptr()))
-    nblocks, rows = _lib.split_rows(p, _lib.ATB_ROWS, _lib.sm_count(A.device))
+    nblocks, rows = _lib.atb_split(p, k, m, _lib.sm_count(A.device))
     partial = torch.empty((nblocks, k * m), dtype=torch.float32,
                           device=A.device)
     out = torch.empty((k, m), dtype=torch.float32, device=A.device)

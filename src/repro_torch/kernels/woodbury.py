@@ -19,7 +19,10 @@ from repro_torch.kernels.nystrom_gram import _check_operand, nystrom_cross
 
 
 def woodbury_ctv(C: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """t = Cᵀv. v (p,) → (k,) via kernel B; v (p, m) → (k, m) via kernel A."""
+    """t = Cᵀv. v (p,) → (k,) via kernel B (one launch, one allocation: t;
+    the blocks' partials and the ticket counter live in the stream's
+    scratch, :func:`~repro_torch.kernels._lib.ctv_scratch`); v (p, m) →
+    (k, m) via kernel A."""
     if v.ndim == 2:
         return nystrom_cross(C, v)
     _check_operand(C, 'C')
@@ -31,15 +34,16 @@ def woodbury_ctv(C: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
         return ref.woodbury_ctv(C, v)
     _lib.require(C.is_contiguous() and v.is_contiguous(),
                  'woodbury_ctv needs contiguous operands')
-    _lib.require(k <= 256, f'woodbury_ctv takes k <= 256, got {k}')
-    nblocks, rows = _lib.split_rows(
-        p, _lib.ROW_TILE, _lib.CTV_BLOCKS_PER_SM * _lib.sm_count(C.device))
-    partial = torch.empty((nblocks, k), dtype=torch.float32, device=C.device)
+    rows16 = _lib.ctv_path(C.dtype, k, C.data_ptr()) == 'ctv_rows16'
+    nrb = _lib.ctv_blocks(p, k, C.element_size(), rows16,
+                          _lib.sm_count(C.device))
     out = torch.empty((k,), dtype=torch.float32, device=C.device)
+    stream = _lib.stream()
+    scratch = _lib.ctv_scratch(C.device, stream, nrb * k).data_ptr()
     code = _lib.lib().rt_ctv(
         C.data_ptr(), _lib.DTYPE_CODE[C.dtype], v.data_ptr(),
-        _lib.DTYPE_CODE[v.dtype], partial.data_ptr(), out.data_ptr(), p, k,
-        nblocks, rows, _lib.stream())
+        _lib.DTYPE_CODE[v.dtype], scratch + 16, out.data_ptr(), scratch, p,
+        k, nrb, int(rows16), stream)
     _lib.check(code, 'woodbury_ctv')
     _lib.LAUNCHES['woodbury_ctv'] += 1
     return out
@@ -66,7 +70,6 @@ def woodbury_apply(C: torch.Tensor, w: torch.Tensor, v: torch.Tensor,
         return ref.woodbury_apply(C, w, v, rho)
     _lib.require(C.is_contiguous() and v.is_contiguous(),
                  'woodbury_apply needs contiguous C and v')
-    _lib.require(k * m <= 8192, f'woodbury_apply takes k*m <= 8192, got {k * m}')
     w = w.float().contiguous()
     out = torch.empty(want_v, dtype=torch.float32, device=C.device)
     code = _lib.lib().rt_woodbury_apply(

@@ -13,6 +13,8 @@ variant is held to the same one-ulp gate: its products take the bf16
 inputs exactly and accumulate in f32, and its probabilities enter P·V as
 two bf16 fragments (hi + lo) that carry 16 bits of them.
 """
+import ctypes
+
 import pytest
 import torch
 
@@ -53,12 +55,11 @@ def test_kernels_match_plain_versions(cuda, dtype, p, k, m):
     _close(ops.nystrom_gram(C), ref.nystrom_gram(C))
     _close(ops.nystrom_cross(C, V), ref.nystrom_cross(C, V))
     _close(ops.woodbury_ctv(C, v), ref.woodbury_ctv(C, v))
-    if k * m <= 8192:
-        for rho in (0.01, 1.0):
-            _close(ops.woodbury_apply(C, w, v, rho),
-                   ref.woodbury_apply(C, w, v, rho))
-            _close(ops.woodbury_apply(C, W, V, rho),
-                   ref.woodbury_apply(C, W, V, rho))
+    for rho in (0.01, 1.0):
+        _close(ops.woodbury_apply(C, w, v, rho),
+               ref.woodbury_apply(C, w, v, rho))
+        _close(ops.woodbury_apply(C, W, V, rho),
+               ref.woodbury_apply(C, W, V, rho))
 
 
 def test_launches_are_counted_and_deterministic(cuda):
@@ -88,8 +89,9 @@ def test_cuda_wrappers_raise_instead_of_falling_back(cuda):
         ops.nystrom_gram(C.T.contiguous().T)
     with pytest.raises(ValueError, match='different devices'):
         ops.woodbury_ctv(C, torch.randn(64))
-    with pytest.raises(ValueError, match='k, m <= 256'):
-        ops.nystrom_gram(_randn((64, 300), torch.float32, cuda, 7))
+    # k = 300, which PR 15's kernel A refused: computed, not refused
+    C300 = _randn((64, 300), torch.float32, cuda, 7)
+    _close(ops.nystrom_gram(C300), ref.nystrom_gram(C300))
     # kernel A's C entry, asked for the tensor-core variant on operands it
     # cannot take, refuses them and runs nothing in their place
     Cb = _shifted(_randn((3001, 64), torch.bfloat16, cuda, 8))
@@ -209,8 +211,7 @@ def test_atb_past_int32_rows_takes_the_cuda_cores(cuda):
     del C
 
 
-APPLY_KM = [(k, m) for k in ATB_KS for m in (1, 3, 32, 256)
-            if k * m <= 8192]
+APPLY_KM = [(k, m) for k in ATB_KS for m in (1, 3, 32, 256)]
 
 
 @pytest.mark.parametrize('v_dtype', [torch.float32, torch.bfloat16])
@@ -254,6 +255,139 @@ def test_apply_takes_every_k_m_up_to_8192(cuda, c_dtype, k, m):
     assert _lib.LAUNCHES[name] == before + 1
     _close(got, ref.woodbury_apply(C, W, V, 0.05))
     assert torch.equal(got, ops.woodbury_apply(C, W, V, 0.05))
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('p,k,m', [(3001, 512, 512), (4097, 64, 256),
+                                   (3001, 300, 3), (3001, 100, 32)])
+def test_every_kernel_takes_shapes_beyond_256(cuda, dtype, p, k, m):
+    """Kernels A, B and C at shapes PR 15 refused (k or m above 256, k·m
+    above 8192), and bf16 k = 100 (200-byte rows, off the 16-byte grid):
+    gram (exactly symmetric), cross with ``dtype`` and f32 queries, Cᵀv,
+    and both apply forms, each against its plain version and bit for bit
+    on a second call."""
+    C = _randn((p, k), dtype, cuda, 110 + k)
+    V = _randn((p, m), torch.float32, cuda, 111)
+    v = _randn((p,), torch.float32, cuda, 112)
+    w = _randn((k,), torch.float32, cuda, 113)
+    W = _randn((k, m), torch.float32, cuda, 114)
+    _atb_checked(C, C, gram=True)
+    _atb_checked(C, V, gram=False)
+    if dtype == torch.bfloat16:   # bf16 x bf16: the tensor cores where
+        _atb_checked(C, V.to(dtype), gram=False)   # k, m are multiples of 8
+    for call, plain in ((lambda: ops.woodbury_ctv(C, v),
+                         lambda: ref.woodbury_ctv(C, v)),
+                        (lambda: ops.woodbury_apply(C, w, v, 0.05),
+                         lambda: ref.woodbury_apply(C, w, v, 0.05)),
+                        (lambda: ops.woodbury_apply(C, W, V, 0.05),
+                         lambda: ref.woodbury_apply(C, W, V, 0.05))):
+        got = call()
+        _close(got, plain())
+        assert torch.equal(got, call())
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('k', [1000, 1, 4, 8, 12, 100, 129, 257])
+def test_ctv_takes_any_k(cuda, dtype, k):
+    """Kernel B at any k: rows16 windows of 32 chunks (k = 1000), one to 32
+    chunks a row, and scalar rows (k = 1, bf16 k = 4, k = 257...)."""
+    C = _randn((5003, k), dtype, cuda, 120 + k)
+    v = _randn((5003,), dtype, cuda, 121)
+    _close(ops.woodbury_ctv(C, v), ref.woodbury_ctv(C, v))
+
+
+class _KernelNodeParams(ctypes.Structure):
+    """``CUDA_KERNEL_NODE_PARAMS_v2`` of the driver API (``cuda.h``)."""
+    _fields_ = ([('func', ctypes.c_void_p)]
+                + [(f, ctypes.c_uint) for f in ('grid_x', 'grid_y', 'grid_z',
+                                                'block_x', 'block_y',
+                                                'block_z', 'smem')]
+                + [(f, ctypes.c_void_p) for f in ('params', 'extra', 'kern',
+                                                  'ctx')])
+
+
+def _graph_kernels(fn):
+    """The names of the device kernels that one ``fn()`` records into a
+    CUDA graph, read from the graph's nodes through the driver API (every
+    node must be a kernel: no memset, no copy), and ``fn``'s output after
+    one replay. A warm-up call on the capturing stream comes first, so that
+    per-stream state exists before the capture."""
+    cu = ctypes.CDLL('libcuda.so.1')
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, stream=side):
+        out = fn()
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    assert cu.cuGraphGetNodes(raw, None, ctypes.byref(n)) == 0
+    nodes = (ctypes.c_void_p * n.value)()
+    assert cu.cuGraphGetNodes(raw, nodes, ctypes.byref(n)) == 0
+    names = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        assert cu.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                     ctypes.byref(kind)) == 0
+        assert kind.value == 0, f'graph node of type {kind.value}'  # kernel
+        params, name = _KernelNodeParams(), ctypes.c_char_p()
+        assert cu.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node),
+                                                ctypes.byref(params)) == 0
+        assert cu.cuFuncGetName(ctypes.byref(name),
+                                ctypes.c_void_p(params.func)) == 0
+        names.append(name.value.decode())
+    graph.replay()
+    torch.cuda.synchronize()
+    return out, names
+
+
+@pytest.mark.parametrize('dtype,k,shift,path', [
+    (torch.float32, 64, False, 'ctv_rows16'),
+    (torch.bfloat16, 64, False, 'ctv_rows16'),
+    (torch.float32, 1000, False, 'ctv_rows16'),
+    (torch.float32, 10, False, 'ctv_scalar'),    # the main path's rows
+    (torch.float32, 64, True, 'ctv_scalar'),     # base off the 16-byte grid
+    (torch.bfloat16, 100, False, 'ctv_scalar'),
+])
+def test_ctv_one_launch_same_bits_on_both_paths(cuda, dtype, k, shift,
+                                                path):
+    """Kernel B: one device kernel a call (no reduction kernel, no memset),
+    named by the rule's load path, as a CUDA graph captures it; the
+    graph's replay and further calls give the same bits."""
+    C = _randn((26122, k), dtype, cuda, 130 + k)
+    if shift:
+        C = _shifted(C)
+    v = _randn((26122,), torch.float32, cuda, 131)
+    assert _lib.ctv_path(C.dtype, k, C.data_ptr()) == path
+    before = _lib.LAUNCHES['woodbury_ctv']
+    got, names = _graph_kernels(lambda: ops.woodbury_ctv(C, v))
+    assert _lib.LAUNCHES['woodbury_ctv'] == before + 2
+    assert len(names) == 1 and path in names[0], names
+    _close(got, ref.woodbury_ctv(C, v))
+    for _ in range(3):
+        assert torch.equal(got, ops.woodbury_ctv(C, v))
+
+
+def test_ctv_streams_keep_their_own_counters(cuda):
+    """Kernel B on a second stream, interleaved with calls on the current
+    one: each stream has its own scratch (ticket counter and partials), and
+    every call gives the same bits."""
+    C = _randn((200003, 64), torch.float32, cuda, 132)
+    v = _randn((200003,), torch.float32, cuda, 133)
+    want = ops.woodbury_ctv(C, v)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    outs = []
+    for _ in range(4):
+        outs.append(ops.woodbury_ctv(C, v))
+        with torch.cuda.stream(side):
+            outs.append(ops.woodbury_ctv(C, v))
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, want) for o in outs)
+    _close(want, ref.woodbury_ctv(C, v))
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])

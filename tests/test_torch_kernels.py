@@ -104,6 +104,43 @@ def test_woodbury_apply_block(k, m, dtype):
                                     interpret=True))
 
 
+# Shapes that PR 15's CUDA kernels refused (k or m above 256, k·m above
+# 8192) and the reference's kernels take, padding k and m to 128 lanes.
+F1_SHAPES = [(1000, 512, 512), (1000, 64, 256), (700, 300, 3)]
+
+
+@pytest.mark.parametrize('dtype', ['f32', 'bf16'])
+@pytest.mark.parametrize('p,k,m', F1_SHAPES)
+@pytest.mark.parametrize('entry', ['gram', 'cross', 'ctv', 'apply',
+                                   'apply_block'])
+def test_entry_points_take_every_shape_the_reference_takes(entry, p, k, m,
+                                                           dtype):
+    """The five entry points at k, m ∈ {512, 256, 300, 64, 3} against the
+    Pallas kernels in interpret mode, the same numpy inputs on both sides
+    (C in ``dtype``, queries and weights f32); rtol 1e-5 as above."""
+    jC, tC = _pair((p, k), 20, dtype)
+    rho = 0.05
+    if entry == 'gram':
+        got, want = ops.nystrom_gram(tC), jops.nystrom_gram(
+            jC, block_p=BLOCK_P, interpret=True)
+    elif entry == 'cross':
+        jV, tV = _pair((p, m), 21, 'f32')
+        got, want = ops.nystrom_cross(tC, tV), jops.nystrom_cross(
+            jC, jV, block_p=BLOCK_P, interpret=True)
+    elif entry == 'ctv':
+        jv, tv = _pair((p,), 22, 'f32')
+        got, want = ops.woodbury_ctv(tC, tv), jops.woodbury_ctv(
+            jC, jv, block_p=BLOCK_P, interpret=True)
+    else:
+        shape = (p, m) if entry == 'apply_block' else (p,)
+        jv, tv = _pair(shape, 23, 'f32')
+        jw, tw = _pair((k,) + shape[1:], 24, 'f32')
+        got, want = ops.woodbury_apply(tC, tw, tv, rho), jops.woodbury_apply(
+            jC, jw, jv, rho, block_p=BLOCK_P, interpret=True)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    _close(got, want)
+
+
 def test_nystrom_ihvp_apply_matches_reference_pipeline():
     """The composed Eq. 6 apply (ctv → gram → Jacobi k×k solve → apply).
     rtol 1e-4: the k×k solve amplifies the contractions' roundoff by the
@@ -152,18 +189,27 @@ def test_wrappers_reject_what_the_kernels_do_not_take(call):
 
 
 def test_row_split_covers_p_in_whole_tiles():
-    """Kernel B's split (16-row tiles, up to 528 blocks) and kernel A's
-    (128-row stages, one block per SM of an H100)."""
-    for tile, max_blocks in ((_lib.ROW_TILE, _lib.CTV_BLOCKS_PER_SM * 132),
-                             (_lib.ATB_ROWS, 132)):
+    """Kernel A's split (128-row stages, one block per SM of an H100) and
+    kernel B's blocks along p (at most 2 an SM, no more than p has
+    sweeps)."""
+    for tile, max_blocks in ((16, 528), (_lib.ATB_ROWS, 132)):
         for p in (1, 15, 16, 17, 127, 128, 129, 26122, 2 ** 24):
             nblocks, rows = _lib.split_rows(p, tile, max_blocks)
             assert rows % tile == 0
             assert nblocks <= max_blocks
             assert (nblocks - 1) * rows < p <= nblocks * rows
-    # kernel B at the main path's p: 409 runs of 64 rows
-    assert _lib.split_rows(26122, _lib.ROW_TILE,
-                           _lib.CTV_BLOCKS_PER_SM * 132) == (409, 64)
+    for p in (1, 15, 200, 201, 26122, 2 ** 24):
+        for k, isz, rows16 in ((10, 4, False), (64, 4, True), (64, 2, True),
+                               (1000, 4, True), (100, 2, False)):
+            n = _lib.ctv_blocks(p, k, isz, rows16, 132)
+            assert 1 <= n <= _lib.CTV_BLOCKS_PER_SM * 132
+    # kernel B at the main path's p (f32 k = 10, scalar loads: 25 groups of
+    # 10 lanes, 8 rows each, 200 rows a sweep): 131 blocks
+    assert _lib.ctv_blocks(26122, 10, 4, False, 132) == 131
+    # at p = 2^24, k = 64: 264 blocks; k = 1000 in f32 has 8 windows of 32
+    # chunks, which share the 264
+    assert _lib.ctv_blocks(2 ** 24, 64, 4, True, 132) == 264
+    assert _lib.ctv_blocks(2 ** 24, 1000, 4, True, 132) == 33
 
 
 BF, F = torch.bfloat16, torch.float32
@@ -202,6 +248,48 @@ def test_atb_variant_rule(a, b, p, k, m, ptrs, variant):
 ])
 def test_apply_rows16_rule(dtype, k, ptr, whole):
     assert _lib.rows16(dtype, k, ptr) == whole
+
+
+@pytest.mark.parametrize('dtype,k,ptr,path', [
+    (F, 64, 0, 'ctv_rows16'), (F, 4, 16, 'ctv_rows16'),
+    (F, 260, 0, 'ctv_rows16'),   # more than 64 chunks: still 16-byte loads
+    (F, 1000, 0, 'ctv_rows16'),
+    (F, 10, 0, 'ctv_scalar'),    # 40-byte rows, the main path's
+    (F, 64, 8, 'ctv_scalar'),    # base off the 16-byte grid
+    (BF, 64, 0, 'ctv_rows16'), (BF, 8, 48, 'ctv_rows16'),
+    (BF, 1000, 0, 'ctv_rows16'),
+    (BF, 100, 0, 'ctv_scalar'),  # 200-byte rows
+    (BF, 4, 0, 'ctv_scalar'),    # 8-byte rows
+    (BF, 64, 8, 'ctv_scalar'),
+])
+def test_ctv_path_rule(dtype, k, ptr, path):
+    """Kernel B's load path: ``rows16``'s test without its 64-chunk limit,
+    so wherever kernel C reads 16-byte rows, kernel B does too."""
+    assert _lib.ctv_path(dtype, k, ptr) == path
+    if _lib.rows16(dtype, k, ptr):
+        assert path == 'ctv_rows16'
+
+
+@pytest.mark.parametrize('p,k,m,nblocks', [
+    (26122, 10, 32, 103),        # the main path: 205 stages, 2 a block
+    (2 ** 24, 64, 32, 132),
+    (2 ** 20, 512, 512, 131),    # 1 MiB a partial: the cap (256) not reached
+    (2 ** 20, 2048, 2048, 16),   # 16 MiB a partial: 16 blocks
+    (2 ** 20, 4096, 8192, 2),
+    (10 ** 6, 8192, 8192, 1),    # one partial beyond the cap: one block
+    (3001, 300, 3, 24),          # p's 24 stages
+    (100, 1, 1, 1),
+])
+def test_atb_scratch_is_capped(p, k, m, nblocks):
+    """Kernel A's blocks along p as a pure function of (p, k, m) on 132
+    SMs: whole 128-row stages covering p, at most one block an SM, and a
+    scratch of blocks · k · m f32 within ``ATB_SCRATCH_BYTES`` unless one
+    block's partial alone is larger."""
+    got, rows = _lib.atb_split(p, k, m, 132)
+    assert got == nblocks
+    assert rows % _lib.ATB_ROWS == 0
+    assert (got - 1) * rows < p <= got * rows
+    assert got * k * m * 4 <= max(_lib.ATB_SCRATCH_BYTES, k * m * 4)
 
 
 def _two_level_gram(C: torch.Tensor, nblocks: int, stage: int = 128,
