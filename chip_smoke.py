@@ -50,7 +50,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    block-apply kernels must have launched.
 
 6. Where the time goes: ``solve`` again for 3 outer steps under
-   ``torch.profiler``: host time and device time of the trainer's own
+   ``torch.profiler`` (without the problem's metrics, which the timed
+   step leaves out too): host time and device time of the trainer's own
    phase ranges (``bilevel.inner``, ``bilevel.sketch``,
    ``bilevel.update``), and the device's busy and idle share against the
    unprofiled step of phase 4.
@@ -102,16 +103,49 @@ The transformer's prefill (the second slice):
     kernel E's CUDA-core variant) and ≤ 2e-2 in bf16 serving (its
     tensor-core variant).
 
+Tab. 2's solver family (the sixth slice):
+
+11. Distillation: ``solve(get_problem('distillation'), ...)`` at the task's
+    full width (28 × 28 images, width 64, 50 distilled images: p = 50,890
+    parameters, 39,200 hyperparameters; 100 inner steps at batch 256 per
+    outer step) for Tab. 2's four configurations (k = l = 10,
+    ρ = α = 1e-2): Nyström whitened and Nyström κ = 5 (Alg. 1) on
+    ``backend='cuda'``, Neumann, and CG (ρ = 0); 1 warm-up and 3 timed
+    outer steps each, then one profiled step (host and device time of the
+    trainer's phase ranges, as phase 6, and the device idle share) and the
+    peak device memory. Gates: every loss, the images and the
+    hypergradient at the solved state finite; for both Nyström runs that
+    hypergradient within 1e-4 relative L2 of ``backend='flat'``; kernels A
+    and B launched by both, kernel C by the whitened run only, no kernel by
+    Neumann or CG. The κ = 5 apply is held to the literal Eq. 6 apply on
+    one sketch within 2e-3 of ‖ref‖∞ (the reference's
+    ``test_kappa_equivalence``) on a sketch of a well-conditioned H at
+    p = 50,890; on distillation's own sketch, whose H_KK is indefinite and
+    nearly singular, the two part ways by design (Alg. 1 drops the
+    directions its threshold sends to ``_SAFE_BIG``), and the gap is
+    printed. Tab. 2's ordering (distilled accuracy) is printed, not gated.
+12. Alg. 1 alone at p = 2²⁴, k = 64, κ = 16 (a sketch of H = G Gᵀ/32 + I
+    made on the card), f32 and bf16 sketches, vector and m = 32 block: the
+    chunked apply through the kernels (B per chunk factor and refine sweep;
+    A's cross in the block form) against the whitened apply on the same
+    sketch (CUDA events, 5 runs after 1), and against its plain version
+    with every kernel evaluated in f64 (relative L2 ≤ 1e-4); kernel B's
+    launches per apply and each operand's load path (kernel A's variant in
+    the block form) are printed.
+
 The line before the last is the kernels' JSON record (seven rows, kernel
 E's the tensor-core variant at the prefill's own call; rows 1–5 also
 carry their p = 2²⁴ f32 and bf16 times under ``p24`` and the p = 2²⁰
 shapes' under ``p20``, and row 2 its bf16 × bf16 cross, each entry with
 the variant or load path that launched; a row's name carries the main
-path's variant); the last
+path's variant; rows 1, 3 and 4 carry the launches of phase 11's two
+Nyström runs under ``distillation_launches``, rows 2 and 3 phase 12's
+record under ``alg1_p24``); the last
 line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 without the repository beside it, the script exits non-zero and prints no
 result.
 """
+import dataclasses
 import json
 import math
 import os
@@ -341,24 +375,28 @@ def run_kernel_tests() -> None:
           flush=True)
 
 
-def trace_phases(torch, solve, problem, config, step_s: float) -> None:
-    """Profile ``solve`` and print, per outer step, each trainer phase's
-    host and device time and the device's busy share of ``step_s`` (the
-    unprofiled step). Kernels run on one stream, so their times add."""
+def trace_phases(torch, solve, problem, config, step_s: float, n: int = 3,
+                 phases=('bilevel.inner', 'bilevel.sketch', 'bilevel.update'),
+                 label: str = 'trace') -> None:
+    """Profile ``solve`` for ``n`` outer steps and print, per outer step,
+    each trainer phase's host and device time and the device's busy share
+    of ``step_s`` (the unprofiled step, which excludes the problem's
+    metrics: so does the profiled run). Kernels run on one stream, so
+    their times add."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    n = 3
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        traced = solve(problem, config, n_outer=n)
+        traced = solve(dataclasses.replace(problem, metrics={}), config,
+                       n_outer=n)
     events = prof.events()
     kernels = [e for e in events if e.device_type == DeviceType.CUDA
                and not getattr(e, 'is_user_annotation', False)]
     if not kernels:
-        print('trace: the profiler recorded no device events; device time '
-              'not measured', flush=True)
+        print(f'{label}: the profiler recorded no device events; device '
+              'time not measured', flush=True)
         return
-    for phase in ('bilevel.inner', 'bilevel.sketch', 'bilevel.update'):
+    for phase in phases:
         ranges = [e for e in events
                   if e.name == phase and e.device_type == DeviceType.CPU]
         if len(ranges) != n:
@@ -366,10 +404,10 @@ def trace_phases(torch, solve, problem, config, step_s: float) -> None:
                                  'outer steps')
         host = sum(e.time_range.elapsed_us() for e in ranges) / 1e3 / n
         device = sum(e.device_time_total for e in ranges) / 1e3 / n
-        print(f'trace: phase {phase:<14} host {host:9.3f} ms  device '
+        print(f'{label}: phase {phase:<14} host {host:9.3f} ms  device '
               f'{device:7.3f} ms per outer step', flush=True)
     busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / n
-    print(f'trace: {len(kernels) / n:.0f} kernels and {busy:.3f} ms of '
+    print(f'{label}: {len(kernels) / n:.0f} kernels and {busy:.3f} ms of '
           f'device time per outer step; profiled step '
           f'{traced.seconds / n * 1e3:.3f} ms, unprofiled step '
           f'{step_s * 1e3:.3f} ms: device idle '
@@ -688,6 +726,252 @@ def parity_cut_depth(torch, dev) -> None:
               flush=True)
 
 
+# ---------------------------------------------------------------------------
+# 11-12. Tab. 2's solver family on distillation, and Alg. 1 at large p
+# ---------------------------------------------------------------------------
+DISTILL_P, DISTILL_PHI = 784 * 64 + 64 + 64 * 10 + 10, 50 * 28 * 28
+TAB2 = {   # benchmarks/tab2_distillation.py: k = l = 10, rho = alpha = 1e-2
+    'nystrom': dict(solver='nystrom', k=10, rho=1e-2, backend='cuda'),
+    'nystrom kappa=5': dict(solver='nystrom', k=10, rho=1e-2, kappa=5,
+                            backend='cuda'),
+    'neumann': dict(solver='neumann', k=10, alpha=1e-2),
+    'cg': dict(solver='cg', k=10, rho=0.0),
+}
+ALG1_K, ALG1_KAPPA = 64, 16
+
+
+def _scaled_gap(torch, got, want) -> float:
+    """max |got − want| / max |want| over two trees."""
+    from repro_torch.core import tree_leaves
+    a = torch.cat([x.reshape(-1) for x in tree_leaves(got)])
+    b = torch.cat([x.reshape(-1) for x in tree_leaves(want)])
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def _finite(torch, tree) -> bool:
+    from repro_torch.core import tree_leaves
+    return all(bool(torch.isfinite(x).all()) for x in tree_leaves(tree))
+
+
+def run_distillation(torch, dev) -> dict:
+    """Phase 11: ``solve`` on ``distillation`` at the task's full width,
+    once per configuration of Tab. 2, with its gates. Returns the
+    launches of the two Nyström runs, by configuration."""
+    from repro_torch.core import (HypergradConfig, NystromIHVP,
+                                  PyTreeIndexer, get_problem, hypergrad_at,
+                                  hypergrad_error, make_hvp, solve,
+                                  tree_leaves)
+    from repro_torch.core.solvers import _chunk_factors
+    from repro_torch.kernels import _lib
+    problem = get_problem('distillation')
+    p = sum(x.numel() for x in tree_leaves(problem.init_params(
+        torch.Generator().manual_seed(0))))
+    n_phi = problem.init_hparams(None)['images'].numel()
+    if (p, n_phi) != (DISTILL_P, DISTILL_PHI):
+        raise AssertionError(f'distillation has p={p}, {n_phi} '
+                             'hyperparameters')
+    n_outer, bs = 3, problem.defaults['batch_size']
+    launches, ranking = {}, {}
+    for name, fields in TAB2.items():
+        config = HypergradConfig(**fields)
+        warm = solve(problem, config, n_outer=1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _lib.reset_launches()
+        res = solve(problem, config, n_outer=n_outer)
+        launches[name] = dict(_lib.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        losses = res.history['outer_loss'] + res.history['inner_loss']
+        if len(res.history['outer_loss']) != n_outer or not all(
+                map(math.isfinite, losses)) or not _finite(torch, res.hparams):
+            raise AssertionError(f'{name}: a loss or the images not finite')
+        ib = problem.data.train_batch(n_outer, bs)
+        ob = problem.data.val_batch(n_outer, bs)
+        idx = PyTreeIndexer(res.params).sample_indices(
+            torch.Generator().manual_seed(n_outer), 10)
+        hg = hypergrad_at(problem, config, res.params, res.hparams, ib, ob,
+                          indices=idx)
+        if not _finite(torch, hg):
+            raise AssertionError(f'{name}: hypergradient not finite')
+        step_s = res.seconds / n_outer
+        ranking[name] = res.metrics['distilled_accuracy']
+        print(f'distillation {name:<16}: {step_s:.4f} s/outer step (first-'
+              f'call warm-up step {warm.seconds:.4f} s), outer loss '
+              f"{[round(x, 5) for x in res.history['outer_loss']]}, "
+              f"distilled accuracy {ranking[name]:.4f}, peak device memory "
+              f'{peak:.1f} MiB, launches { {k: v for k, v in launches[name].items() if v} }',
+              flush=True)
+        # the iterative solvers prepare inside the update: no sketch range
+        phases = (('bilevel.inner', 'bilevel.sketch', 'bilevel.update')
+                  if fields['solver'] == 'nystrom'
+                  else ('bilevel.inner', 'bilevel.update'))
+        trace_phases(torch, solve, problem, config, step_s, n=1,
+                     phases=phases, label=f'distillation {name:<16}: trace')
+        if fields['solver'] != 'nystrom':
+            if any(launches[name].values()):
+                raise AssertionError(f'{name} launched a kernel: '
+                                     f'{launches[name]}')
+            continue
+        flat = hypergrad_at(problem, HypergradConfig(**dict(
+            fields, backend='flat')), res.params, res.hparams, ib, ob,
+            indices=idx)
+        err = float(hypergrad_error(hg, flat))
+        if not err <= 1e-4:
+            raise AssertionError(f'{name}: cuda vs flat rel L2 {err:.3e}')
+        print(f'distillation {name:<16}: hypergradient cuda vs flat rel L2 '
+              f'{err:.3e} (<= 1e-4)', flush=True)
+        if launches[name]['nystrom_gram'] == 0 or \
+                launches[name]['woodbury_ctv'] == 0:
+            raise AssertionError(f'{name}: kernels A and B must launch')
+        if 'kappa' not in fields:
+            if launches[name]['woodbury_apply'] == 0:
+                raise AssertionError(f'{name}: kernel C never launched')
+            continue
+        if launches[name]['woodbury_apply'] or \
+                launches[name]['woodbury_apply_block']:
+            raise AssertionError(f'{name}: kernel C launched on Alg. 1')
+        # the kappa = 5 apply against the literal Eq. 6 on one sketch: the
+        # reference's tolerance holds where Eq. 6 and Alg. 1 agree in exact
+        # arithmetic, a sketch of a well-conditioned H at this p (gated);
+        # on distillation's own sketch (H_KK indefinite, nearly singular)
+        # Alg. 1 drops the directions its threshold sends to _SAFE_BIG and
+        # Eq. 6 keeps: printed
+        solver = HypergradConfig(**fields).build()
+        eq6 = NystromIHVP(k=10, rho=1e-2, stabilized=False, backend='cuda')
+        sk = solver.prepare(make_hvp(problem.inner_loss, res.params,
+                                     res.hparams, ib),
+                            PyTreeIndexer(res.params), None, indices=idx)
+        v = torch.func.grad(problem.outer_loss)(res.params, res.hparams, ob)
+        own = _scaled_gap(torch, solver.apply(sk, v), eq6.apply(sk, v))
+        lam = torch.linalg.eigvalsh(sk.H_KK)
+        well = low_rank_sketch(torch, p, 10, torch.float32, dev, seed=5)
+        well.gram_C = solver._be().gram(well.C)
+        u = torch.randn(p, generator=torch.Generator(device=dev).manual_seed(6),
+                        device=dev)
+        scaled = _scaled_gap(torch, solver.apply(well, u), eq6.apply(well, u))
+        if not scaled <= 2e-3:
+            raise AssertionError(f'kappa=5 vs Eq. 6: {scaled:.3e} of '
+                                 '|ref|_inf')
+        L, _, factors = _chunk_factors(solver._be(), well, 5, 1e-2)
+        paths = [_lib.ctv_path(G.dtype, G.shape[1], G.data_ptr())
+                 for G in [G for G, _ in factors] + [L]]
+        print(f'distillation {name:<16}: apply vs Eq. 6 on a sketch of '
+              f'H = G Gᵀ/32 + I at p={p}: max |err| {scaled:.3e} of '
+              f'|ref|_inf (<= 2e-3); on distillation\'s sketch (H_KK '
+              f'eigenvalues {lam.min():.3e} .. {lam.max():.3e}): '
+              f'{own:.3e} (not gated); kernel B per apply '
+              f'{2 * len(factors) + 1} launches (factors, refine: factors '
+              f'and L), load paths {paths}', flush=True)
+    order = sorted(ranking, key=ranking.get, reverse=True)
+    print(f'distillation: Tab. 2 ordering after {n_outer} outer steps '
+          f'(distilled accuracy, not gated): '
+          + ' > '.join(f'{n} {ranking[n]:.4f}' for n in order), flush=True)
+    return {name: launches[name] for name in ('nystrom', 'nystrom kappa=5')}
+
+
+def plain_f64_backend(torch, dtype):
+    """The ``cuda`` backend with each kernel replaced by its plain version
+    evaluated in f64 on the same values and rounded to f32 (as phase 3
+    holds the kernels at large p): the plain version Alg. 1's kernel path
+    is held against. Everything else (the cuBLAS GEMMs that build the
+    factors, the bf16 storage of the factors) is the kernel path's own."""
+    from repro_torch.core import CudaBackend
+    from repro_torch.kernels import ref
+
+    def f64(fn):
+        return lambda *a: fn(*[x.double() if torch.is_tensor(x) else x
+                               for x in a]).float()
+
+    class PlainF64(CudaBackend):
+        gram = staticmethod(f64(ref.nystrom_gram))
+        ctv = ctm = staticmethod(f64(ref.woodbury_ctv))
+
+        def combine(self, C, w, v, rho):
+            return f64(ref.woodbury_apply)(C, -(rho * rho) * w, v, rho)
+
+        combinem = combine
+
+    return PlainF64(sketch_dtype=dtype)
+
+
+def low_rank_sketch(torch, p, k, dtype, dev, seed, rank=32):
+    """A sketch C = H[:, K] of H = G Gᵀ/r + I (G (p, r) Gaussian from a
+    seed), made on the card without H; C stored in ``dtype``."""
+    from repro_torch.core import NystromSketch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    G = torch.randn((p, rank), generator=g, device=dev) / rank ** 0.5
+    K = torch.randperm(p, generator=g, device=dev)[:k]
+    C = G @ G[K].T
+    C[K, torch.arange(k, device=dev)] += 1.0
+    H_KK = 0.5 * (C[K] + C[K].T)
+    del G
+    return NystromSketch(C=C.to(dtype), H_KK=H_KK,
+                         indices={'leaf': torch.zeros_like(K, dtype=torch.int32),
+                                  'dims': K[:, None].int()}, rho=RHO)
+
+
+def time_alg1(torch, dev) -> dict:
+    """Phase 12: Alg. 1 alone at p = 2^24, k = 64, kappa = 16, f32 and bf16
+    sketches, vector and m = 32 block forms: through the kernels, against
+    the whitened apply on the same sketch, and against the plain version in
+    f64 (rel L2 <= 1e-4)."""
+    from repro_torch.core import CudaBackend, NystromIHVP
+    from repro_torch.core.solvers import _chunk_factors, _whitened_form
+    from repro_torch.kernels import _lib
+    p, k, kappa = LARGE_P, ALG1_K, ALG1_KAPPA
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        be = CudaBackend(sketch_dtype=dtype)
+        sk = low_rank_sketch(torch, p, k, dtype, dev, seed=24)
+        sk.gram_C = be.gram(sk.C)
+        skw = dataclasses.replace(sk, gram_C=None)
+        skw.B, skw.gram_B = _whitened_form(be, sk.C, sk.H_KK)
+        chunked = NystromIHVP(k=k, rho=RHO, kappa=kappa, backend=be)
+        whitened = NystromIHVP(k=k, rho=RHO, backend=be)
+        plain = NystromIHVP(k=k, rho=RHO, kappa=kappa,
+                            backend=plain_f64_backend(torch, dtype))
+        L, _, factors = _chunk_factors(be, sk, kappa, RHO)
+        operands = [G for G, _ in factors] + [L]
+        paths = {1: [_lib.ctv_path(G.dtype, G.shape[1], G.data_ptr())
+                     for G in operands],
+                 M: [_lib.atb_variant(G.dtype, torch.float32, p, G.shape[1],
+                                      M, (G.data_ptr(), 0))
+                     for G in operands]}
+        del L, factors, operands
+        g = torch.Generator(device=dev).manual_seed(25)
+        for m in (1, M):
+            v = torch.randn((p, m) if m > 1 else (p,), generator=g,
+                            device=dev)
+            fn = 'apply_matrix' if m > 1 else 'apply'
+            _lib.reset_launches()
+            got = getattr(chunked, fn)(sk, v)
+            torch.cuda.synchronize()
+            counts = {n: c for n, c in _lib.LAUNCHES.items() if c}
+            want = getattr(plain, fn)(sk, v)
+            err = float((got - want).double().norm()
+                        / want.double().norm())
+            del got, want
+            if not err <= 1e-4:
+                raise AssertionError(f'Alg. 1 {dtype} m={m}: kernel path vs '
+                                     f'plain f64 rel L2 {err:.3e}')
+            t_chunk = time_ms(torch, lambda: getattr(chunked, fn)(sk, v), 5, 1)
+            t_white = time_ms(torch, lambda: getattr(whitened, fn)(skw, v),
+                              5, 1)
+            key = f'{str(dtype)[6:]} m={m}'
+            out[key] = dict(chunked_ms=t_chunk, whitened_ms=t_white,
+                            rel_l2_vs_f64=err, launches=counts,
+                            paths=paths[m])
+            print(f'alg1 p={p} k={k} kappa={kappa} {key:<13}: chunked '
+                  f'{t_chunk:.4f} ms, whitened {t_white:.4f} ms, vs plain '
+                  f'f64 rel L2 {err:.3e} (<= 1e-4), launches per apply '
+                  f"{counts}, {'kernel A variants' if m > 1 else 'kernel B load paths'} "
+                  f'(factors, L) {paths[m]}', flush=True)
+            del v
+        del sk, skw
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -826,6 +1110,10 @@ def main() -> None:
     # 10. parity at full width, depth cut ------------------------------------
     parity_cut_depth(torch, dev)
 
+    # 11-12. Tab. 2's solver family on distillation; Alg. 1 at p = 2^24 ------
+    distill_launches = run_distillation(torch, dev)
+    alg1 = time_alg1(torch, dev)
+
     # records -----------------------------------------------------------------
     records = []
     for kname, kernel, source, replaces in ROWS:
@@ -840,6 +1128,11 @@ def main() -> None:
         rec = dict(name=f'{kname} ({kernel})', route='cuda', source=source,
                    replaces=replaces, launches=path_launches[kname],
                    **main_rec[kname])
+        if kname in ('nystrom_gram', 'woodbury_ctv', 'woodbury_apply'):
+            rec['distillation_launches'] = {
+                cfg: runs[kname] for cfg, runs in distill_launches.items()}
+        if kname in ('nystrom_cross', 'woodbury_ctv'):
+            rec['alg1_p24'] = alg1
         if kname in large['float32']:   # rows 1-5 at p = 2^24 and 2^20
             for key, runs in (('p24', large), ('p20', f1)):
                 rec[key] = {dt: _p24(recs[kname])

@@ -5,44 +5,56 @@
     hypergrad_error                                exact-IHVP oracle
   implicit_root / phi_vjp_block                  — differentiable θ*(φ) map
                                                    (+ m-query cotangent block)
-  NystromIHVP / ExactIHVP                        — IHVP solvers
-  hypergradient                                  — Eq. 3 assembly
+  NystromIHVP / CGIHVP / NeumannIHVP / ExactIHVP — IHVP solvers
+  nystrom_inverse_dense                          — dense Nyström oracle
+  state_nbytes / solver_fingerprint              — state size and identity
+  hypergradient / unrolled_hypergradient         — Eq. 3 assembly + the
+                                                   unrolled oracle
+  config_from_cli                                — CLI flags → config
   BilevelTrainer / BilevelState                  — warm-start bilevel loop
   SketchPolicy / SketchState                     — sketch lifecycle
   make_hvp / extract_columns / PyTreeIndexer     — HVP substrate
+  gauss_newton_hvp / hessian_diagonal_estimate   — curvature helpers
 """
 from repro_torch.core.backend import (BACKENDS, CudaBackend, FlatBackend,
                                       TreeBackend, flatten_sketch,
                                       flatten_vec, flatten_vecm, get_backend,
                                       unflatten_vec, unflatten_vecm)
 from repro_torch.core.bilevel import BilevelState, BilevelTrainer
-from repro_torch.core.hvp import extract_columns, make_hvp
-from repro_torch.core.hypergrad import HypergradConfig, hypergradient
+from repro_torch.core.hvp import (extract_columns, gauss_newton_hvp,
+                                  hessian_diagonal_estimate, make_hvp)
+from repro_torch.core.hypergrad import (HypergradConfig, config_from_cli,
+                                        hypergradient, unrolled_hypergradient)
 from repro_torch.core.implicit import implicit_root, phi_vjp_block
 from repro_torch.core.problem import (PROBLEMS, BilevelProblem,
                                       BilevelResult, accounted_hvps,
                                       get_problem, hypergrad_at,
                                       hypergrad_error, hypergrad_reference,
                                       register_problem, solve)
-from repro_torch.core.solvers import (SOLVERS, DenseFactor, ExactIHVP,
-                                      NystromIHVP, NystromSketch,
+from repro_torch.core.solvers import (SOLVERS, CGIHVP, DenseFactor,
+                                      ExactIHVP, IterativeOperator,
+                                      NeumannIHVP, NystromIHVP, NystromSketch,
                                       SketchPolicy, SketchState, SolverSpec,
-                                      build_hvp_bill, query_width)
+                                      build_hvp_bill, nystrom_inverse_dense,
+                                      query_width, solver_fingerprint,
+                                      state_nbytes)
 from repro_torch.core.tree_util import (PyTreeIndexer, tree_flatten,
                                         tree_leaves, tree_map, tree_norm,
                                         tree_size, tree_vdot)
 
 __all__ = [
     'BACKENDS', 'BilevelProblem', 'BilevelResult', 'BilevelState',
-    'BilevelTrainer', 'CudaBackend', 'DenseFactor', 'ExactIHVP',
-    'FlatBackend', 'HypergradConfig', 'NystromIHVP', 'NystromSketch',
-    'PROBLEMS', 'PyTreeIndexer', 'SOLVERS', 'SketchPolicy', 'SketchState',
-    'SolverSpec', 'TreeBackend', 'accounted_hvps', 'build_hvp_bill',
+    'BilevelTrainer', 'CGIHVP', 'CudaBackend', 'DenseFactor', 'ExactIHVP',
+    'FlatBackend', 'HypergradConfig', 'IterativeOperator', 'NeumannIHVP',
+    'NystromIHVP', 'NystromSketch', 'PROBLEMS', 'PyTreeIndexer', 'SOLVERS',
+    'SketchPolicy', 'SketchState', 'SolverSpec', 'TreeBackend',
+    'accounted_hvps', 'build_hvp_bill', 'config_from_cli',
     'extract_columns', 'flatten_sketch', 'flatten_vec', 'flatten_vecm',
-    'get_backend', 'get_problem', 'hypergrad_at', 'hypergrad_error',
+    'gauss_newton_hvp', 'get_backend', 'get_problem',
+    'hessian_diagonal_estimate', 'hypergrad_at', 'hypergrad_error',
     'hypergrad_reference', 'hypergradient', 'implicit_root', 'make_hvp',
-    'phi_vjp_block', 'query_width', 'register_problem',
-    'solve', 'tree_flatten', 'tree_leaves', 'tree_map', 'tree_norm',
-    'tree_size', 'tree_vdot', 'unflatten_vec',
-    'unflatten_vecm',
+    'nystrom_inverse_dense', 'phi_vjp_block', 'query_width',
+    'register_problem', 'solve', 'solver_fingerprint', 'state_nbytes',
+    'tree_flatten', 'tree_leaves', 'tree_map', 'tree_norm', 'tree_size',
+    'tree_vdot', 'unflatten_vec', 'unflatten_vecm', 'unrolled_hypergradient',
 ]

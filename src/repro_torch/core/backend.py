@@ -7,6 +7,7 @@ contraction against the tall-skinny operand C (p × k):
     cv         u = C w        → p-vector  (apply pass 2)
     gram       G = CᵀC        → (k, k)    (prepare)
     mul_right  B = C M        → p × j     (spectral whitening)
+    slice_k    C[:, a:a+w]    → p × w     (Alg. 1's chunks)
 
 and their m-query forms (``ctm``, ``cm``, ``combinem``) over a (p, m)
 block. A backend owns the operand's layout. Three ship:
@@ -126,6 +127,9 @@ class TreeBackend:
         return tree_map(
             lambda c: torch.einsum('k...,kj->j...', c.float(), M), C)
 
+    def slice_k(self, C, start: int, width: int):
+        return tree_map(lambda c: c[start:start + width], C)
+
     def scale(self, x, s):
         return tree_scale(x, s)
 
@@ -194,6 +198,10 @@ class FlatBackend:
     def mul_right(self, Ckp: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
         return _mm(M.T, Ckp).to(self.sketch_dtype)            # (j, p)
 
+    def slice_k(self, Ckp: torch.Tensor, start: int,
+                width: int) -> torch.Tensor:
+        return Ckp[start:start + width]             # rows: contiguous
+
     def scale(self, x: torch.Tensor, s) -> torch.Tensor:
         return x * s
 
@@ -257,6 +265,11 @@ class CudaBackend(FlatBackend):
 
     def mul_right(self, Cpk: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
         return _mm(Cpk, M).to(self.sketch_dtype)              # (p, j)
+
+    def slice_k(self, Cpk: torch.Tensor, start: int,
+                width: int) -> torch.Tensor:
+        # a column slice is a strided view, which the kernels refuse: copy
+        return Cpk[:, start:start + width].contiguous()
 
     def combine(self, Cpk: torch.Tensor, w: torch.Tensor, vf: torch.Tensor,
                 rho: float) -> torch.Tensor:

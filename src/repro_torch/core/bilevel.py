@@ -7,9 +7,11 @@ Outer steps differentiate through the ``implicit_root`` solution map: the
 warm-started θ is wrapped as θ*(φ) and the hypergradient is
 ``torch.autograd.grad`` of ``g(θ*(φ), φ)``. Two ``torch.Generator`` streams
 live in the state: ``rng`` drives inner resets, ``vjp_rng`` only the sketch
-column sampling. A :class:`~repro_torch.core.solvers.SketchPolicy` rebuilds
-the sketch every ``sketch_refresh_every`` outer steps; ``vjp_rng`` is drawn
-from only when a sketch is built, so the cadence does not shift the stream.
+column sampling. For the amortizable solvers (Nyström, exact) a
+:class:`~repro_torch.core.solvers.SketchPolicy` rebuilds the sketch every
+``sketch_refresh_every`` outer steps; ``vjp_rng`` is drawn from only when a
+sketch is built, so the cadence does not shift the stream. The iterative
+solvers (CG, Neumann) prepare afresh inside every backward pass.
 """
 from __future__ import annotations
 
@@ -179,10 +181,20 @@ class BilevelTrainer:
         inner unroll ended on (``fresh_inner_batch=True`` draws one more).
         ``index_draws`` injects one structured index draw per sketch build
         in place of sampling (the parity tests feed the reference's draws).
+        An iterative solver has no sketch: its backward pass prepares
+        afresh, and ``sketch_refresh_every`` > 1 raises.
         Losses stay on the device until ``log_every`` boundaries and the
         end. Each outer step's phases are ``torch.profiler`` ranges:
         ``bilevel.inner``, ``bilevel.sketch`` and ``bilevel.update``."""
-        policy = self.sketch_policy(sketch_refresh_every)
+        solver = self.built_solver()
+        policy = None
+        if getattr(type(solver), 'amortizable', False):
+            policy = self.sketch_policy(sketch_refresh_every)
+        elif (sketch_refresh_every or 1) > 1:
+            raise TypeError(
+                f'sketch_refresh_every={sketch_refresh_every} needs an '
+                f'amortizable solver; {type(solver).__name__} prepares a '
+                'step-local state with nothing to reuse')
         draws = None if index_draws is None else iter(index_draws)
         history = {'inner_loss': [], 'outer_loss': []}
         pending_inner: list[torch.Tensor] = []
@@ -195,7 +207,7 @@ class BilevelTrainer:
             pending_outer.clear()
 
         it_in, it_out = iter(inner_batches), iter(outer_batches)
-        sketch_state = policy.init_state()
+        sketch_state = None if policy is None else policy.init_state()
         no_batch = object()
         for o in range(n_outer):
             ib = no_batch
@@ -207,10 +219,15 @@ class BilevelTrainer:
             if fresh_inner_batch or ib is no_batch:
                 ib = next(it_in)
             ob = next(it_out)
-            idx = (next(draws) if draws is not None
-                   and policy.due(sketch_state) else None)
-            state, sketch_state, lo = self.outer_step_with_policy(
-                state, sketch_state, ib, ob, policy, indices=idx)
+            if policy is None:
+                with record_function('bilevel.update'):
+                    state, lo = self.outer_step_with_sketch(state, None, ib,
+                                                            ob)
+            else:
+                idx = (next(draws) if draws is not None
+                       and policy.due(sketch_state) else None)
+                state, sketch_state, lo = self.outer_step_with_policy(
+                    state, sketch_state, ib, ob, policy, indices=idx)
             pending_outer.append(lo)
             if log_every and (o + 1) % log_every == 0:
                 flush()

@@ -5,7 +5,9 @@
 The assembly lives in :mod:`repro_torch.core.implicit`: the inner solution
 is an autograd Function whose backward pass is the IHVP plus the mixed-term
 VJP, so Eq. 3 is plain ``torch.autograd.grad``. ``hypergradient`` is the
-imperative entry point on top of it.
+imperative entry point on top of it; ``unrolled_hypergradient``, the
+oracle that differentiates through the unrolled inner SGD, checks it on
+tiny problems. ``config_from_cli`` builds a config from command-line flags.
 """
 from __future__ import annotations
 
@@ -14,7 +16,9 @@ from typing import Any, Callable
 
 import torch
 
-from repro_torch.core.tree_util import PyTree, tree_flatten
+from torch.func import grad
+
+from repro_torch.core.tree_util import PyTree, tree_flatten, tree_map
 
 InnerLoss = Callable[..., torch.Tensor]   # f(params, hparams, batch) -> scalar
 OuterLoss = Callable[..., torch.Tensor]   # g(params, hparams, batch) -> scalar
@@ -38,6 +42,68 @@ def hypergradient(inner_loss: InnerLoss, outer_loss: OuterLoss,
     theta = solve(phi, inner_batch, rng=rng, state=sketch, indices=indices)
     loss = outer_loss(theta, phi, outer_batch)
     return treedef.unflatten(list(torch.autograd.grad(loss, leaves)))
+
+
+def unrolled_hypergradient(inner_loss: InnerLoss, outer_loss: OuterLoss,
+                           params: PyTree, hparams: PyTree, inner_batch: Any,
+                           outer_batch: Any, steps: int,
+                           lr: float) -> PyTree:
+    """The oracle: dg/dφ through ``steps`` unrolled SGD steps from
+    ``params``. O(steps × activations) memory: tiny problems only."""
+    def outer_of_unroll(phi):
+        p = params
+        for _ in range(steps):
+            g = grad(inner_loss, argnums=0)(p, phi, inner_batch)
+            p = tree_map(lambda w, gw: w - lr * gw, p, g)
+        return outer_loss(p, phi, outer_batch)
+
+    return grad(outer_of_unroll)(hparams)
+
+
+def config_from_cli(solver: str, flags: dict, defaults: dict,
+                    **consumed_extras) -> 'HypergradConfig':
+    """A HypergradConfig from command-line flags, checked against the
+    registry.
+
+    ``flags`` maps field → parsed value, ``None`` meaning the flag was not
+    passed. A passed flag the solver does not consume raises, even when its
+    value equals the default (which ``build()``'s own check cannot tell
+    apart). Unpassed flags take ``defaults`` where the solver consumes them.
+    ``consumed_extras`` are script-level settings forwarded only to solvers
+    that consume them, and dropped otherwise.
+
+    >>> config_from_cli('nystrom', flags={'backend': 'flat'},
+    ...                 defaults={}).backend
+    'flat'
+    >>> config_from_cli('cg', flags={'backend': 'flat'}, defaults={})
+    Traceback (most recent call last):
+        ...
+    ValueError: --backend=flat is not consumed by solver='cg' (it consumes: \
+k, rho, sketch_refresh_every)
+    """
+    from repro_torch.core.solvers import SOLVERS
+    if solver not in SOLVERS:
+        raise ValueError(f'unknown solver {solver!r}; registered: '
+                         f'{sorted(SOLVERS)}')
+    spec = SOLVERS[solver]
+    consumed = set(spec.fields) | (set(_TRAINER_FIELDS) - {'solver'})
+    if spec.builds_backend:
+        consumed |= set(_BACKEND_FIELDS)
+    kwargs = {'solver': solver}
+    for name, value in flags.items():
+        if value is not None:
+            if name not in consumed:
+                raise ValueError(
+                    f'--{name}={value} is not consumed by solver='
+                    f'{solver!r} (it consumes: '
+                    f'{", ".join(sorted(consumed))})')
+            kwargs[name] = value
+        elif name in consumed and name in defaults:
+            kwargs[name] = defaults[name]
+    for name, value in consumed_extras.items():
+        if name in consumed:
+            kwargs[name] = value
+    return HypergradConfig(**kwargs)
 
 
 # Config fields consumed outside solver construction: ``solver`` selects the
@@ -70,11 +136,14 @@ class HypergradConfig:
     ValueError: HypergradConfig.k=5 is not consumed by solver='exact' (it \
 consumes: rho) — it would be silently ignored
     """
-    solver: str = 'nystrom'       # nystrom | exact
-    k: int = 10                   # Nyström rank
-    rho: float = 1e-2             # damping
+    solver: str = 'nystrom'       # nystrom | cg | neumann | exact
+    k: int = 10                   # Nyström rank / iterations l for baselines
+    rho: float = 1e-2             # damping (Nyström/exact) or CG Tikhonov
+    alpha: float = 1e-2           # Neumann step size
+    kappa: int | None = None      # Alg. 1 chunk width (None: no chunking)
     column_chunk: int | None = None
     sketch_refresh_every: int = 1  # outer steps between sketch rebuilds
+    importance_sampling: bool = False  # weighted column draw (Remark 1)
     backend: Any = 'tree'         # tree | flat | cuda, or a built backend
     sketch_dtype: str | None = None  # flat family: 'bfloat16'
     refine: int = 1               # residual sweeps on the stabilized apply

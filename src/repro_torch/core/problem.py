@@ -117,9 +117,13 @@ def default_optimizers(problem: BilevelProblem, d: dict | None = None):
 
 def accounted_hvps(solver, problem: BilevelProblem, n_outer: int,
                    refresh_every: int = 1, reset_inner: bool = False) -> int:
-    """HVPs the hypergradient machinery runs over ``n_outer`` outer steps:
-    one build per ``refresh_every`` steps (every step under
-    ``reset_inner``), ``k`` HVPs a build (p for the exact solver)."""
+    """HVPs the hypergradient machinery runs over ``n_outer`` outer steps.
+    Amortizable solvers pay per build: one every ``refresh_every`` steps
+    (every step under ``reset_inner``), ``k`` HVPs a build (p for the exact
+    solver). Iterative solvers pay their ``iters`` sequential HVPs on every
+    step."""
+    if not getattr(type(solver), 'amortizable', False):
+        return n_outer * getattr(solver, 'iters', 0)
     per_build = getattr(solver, 'k', None)
     if per_build is None:
         params = problem.init_params(torch.Generator().manual_seed(0))

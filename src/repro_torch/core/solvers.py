@@ -1,4 +1,5 @@
-"""IHVP solvers: the paper's Nyström method and the exact oracle.
+"""IHVP solvers: the paper's Nyström method, the baselines it compares to
+(CG, Neumann) and the exact oracle.
 
 Every solver approximates u ≈ (H + ρI)⁻¹ v, with H = ∇²_θ f reached only
 through Hessian-vector products, behind one protocol:
@@ -15,7 +16,11 @@ so a width-1 block is bitwise the vector path on every backend.
 * ``NystromIHVP`` — the paper's contribution (Eq. 4/6): k HVPs build the
   sketch once; every apply is a few tall-skinny contractions and one k×k
   solve. The default apply is the whitened Woodbury form with refinement
-  sweeps; ``stabilized=False`` is the literal Eq. 6.
+  sweeps; ``stabilized=False`` is the literal Eq. 6; ``kappa < k`` is
+  Alg. 1, recursive rank-κ Woodbury updates.
+* ``CGIHVP`` / ``NeumannIHVP`` — the iterative baselines: a fixed count
+  of sequential HVPs per apply, nothing to amortize (``amortizable`` is
+  False: the state is a handle on the step's hvp).
 * ``ExactIHVP`` — dense solve, the oracle of the tests.
 
 The contractions go through a backend (:mod:`repro_torch.core.backend`):
@@ -30,14 +35,18 @@ import torch
 
 from repro_torch.core.backend import flatten_vecm, get_backend, unflatten_vecm
 from repro_torch.core.hvp import extract_columns, make_hvp
-from repro_torch.core.tree_util import (PyTree, PyTreeIndexer, tree_flatten,
-                                        tree_leaves, tree_map, tree_size)
+from repro_torch.core.tree_util import (PyTree, PyTreeIndexer, tree_axpy,
+                                        tree_flatten, tree_leaves, tree_map,
+                                        tree_scale, tree_size, tree_vdot)
 
 HVP = Callable[[PyTree], PyTree]
 
 # Eigenvalues of H_KK below this relative threshold are dropped from the
-# whitened factor (truncated pseudo-inverse: ReLU-style dead columns).
+# whitened factor, and sent to _SAFE_BIG on Alg. 1's path so that their
+# rank-1 Woodbury term vanishes (truncated pseudo-inverse: ReLU-style dead
+# columns).
 _EIG_REL_TOL = 1e-7
+_SAFE_BIG = 1e30
 
 
 def _eye(k: int, like: torch.Tensor) -> torch.Tensor:
@@ -89,9 +98,10 @@ class NystromSketch:
     ``C`` is the backend-native operand (a leading-k tree for 'tree', the
     (k, p) buffer for 'flat', the (p, k) buffer for 'cuda'). ``B``/``gram_B``
     is the whitened factor of H_k (H_k = B Bᵀ, gram_B = BᵀB), present for
-    ``stabilized=True``; ``gram_C`` = CᵀC is cached otherwise. The sketch is
-    ρ-free: every apply solves against the applying solver's ρ, so one
-    sketch serves a damping sweep. ``rho`` records the prepare-time value.
+    ``stabilized=True`` unless Alg. 1 is selected (``kappa < k``, which never
+    reads it); ``gram_C`` = CᵀC is cached otherwise. The sketch is ρ-free:
+    every apply solves against the applying solver's ρ, so one sketch serves
+    a damping sweep. ``rho`` records the prepare-time value.
     """
     C: Any
     H_KK: torch.Tensor
@@ -113,12 +123,21 @@ class NystromIHVP:
     extra C-passes each, zero HVPs) and drive the f32 cancellation error
     toward roundoff. ``backend`` names a contraction backend or is a built
     one (e.g. ``CudaBackend(sketch_dtype=torch.bfloat16)``).
+
+    ``kappa < k`` selects Alg. 1, the chunked apply: recursive rank-κ
+    Woodbury updates, the paper's memory-lean form. It takes precedence over
+    ``stabilized`` (it carries its own truncation of small eigenvalues), so
+    ``prepare`` caches ``gram_C`` and builds no whitened factor; ``refine``
+    stays live. ``importance_sampling`` draws the sketch's columns with the
+    weights ``prepare`` is given as ``diag_weights`` (Remark 1).
     """
     amortizable: ClassVar[bool] = True   # NystromSketch is tensors only
 
     k: int
     rho: float = 1e-2
+    kappa: int | None = None
     column_chunk: int | None = None
+    importance_sampling: bool = False
     stabilized: bool = True
     backend: Any = 'tree'
     refine: int = 1
@@ -128,18 +147,24 @@ class NystromIHVP:
             return get_backend(self.backend)
         return self.backend
 
-    def prepare(self, hvp: HVP, indexer: PyTreeIndexer, rng, *,
+    def _chunked(self) -> bool:
+        return self.kappa is not None and self.kappa < self.k
+
+    def prepare(self, hvp: HVP, indexer: PyTreeIndexer, rng,
+                diag_weights: torch.Tensor | None = None, *,
                 indices: dict | None = None) -> NystromSketch:
         """k HVPs at sampled columns. ``rng`` is a ``torch.Generator``;
-        ``indices=`` injects a structured draw instead."""
+        ``indices=`` injects a structured draw instead. ``diag_weights``
+        (flat, length p) weight the draw when ``importance_sampling``."""
         be = self._be()
-        idx = indexer.sample_indices(rng, self.k, indices=indices)
+        weights = diag_weights if self.importance_sampling else None
+        idx = indexer.sample_indices(rng, self.k, weights, indices=indices)
         C_tree = extract_columns(hvp, indexer, idx, self.column_chunk)
         H_KK = indexer.gather(C_tree, idx)
         H_KK = 0.5 * (H_KK + H_KK.T)
         C_op = be.prepare_operand(C_tree)
         B = gram_B = gram_C = None
-        if self.stabilized:
+        if self.stabilized and not self._chunked():
             B, gram_B = _whitened_form(be, C_op, H_KK)
         else:
             gram_C = be.gram(C_op)   # ρ-independent: Eq. 6 stays two-pass
@@ -149,16 +174,23 @@ class NystromIHVP:
 
     def apply(self, sketch: NystromSketch, v: PyTree) -> PyTree:
         be = self._be()
+        if self._chunked():
+            return _apply_woodbury_chunked(be, sketch, v, self.kappa,
+                                           self.rho, self.refine)
         if self.stabilized and sketch.B is not None:
             return _apply_whitened(be, sketch, v, self.rho, self.refine)
         return _apply_woodbury_direct(be, sketch, v, self.rho)
 
     def apply_matrix(self, sketch: NystromSketch, V: PyTree) -> PyTree:
         """m IHVPs per sketch pass: every contraction of the vector apply
-        widens to a (·, m) GEMM, so m queries cost one set of C-reads."""
+        widens to a (·, m) GEMM, so m queries cost one set of C-reads (the
+        same precedence: chunked, whitened, direct)."""
         if query_width(V) == 1:
             return _matrix_via_vector(lambda v: self.apply(sketch, v), V)
         be = self._be()
+        if self._chunked():
+            return _apply_woodbury_chunked_m(be, sketch, V, self.kappa,
+                                             self.rho, self.refine)
         if self.stabilized and sketch.B is not None:
             return _apply_whitened_m(be, sketch, V, self.rho, self.refine)
         return _apply_woodbury_direct_m(be, sketch, V, self.rho)
@@ -247,6 +279,199 @@ def _apply_woodbury_direct_m(be, s: NystromSketch, V: PyTree,
     return be.unvecm(be.combinem(s.C, -W / (rho * rho), Vm, rho), V)
 
 
+def _eig_factors(be, s: NystromSketch):
+    """L = C·U and λ(H_KK), small eigenvalues sent to _SAFE_BIG (Alg. 1)."""
+    lam, U = torch.linalg.eigh(s.H_KK)
+    scale = torch.max(torch.abs(lam)) + 1e-30
+    lam_safe = torch.where(torch.abs(lam) < _EIG_REL_TOL * scale,
+                           torch.full_like(lam, _SAFE_BIG), lam)
+    return be.mul_right(s.C, U), lam_safe
+
+
+def _chunk_factors(be, s: NystromSketch, kappa: int, rho: float):
+    """Alg. 1's factors, shared by the vector and block applies.
+
+    After chunk m, Ĥ_m x = x/ρ − Σ_{j≤m} G_j R_j (G_jᵀ x), held as the list
+    {(G_j, R_j)}. Per chunk: apply Ĥ_m to the κ new columns of L (a block
+    of backend contractions), invert a κ×κ system, append a factor. Equal to
+    Eq. 6 for every κ. Returns (L, λ_safe, factors)."""
+    k = s.indices['leaf'].shape[0]
+    L, lam = _eig_factors(be, s)
+    factors: list[tuple[Any, torch.Tensor]] = []
+
+    def apply_running_block(X):
+        out = be.scale(X, 1.0 / rho)
+        for G, R in factors:
+            out = be.sub(out, be.mul_right(G, R @ be.cross(G, X)))
+        return out
+
+    for start in range(0, k, kappa):
+        width = min(kappa, k - start)
+        Lm = be.slice_k(L, start, width)
+        HmL = apply_running_block(Lm)
+        S = torch.diag(lam[start:start + width]) + be.cross(Lm, HmL)
+        S = 0.5 * (S + S.T)
+        jitter = 1e-8 * (torch.trace(torch.abs(S)) / width + 1.0)
+        R = torch.linalg.inv(S + jitter * _eye(width, S))
+        factors.append((HmL, 0.5 * (R + R.T)))
+    return L, lam, factors
+
+
+def _apply_woodbury_chunked(be, s: NystromSketch, v: PyTree, kappa: int,
+                            rho: float, refine: int = 0) -> PyTree:
+    """Alg. 1 in operator form: u = Ĥ_K v, plus ``refine`` residual sweeps
+    against H_k + ρI with H_k u = L diag(λ_safe⁻¹) (Lᵀ u)."""
+    L, lam, factors = _chunk_factors(be, s, kappa, rho)
+
+    def apply_factors(x):
+        out = be.scale(x, 1.0 / rho)
+        for G, R in factors:
+            out = be.sub(out, be.cv(G, R @ be.ctv(G, x)))
+        return out
+
+    vf = be.vec(v)
+    u = apply_factors(vf)
+    for _ in range(refine):
+        h_u = be.cv(L, be.ctv(L, u) / lam)
+        r = be.sub(be.sub(vf, be.scale(u, rho)), h_u)
+        u = be.add(u, apply_factors(r))
+    return be.unvec(u, v)
+
+
+def _apply_woodbury_chunked_m(be, s: NystromSketch, V: PyTree, kappa: int,
+                              rho: float, refine: int = 0) -> PyTree:
+    """Alg. 1 over an m-query block: the factors are built once and each
+    rank-κ correction hits all m queries as one GEMM pair."""
+    L, lam, factors = _chunk_factors(be, s, kappa, rho)
+
+    def apply_factors(X):
+        out = be.scale(X, 1.0 / rho)
+        for G, R in factors:
+            out = be.sub(out, be.cm(G, R @ be.ctm(G, X)))
+        return out
+
+    Vm = be.vecm(V)
+    U = apply_factors(Vm)
+    for _ in range(refine):
+        h_u = be.cm(L, be.ctm(L, U) / lam[:, None])
+        r = be.sub(be.sub(Vm, be.scale(U, rho)), h_u)
+        U = be.add(U, apply_factors(r))
+    return be.unvecm(U, V)
+
+
+def nystrom_inverse_dense(H: torch.Tensor, k: int, rho: float, rng=None, *,
+                          indices=None) -> torch.Tensor:
+    """(H_k + ρI)⁻¹ as an explicit p×p matrix, in H's dtype (the Fig. 1
+    oracle; test scale only). The k distinct columns come from ``rng`` (a
+    CPU ``torch.Generator``) or are injected as ``indices`` (flat ints)."""
+    p = H.shape[0]
+    if indices is None:
+        indices = torch.randperm(p, generator=rng)[:min(k, p)]
+    idx = torch.as_tensor(indices, dtype=torch.int64, device=H.device)
+    C = H[:, idx]
+    H_KK = 0.5 * (C[idx, :] + C[idx, :].T)
+    M = H_KK + C.T @ C / rho
+    M = 0.5 * (M + M.T) + 1e-8 * _eye(M.shape[0], M)
+    return _eye(p, H) / rho - C @ torch.linalg.solve(M, C.T) / rho ** 2
+
+
+# ---------------------------------------------------------------------------
+# Iterative baselines
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class IterativeOperator:
+    """Prepared state of an iterative solver: a handle on the step's hvp.
+    It holds a callable, not tensors, so it has no byte footprint and no
+    identity to cache, and it cannot outlive the parameters it closes
+    over."""
+    hvp: HVP
+
+
+def _vmapped(apply_fn, V: PyTree) -> PyTree:
+    """An iterative apply over an m-query block: the m solves stay
+    independent (each has its own scalars), the HVPs inside run batched
+    under ``torch.func.vmap`` over the trailing axis."""
+    if query_width(V) == 1:
+        return _matrix_via_vector(apply_fn, V)
+    return torch.func.vmap(apply_fn, in_dims=-1, out_dims=-1)(V)
+
+
+def _guard(x: torch.Tensor) -> torch.Tensor:
+    """x with |x| < 1e-30 replaced by 1e-30: a divisor that never is 0."""
+    return torch.where(torch.abs(x) < 1e-30, torch.full_like(x, 1e-30), x)
+
+
+@dataclasses.dataclass(frozen=True)
+class CGIHVP:
+    """Truncated conjugate gradient on (H + ρI) x = v: a fixed ``iters``
+    count of sequential HVPs, with no host synchronisation inside the loop.
+    ρ = 0 is the paper's baseline; ρ > 0 is Tikhonov damping."""
+    amortizable: ClassVar[bool] = False  # IterativeOperator is step-local
+
+    iters: int = 5
+    rho: float = 0.0
+
+    def prepare(self, hvp: HVP, indexer: PyTreeIndexer = None, rng=None, *,
+                indices: dict | None = None) -> IterativeOperator:
+        del indexer, rng, indices
+        return IterativeOperator(hvp=hvp)
+
+    def apply(self, state: IterativeOperator, v: PyTree) -> PyTree:
+        def matvec(x):
+            return tree_axpy(self.rho, x, state.hvp(x))
+
+        x = tree_map(torch.zeros_like, v)
+        r = p = v
+        rs = tree_vdot(r, r)
+        for _ in range(self.iters):
+            Ap = matvec(p)
+            alpha = rs / _guard(tree_vdot(p, Ap))
+            x = tree_axpy(alpha, p, x)
+            r = tree_axpy(-alpha, Ap, r)
+            rs_new = tree_vdot(r, r)
+            beta = rs_new / _guard(rs)
+            p = tree_axpy(beta, p, r)
+            rs = rs_new
+        return x
+
+    def apply_matrix(self, state: IterativeOperator, V: PyTree) -> PyTree:
+        return _vmapped(lambda v: self.apply(state, v), V)
+
+    def solve(self, hvp: HVP, indexer: PyTreeIndexer, v: PyTree, rng=None
+              ) -> PyTree:
+        return self.apply(self.prepare(hvp, indexer, rng), v)
+
+
+@dataclasses.dataclass(frozen=True)
+class NeumannIHVP:
+    """Truncated Neumann series (Lorraine et al. 2020):
+    H⁻¹ ≈ α Σ_{j=0}^{l} (I − αH)^j; converges only for ‖αH‖ < 2 on PSD H,
+    and diverges past it."""
+    amortizable: ClassVar[bool] = False  # IterativeOperator is step-local
+
+    iters: int = 5
+    alpha: float = 1e-2
+
+    def prepare(self, hvp: HVP, indexer: PyTreeIndexer = None, rng=None, *,
+                indices: dict | None = None) -> IterativeOperator:
+        del indexer, rng, indices
+        return IterativeOperator(hvp=hvp)
+
+    def apply(self, state: IterativeOperator, v: PyTree) -> PyTree:
+        p = acc = v
+        for _ in range(self.iters):
+            p = tree_axpy(-self.alpha, state.hvp(p), p)   # p ← (I − αH) p
+            acc = tree_axpy(1.0, p, acc)
+        return tree_scale(acc, self.alpha)
+
+    def apply_matrix(self, state: IterativeOperator, V: PyTree) -> PyTree:
+        return _vmapped(lambda v: self.apply(state, v), V)
+
+    def solve(self, hvp: HVP, indexer: PyTreeIndexer, v: PyTree, rng=None
+              ) -> PyTree:
+        return self.apply(self.prepare(hvp, indexer, rng), v)
+
+
 # ---------------------------------------------------------------------------
 # Exact oracle
 # ---------------------------------------------------------------------------
@@ -305,6 +530,66 @@ def build_hvp_bill(solver, params_like: PyTree) -> int:
     if k is not None:
         return int(k)
     return tree_size(params_like)
+
+
+def state_nbytes(state) -> int:
+    """Bytes of a prepared solver state: the tensors it holds (a Nyström
+    sketch is dominated by C and B, about 2·k·p·itemsize; a dense factor by
+    its p×p Hessian). A Python number (the sketch's ρ record) counts as the
+    32-bit scalar the reference stores. An ``IterativeOperator`` holds a
+    callable, which has no footprint: it raises."""
+    total = 0
+    fields = (dataclasses.fields(state) if dataclasses.is_dataclass(state)
+              else ())
+    for leaf in tree_leaves([getattr(state, f.name) for f in fields]):
+        if isinstance(leaf, torch.Tensor):
+            total += leaf.numel() * leaf.element_size()
+        elif isinstance(leaf, (int, float)) and not isinstance(leaf, bool):
+            total += 4
+        else:
+            raise TypeError(
+                f'{type(state).__name__} holds a non-tensor leaf '
+                f'({type(leaf).__name__}): only amortizable solver states '
+                '(tensors) have a byte footprint; an IterativeOperator '
+                'cannot be sized or cached')
+    return total
+
+
+def _backend_tag(backend) -> str:
+    """A stable tag for a backend selection (a name or a built one)."""
+    if isinstance(backend, str):
+        return backend
+    tag = getattr(backend, 'name', type(backend).__name__)
+    dtype = getattr(backend, 'sketch_dtype', None)
+    if dtype is not None:
+        tag += f':{str(dtype).removeprefix("torch.")}'
+    return tag
+
+
+def solver_fingerprint(solver) -> str:
+    """The identity of the state a solver prepares: equal fingerprints
+    prepare interchangeable states from the same point. ``rho`` and
+    ``refine`` are left out (sketches are ρ-free; refinement is apply-time).
+    Iterative solvers raise: their state is step-local, with no identity to
+    cache.
+
+    >>> solver_fingerprint(NystromIHVP(k=8, rho=1e-3)) == \\
+    ...     solver_fingerprint(NystromIHVP(k=8, rho=1e-1))
+    True
+    """
+    if not getattr(type(solver), 'amortizable', False):
+        raise TypeError(
+            f'{type(solver).__name__} prepares a step-local state — it has '
+            'no cacheable identity (nothing survives the step to cache)')
+    parts = [type(solver).__name__]
+    for f in sorted(dataclasses.fields(solver), key=lambda f: f.name):
+        if f.name in ('rho', 'refine'):
+            continue
+        value = getattr(solver, f.name)
+        if f.name == 'backend':
+            value = _backend_tag(value)
+        parts.append(f'{f.name}={value!r}')
+    return ';'.join(parts)
 
 
 # ---------------------------------------------------------------------------
@@ -385,9 +670,13 @@ class SolverSpec:
 
 SOLVERS = {
     'nystrom': SolverSpec(NystromIHVP,
-                          {'k': 'k', 'rho': 'rho',
+                          {'k': 'k', 'rho': 'rho', 'kappa': 'kappa',
                            'column_chunk': 'column_chunk',
+                           'importance_sampling': 'importance_sampling',
                            'refine': 'refine', 'stabilized': 'stabilized'},
                           builds_backend=True),
+    # the paper reuses k as the baselines' iteration count l
+    'cg': SolverSpec(CGIHVP, {'k': 'iters', 'rho': 'rho'}),
+    'neumann': SolverSpec(NeumannIHVP, {'k': 'iters', 'alpha': 'alpha'}),
     'exact': SolverSpec(ExactIHVP, {'rho': 'rho'}),
 }

@@ -238,21 +238,44 @@ class PyTreeIndexer:
             out[:, mask] = c.reshape(kb, -1)[:, local[mask]].float()
         return out
 
-    def sample_indices(self, rng: torch.Generator, k: int, *,
+    def sample_indices(self, rng: torch.Generator, k: int,
+                       weights: torch.Tensor | None = None, *,
                        indices: dict | None = None) -> dict:
-        """k distinct structured indices, uniform over all parameters.
+        """k structured indices over all parameters, drawn from ``rng`` (a
+        ``torch.Generator`` on the CPU), or ``indices=``, a draw made
+        elsewhere (the reference's, in the parity tests), checked and used
+        in place of sampling.
 
-        ``rng`` is a ``torch.Generator`` on the CPU. ``indices=`` injects a
-        draw made elsewhere (the reference's, in the parity tests) in place
-        of sampling. Needs p < 2³¹: the reference's with-replacement scheme
-        beyond that, and its importance-weighted draw, are not ported."""
+        p < 2³¹: k distinct flat indices, uniform, or with ``weights`` (a
+        flat (p,) vector, Remark 1's Drineas–Mahoney weights) drawn without
+        replacement in proportion to them (Gumbel top-k, the scheme of the
+        reference's ``jax.random.choice``). p ≥ 2³¹: a leaf in proportion to
+        its size, then a uniform coordinate in each of its dimensions, with
+        replacement (a collision, probability ≤ k²/2p, only lowers the
+        sketch's rank by one); weights are refused there."""
         if indices is not None:
             return self.check(indices)
-        if self.total >= 2 ** 31:
-            raise ValueError('sampling needs p < 2^31 (the large-p scheme is '
-                             'not ported)')
-        flat = torch.randperm(self.total, generator=rng)[:min(k, self.total)]
-        return self.from_flat(flat.numpy())
+        if self.total < 2 ** 31:
+            kk = min(k, self.total)
+            if weights is None:
+                flat = torch.randperm(self.total, generator=rng)[:kk]
+            else:
+                w = weights.detach().to('cpu', torch.float64).reshape(-1)
+                if w.shape != (self.total,):
+                    raise ValueError(f'weights must be ({self.total},), '
+                                     f'got {tuple(w.shape)}')
+                u = torch.rand(self.total, generator=rng, dtype=torch.float64)
+                gumbel = -torch.log(-torch.log(u))
+                flat = torch.topk(gumbel + torch.log(w / w.sum()), kk).indices
+            return self.from_flat(flat.numpy())
+        if weights is not None:
+            raise ValueError('importance sampling needs p < 2^31')
+        probs = torch.tensor(self.sizes, dtype=torch.float64) / self.total
+        leaf = torch.multinomial(probs, k, replacement=True, generator=rng)
+        sizes_k = torch.as_tensor(self._dim_table)[leaf]          # (k, R)
+        u = torch.rand((k, self.max_rank), generator=rng, dtype=torch.float64)
+        dims = torch.minimum((u * sizes_k).long(), sizes_k - 1)
+        return self._structured(leaf.numpy(), dims.numpy())
 
     def all_indices(self) -> dict:
         """Every parameter (tiny models only — ExactIHVP)."""

@@ -29,6 +29,45 @@ def make_logreg_problem(D: int = 100, n: int = 500, seed: int = 0,
 
 
 @dataclasses.dataclass
+class DistillationTask:
+    """10-class "digits" (§5.2, an MNIST analog): each class's prototype is
+    a smooth random field (4 × 4 cosine modes), samples add Gaussian noise.
+    ``train()``/``test()`` give (images (n, s, s, 1) f32, labels (n,)
+    int64) on ``device``."""
+    n_classes: int = 10
+    image_size: int = 28
+    n_train: int = 2048
+    n_test: int = 1024
+    seed: int = 0
+    device: Any = 'cpu'
+
+    def __post_init__(self):
+        rng = np.random.RandomState(self.seed)
+        s = self.image_size
+        freqs = rng.randn(self.n_classes, 4, 4)
+        grid = np.linspace(0, 1, s)
+        basis = np.stack([np.cos(np.pi * k * grid) for k in range(4)])
+        protos = np.einsum('ckl,ks,lt->cst', freqs, basis, basis)
+        self.prototypes = (protos / np.abs(protos).max((1, 2), keepdims=True)
+                           ).astype(np.float32)
+
+    def _sample(self, n, seed):
+        rng = np.random.RandomState(seed)
+        labels = rng.randint(0, self.n_classes, n)
+        imgs = self.prototypes[labels] + 0.35 * rng.randn(
+            n, self.image_size, self.image_size).astype(np.float32)
+        return (torch.as_tensor(imgs[..., None], device=self.device),
+                torch.as_tensor(labels, dtype=torch.int64,
+                                device=self.device))
+
+    def train(self):
+        return self._sample(self.n_train, self.seed + 1)
+
+    def test(self):
+        return self._sample(self.n_test, self.seed + 2)
+
+
+@dataclasses.dataclass
 class LongTailDataset:
     """Long-tailed classification: class c has ~ n_max · if^{-c/(C-1)}
     samples (the Cui et al. exponential profile of CIFAR-10-LT), with a

@@ -1,5 +1,5 @@
 """The paper's experiment tasks as registered problems (ported so far:
-``logreg_wd``, §5.1, and ``reweighting``, §5.4).
+``logreg_wd``, §5.1, ``distillation``, §5.2, and ``reweighting``, §5.4).
 
 Models use leaky-ReLU as §5 prescribes. Nonlinearities whose derivative
 has a kink are written with the reference's conventions at the kink (JAX
@@ -12,11 +12,14 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+from torch.func import grad
 
 from repro_torch.core.problem import BilevelProblem, register_problem
 from repro_torch.data.sources import ArraySource
-from repro_torch.data.synthetic import LongTailDataset, make_logreg_problem
+from repro_torch.data.synthetic import (DistillationTask, LongTailDataset,
+                                        make_logreg_problem)
 from repro_torch.device import resolve_device
+from repro_torch.optim import sgd
 
 
 def act(x: torch.Tensor) -> torch.Tensor:
@@ -89,6 +92,63 @@ def build_logreg_weight_decay(D: int = 100, n: int = 500, seed: int = 0,
         data=ArraySource(train=(Xt, yt), val=(Xv, yv)), device=device,
         defaults=dict(inner_lr=0.1, outer_lr=0.1, outer_opt='sgd_momentum',
                       steps_per_outer=100, batch_size=500, reset_inner=True))
+
+
+# ----------------------------------------------------------------- §5.2
+@register_problem('distillation')
+def build_distillation(n_per_class: int = 5, seed: int = 0, width: int = 64,
+                       image_size: int = 28,
+                       device: Any = None) -> BilevelProblem:
+    """Dataset distillation (Tab. 2): φ is C = 10·``n_per_class`` synthetic
+    images with fixed labels; the inner problem trains an MLP
+    s²→``width``→10 on them alone (p = 50,890 at the defaults), the outer
+    loss scores it on real training batches."""
+    device = resolve_device(device)
+    task = DistillationTask(seed=seed, image_size=image_size, device=device)
+    C = task.n_classes * n_per_class
+    s = task.image_size
+    Xt, yt = task.train()
+    Xs, ys = task.test()
+    distill_labels = torch.arange(task.n_classes,
+                                  device=device).repeat(n_per_class)
+    sizes = (s * s, width, task.n_classes)
+
+    def inner(params, hparams, batch):
+        return _xent(mlp_apply(params, hparams['images']), distill_labels)
+
+    def outer(params, hparams, batch):
+        X, y = batch
+        return _xent(mlp_apply(params, X), y)
+
+    def accuracy(params, hparams):
+        pred = mlp_apply(params, Xs).argmax(-1)
+        return float((pred == ys).float().mean())
+
+    def distilled_accuracy(params, hparams, init=None):
+        """Tab. 2's score: a fresh model trained 100 SGD steps (lr 0.01) on
+        the distilled images alone, scored on the test set. Its weights
+        come from ``torch.Generator().manual_seed(7)`` or are ``init``."""
+        prm = (mlp_init(torch.Generator().manual_seed(7), sizes, device)
+               if init is None else init)
+        opt = sgd(0.01)
+        st = opt.init(prm)
+        for i in range(100):
+            g = grad(inner)(prm, hparams, None)
+            prm, st = opt.apply(g, st, prm, i)
+        return accuracy(prm, hparams)
+
+    return BilevelProblem(
+        name='distillation', inner_loss=inner, outer_loss=outer,
+        init_params=lambda rng: mlp_init(rng, sizes, device),
+        init_hparams=lambda rng: {'images': torch.zeros((C, s, s, 1),
+                                                        device=device)},
+        data=ArraySource(train=(Xt, yt), val=(Xt, yt)), device=device,
+        metrics={'accuracy': accuracy,
+                 'distilled_accuracy': distilled_accuracy},
+        baseline_loss=_plain_xent_loss,
+        reference={'distill_labels': distill_labels, 'dataset': task},
+        defaults=dict(inner_lr=0.01, outer_lr=1e-3, steps_per_outer=100,
+                      batch_size=256, reset_inner=True))
 
 
 # ----------------------------------------------------------------- §5.4

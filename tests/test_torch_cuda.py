@@ -12,12 +12,23 @@ inputs, and only the final rounding differs. Kernel E's tensor-core
 variant is held to the same one-ulp gate: its products take the bf16
 inputs exactly and accumulate in f32, and its probabilities enter P·V as
 two bf16 fragments (hi + lo) that carry 16 bits of them.
+
+Alg. 1's chunked apply through the kernels (B on every chunk factor and
+refine sweep, A's cross in the block form) is held to the same apply with
+each kernel replaced by its plain version evaluated in f64, on the card, at
+relative L2 ≤ 1e-4 (the gate of ``chip_smoke.py``'s hypergradients: each
+chunk inverts a κ×κ system, which multiplies the contractions' roundoff).
+Both build the factors with the same cuBLAS calls, so a bf16 factor is
+rounded from the same f32 values on both sides.
 """
 import ctypes
+import math
 
 import pytest
 import torch
 
+from repro_torch.core.backend import CudaBackend
+from repro_torch.core.solvers import NystromIHVP, NystromSketch
 from repro_torch.kernels import _lib, ops, ref
 from repro_torch.kernels.flash_attention import expand_kv
 
@@ -555,3 +566,65 @@ def test_flash_takes_broadcast_kv_views(cuda):
     k, v = (_randn((B, S, 1, hd), torch.bfloat16, cuda, 32 + i).expand(
         B, S, KV, hd) for i in range(2))
     _flash_checked(q, k, v, True, tensor_cores=False)
+
+
+def _low_rank_sketch(p, k, dtype, device, seed, rank=32):
+    """A sketch C = H[:, K] of H = G Gᵀ/r + I (G (p, r) Gaussian), built
+    without H, on ``device`` with C stored in ``dtype``."""
+    g = torch.Generator().manual_seed(seed)
+    G = torch.randn(p, rank, generator=g) / rank ** 0.5
+    K = torch.randperm(p, generator=g)[:k]
+    C = G @ G[K].T
+    C[K, torch.arange(k)] += 1.0
+    H_KK = 0.5 * (C[K] + C[K].T)
+    Cpk = C.to(dtype).contiguous().to(device)
+    leaf = torch.zeros(k, dtype=torch.int32, device=device)
+    return NystromSketch(C=Cpk, H_KK=H_KK.to(device),
+                         indices={'leaf': leaf, 'dims': K[:, None].int()},
+                         rho=1e-2, gram_C=ref.nystrom_gram(Cpk))
+
+
+def _plain_f64(dtype):
+    """The ``cuda`` backend with each kernel replaced by its plain version
+    evaluated in f64 and rounded to f32."""
+    def f64(fn):
+        return lambda *a: fn(*[x.double() if torch.is_tensor(x) else x
+                               for x in a]).float()
+
+    class PlainF64(CudaBackend):
+        gram = staticmethod(f64(ref.nystrom_gram))
+        ctv = ctm = staticmethod(f64(ref.woodbury_ctv))
+
+        def combine(self, C, w, v, rho):
+            return f64(ref.woodbury_apply)(C, -(rho * rho) * w, v, rho)
+
+        combinem = combine
+
+    return PlainF64(sketch_dtype=dtype)
+
+
+def _rel_l2(a, b):
+    return float((a.double() - b.double()).norm() / b.double().norm())
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('k,kappa', [(10, 3), (64, 16)])
+@pytest.mark.parametrize('m', [1, 32])
+def test_chunked_apply_through_the_kernels(cuda, dtype, k, kappa, m):
+    p = 20011
+    sk = _low_rank_sketch(p, k, dtype, cuda, seed=k + m)
+    solver = NystromIHVP(k=k, rho=1e-2, kappa=kappa,
+                         backend=CudaBackend(sketch_dtype=dtype))
+    v = _randn((p, m) if m > 1 else (p,), torch.float32, cuda, 9)
+    _lib.reset_launches()
+    got = solver.apply_matrix(sk, v) if m > 1 else solver.apply(sk, v)
+    torch.cuda.synchronize()
+    launches = dict(_lib.LAUNCHES)
+    plain = NystromIHVP(k=k, rho=1e-2, kappa=kappa,
+                        backend=_plain_f64(dtype))
+    want = (plain.apply_matrix if m > 1 else plain.apply)(sk, v)
+    assert _rel_l2(got, want) <= 1e-4
+    # refine = 1: every factor twice, L once
+    passes = 2 * math.ceil(k / kappa) + 1
+    assert launches['nystrom_cross' if m > 1 else 'woodbury_ctv'] == passes
+    assert launches['woodbury_apply'] == launches['woodbury_apply_block'] == 0

@@ -25,6 +25,12 @@ assert not any(k == 'jax' or k.startswith(('jax.', 'repro.'))
                for k, v in sys.modules.items() if v is not None)
 from repro_torch.configs import get_config
 from repro_torch.core import HypergradConfig, hypergrad_at, solve
+from repro_torch.core import (CGIHVP, NeumannIHVP, config_from_cli,
+                              gauss_newton_hvp, hessian_diagonal_estimate,
+                              nystrom_inverse_dense, solver_fingerprint,
+                              state_nbytes, unrolled_hypergradient)
+from repro_torch.data import DistillationTask
+from repro_torch.tasks import build_distillation
 from repro_torch.launch.steps import build_prefill_step
 from repro_torch.models import build_model
 from repro_torch.models.transformer import init_params
@@ -41,6 +47,8 @@ if not torch.cuda.is_available():
             ('solve', lambda: solve(problem, HypergradConfig(k=2,
                                                              backend='cuda'),
                                     n_outer=1)),
+            ('build_distillation', lambda: build_distillation(image_size=4,
+                                                              width=2)),
             ('hypergrad_at', lambda: hypergrad_at(
                 problem, HypergradConfig(k=2, backend='cuda'), w,
                 {'wd': torch.ones(5)}, problem.data.train_batch(0, 4),

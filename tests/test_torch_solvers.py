@@ -191,4 +191,4 @@ def test_config_build_is_strict():
     with pytest.raises(ValueError, match='no effect'):
         HypergradConfig(sketch_dtype='bfloat16').build()
     with pytest.raises(ValueError, match='unknown solver'):
-        HypergradConfig(solver='cg').build()
+        HypergradConfig(solver='lbfgs').build()

@@ -2,7 +2,11 @@
 
 Leaf order must be JAX's (dict keys sorted, 'b' before 'w'), or every fused
 buffer of the port is a permutation of the reference's. Index maps are
-integer arithmetic: held exactly.
+integer arithmetic: held exactly. The port's weighted and large-p draws come
+from a ``torch.Generator``, not the reference's stream: they are checked for
+their support (distinct, in range, only where the weights are positive) and
+for taking the reference's own draws when injected. The p ≥ 2³¹ tree is made
+of expanded views, which allocate one element each.
 """
 import jax
 import jax.numpy as jnp
@@ -128,3 +132,92 @@ def test_convert_round_trip_and_flat_vector_order():
     assert all(torch.equal(u[k], t[k]) for k in t)
     idx = indices_to_torch({'leaf': np.array([1]), 'dims': np.array([[0, 2]])})
     assert idx['leaf'].dtype == torch.int32
+
+
+def _flat_of(tix, idx):
+    offs = np.cumsum([0] + tix.sizes)
+    out = []
+    for leaf, dims in zip(idx['leaf'].tolist(), idx['dims'].tolist()):
+        shape = tix.shapes[leaf] or (1,)
+        out.append(int(offs[leaf] + np.ravel_multi_index(
+            tuple(dims[:max(1, len(tix.shapes[leaf]))]), shape)))
+    return out
+
+
+@pytest.mark.parametrize('seed', [0, 1, 2])
+def test_weighted_draw_stays_on_the_weights_support(seed):
+    tix = PyTreeIndexer(to_torch(_params()))
+    support = [1, 4, 7, 11, 16]
+    w = torch.zeros(tix.total)
+    w[support] = torch.tensor([1.0, 2.0, 3.0, 4.0, 5.0])
+    gen = torch.Generator().manual_seed(seed)
+    assert sorted(_flat_of(tix, tix.sample_indices(gen, 5, w))) == support
+    picked = _flat_of(tix, tix.sample_indices(gen, 3, w))
+    assert len(set(picked)) == 3 and set(picked) <= set(support)
+    with pytest.raises(ValueError, match='weights must be'):
+        tix.sample_indices(gen, 3, torch.ones(5))
+
+
+def test_weighted_draw_of_the_reference_is_taken_as_injected():
+    p = _params()
+    jix = JIndexer(jax.tree.map(jnp.asarray, p))
+    w = np.linspace(0.1, 2.0, 17).astype(np.float32)
+    draw = jax.tree.map(np.asarray, jix.sample_indices(
+        jax.random.PRNGKey(5), 6, jnp.asarray(w)))
+    idx = PyTreeIndexer(to_torch(p)).sample_indices(
+        None, 6, torch.tensor(w), indices=draw)
+    np.testing.assert_array_equal(idx['leaf'].numpy(), draw['leaf'])
+    np.testing.assert_array_equal(idx['dims'].numpy(), draw['dims'])
+
+
+def test_prepare_draws_from_diag_weights_only_with_importance_sampling():
+    from repro_torch.core.hvp import make_hvp
+    from repro_torch.core.solvers import NystromIHVP
+    tparams = to_torch(_params())
+    tix = PyTreeIndexer(tparams)
+    hvp = make_hvp(lambda t, h, b: sum((x ** 2).sum() for x in
+                                       tree_leaves(t)), tparams, None, None)
+    w = torch.zeros(tix.total)
+    w[[2, 9, 15]] = 1.0
+    weighted = NystromIHVP(k=3, importance_sampling=True, backend='flat')
+    sk = weighted.prepare(hvp, tix, torch.Generator().manual_seed(0),
+                          diag_weights=w)
+    assert sorted(_flat_of(tix, sk.indices)) == [2, 9, 15]
+    plain = NystromIHVP(k=3, backend='flat')
+    a = plain.prepare(hvp, tix, torch.Generator().manual_seed(0),
+                      diag_weights=w)
+    b = plain.prepare(hvp, tix, torch.Generator().manual_seed(0))
+    assert torch.equal(a.indices['leaf'], b.indices['leaf'])
+    assert torch.equal(a.indices['dims'], b.indices['dims'])
+
+
+def _huge():
+    """p = 2^32 + 3 parameters, one stored element a leaf."""
+    return {'a': torch.zeros(()).expand(2 ** 16, 2 ** 16),
+            'b': torch.zeros(()).expand(3)}
+
+
+@pytest.mark.parametrize('seed', [0, 1])
+def test_large_p_draw_is_per_leaf_and_per_dimension(seed):
+    tix = PyTreeIndexer(_huge())
+    assert tix.total == 2 ** 32 + 3
+    idx = tix.sample_indices(torch.Generator().manual_seed(seed), 16)
+    leaf, dims = idx['leaf'].long(), idx['dims'].long()
+    assert idx['leaf'].dtype == idx['dims'].dtype == torch.int32
+    assert leaf.shape == (16,) and dims.shape == (16, 2)
+    table = torch.as_tensor(tix._dim_table)[leaf]
+    assert bool(((dims >= 0) & (dims < table)).all())
+    again = tix.sample_indices(torch.Generator().manual_seed(seed), 16)
+    assert torch.equal(again['dims'], idx['dims'])
+    with pytest.raises(ValueError, match='p < 2'):
+        tix.sample_indices(torch.Generator(), 4, torch.ones(3))
+
+
+def test_large_p_draw_of_the_reference_is_taken_as_injected():
+    shapes = {'a': jax.ShapeDtypeStruct((2 ** 16, 2 ** 16), jnp.float32),
+              'b': jax.ShapeDtypeStruct((3,), jnp.float32)}
+    draw = jax.tree.map(np.asarray, JIndexer(shapes).sample_indices(
+        jax.random.PRNGKey(2), 8))
+    idx = PyTreeIndexer(_huge()).sample_indices(None, 8, indices=draw)
+    np.testing.assert_array_equal(idx['leaf'].numpy(), draw['leaf'])
+    np.testing.assert_array_equal(idx['dims'].numpy(), draw['dims'])
