@@ -133,6 +133,33 @@ Tab. 2's solver family (the sixth slice):
     launches per apply and each operand's load path (kernel A's variant in
     the block form) are printed.
 
+The iMAML meta path, forward mode and influence (the seventh slice):
+
+13. iMAML: ``solve(build_imaml(), HypergradConfig(k=10, rho=1e-2,
+    backend='cuda'), vmap_tasks=8)`` at Tab. 3's widths (5-way 1-shot,
+    20 × 20 images, MLP 400→64→64→5, p = 30,149, 10 inner SGD steps at lr
+    0.1, Adam 1e-3), with ``shared_sketch=True`` and ``False``: 1 warm-up
+    and 3 timed meta-steps each (seconds per meta-step, launches per
+    meta-step, peak memory), one profiled meta-step (device idle share).
+    Gates: the per-task hypergradients of one meta-step through the kernels
+    against ``backend='flat'`` at the same column draws, relative L2 ≤ 1e-4
+    for every task, in both modes; the shared run must launch the gram,
+    cross and block-apply kernels, the per-task run the gram, ctv and
+    vector-apply kernels. The cosine of the two modes' mean hypergradients
+    is printed (what the reference's ``bench_shared_sketch`` measures).
+14. Forward mode: ``torch.func.jvp`` of the solution map on
+    ``reweighting`` (p = 26,122) at phase 4's solved state, through the
+    kernels against ``backend='flat'`` (relative L2 ≤ 1e-4), and
+    ⟨u, Jφ̇⟩ against ⟨Jᵀu, φ̇⟩ between the jvp and the VJP (≤ 1e-4
+    relative).
+15. Influence: ``influence(build_influence())`` at p = 26,122 with
+    parameters trained for the default 200 SGD steps at batch 128, m = 32
+    queries, top 10, ``self_influence=True``: seconds of ``influence()``
+    and of the scan alone, launches, the device idle share of one profiled
+    call. Gates against ``backend='flat'``: scores within 1e-4 of
+    max |score|, top-k indices equal wherever neighbouring scores differ by
+    more than 1e-5 of it, self-influence within 1e-4, ``hvp_count == 10``.
+
 The line before the last is the kernels' JSON record (seven rows, kernel
 E's the tensor-core variant at the prefill's own call; rows 1–5 also
 carry their p = 2²⁴ f32 and bf16 times under ``p24`` and the p = 2²⁰
@@ -140,7 +167,9 @@ shapes' under ``p20``, and row 2 its bf16 × bf16 cross, each entry with
 the variant or load path that launched; a row's name carries the main
 path's variant; rows 1, 3 and 4 carry the launches of phase 11's two
 Nyström runs under ``distillation_launches``, rows 2 and 3 phase 12's
-record under ``alg1_p24``); the last
+record under ``alg1_p24``, rows 1–5 the launches of phases 13–15 under
+``imaml_launches_per_meta_step``, ``forward_mode_launches`` and
+``influence_launches``); the last
 line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 without the repository beside it, the script exits non-zero and prints no
 result.
@@ -972,6 +1001,284 @@ def time_alg1(torch, dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 13-15. The iMAML meta path, forward mode, and influence scoring
+# ---------------------------------------------------------------------------
+IMAML_P = 400 * 64 + 64 + 64 * 64 + 64 + 64 * 5 + 5     # Tab. 3's MLP
+IMAML_TASKS, IMAML_STEPS = 8, 3   # benchmarks/tab3_imaml.py's bench_tasks
+INFLUENCE_M, INFLUENCE_TOP = 32, 10
+
+
+def _flat_tree(torch, tree):
+    from repro_torch.core import tree_leaves
+    return torch.cat([x.reshape(-1).double() for x in tree_leaves(tree)])
+
+
+def _device_busy(torch, fn):
+    """(ms of device time, kernels) of one call of ``fn`` under
+    ``torch.profiler``, or None where the profiler saw no device event."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not getattr(e, 'is_user_annotation', False)]
+    if not kernels:
+        return None
+    return sum(e.time_range.elapsed_us() for e in kernels) / 1e3, len(kernels)
+
+
+def _idle(torch, label: str, fn, step_s: float) -> None:
+    busy = _device_busy(torch, fn)
+    if busy is None:
+        print(f'{label}: the profiler recorded no device events; device '
+              'time not measured', flush=True)
+        return
+    ms, n = busy
+    print(f'{label}: {n} kernels, {ms:.3f} ms of device time against an '
+          f'unprofiled {step_s * 1e3:.3f} ms: device idle '
+          f'{100 * (1 - ms / (step_s * 1e3)):.1f}%', flush=True)
+
+
+def _meta_hypergrads(torch, problem, meta, batch, backend: str,
+                     shared: bool, draws):
+    """Per-task hypergradients of one meta-step (the ``_solve_meta`` step
+    before its mean), at injected column draws: a shared sketch from
+    draws[0] on the pooled support sets, or one draw per task."""
+    from torch.func import grad, vmap
+    from repro_torch.core import HypergradConfig, implicit_root, sgd_solver
+    solution = implicit_root(
+        sgd_solver(problem.inner_loss, 10, 0.1), problem.inner_loss,
+        HypergradConfig(k=10, rho=1e-2, backend=backend))
+    (SX, SY), (QX, QY) = batch
+    if shared:
+        sketch = solution.prepare_state(
+            meta, meta, (SX.reshape((-1,) + SX.shape[2:]), SY.reshape(-1)),
+            indices=draws[0])
+        return vmap(lambda sx, sy, qx, qy: grad(lambda m: problem.outer_loss(
+            solution(m, (sx, sy), state=sketch), m, (qx, qy)))(meta))(
+            SX, SY, QX, QY)
+    idx = {key: torch.stack([d[key] for d in draws])
+           for key in ('leaf', 'dims')}
+    return vmap(lambda sx, sy, qx, qy, ix: grad(lambda m: problem.outer_loss(
+        solution(m, (sx, sy), indices=ix), m, (qx, qy)))(meta))(
+        SX, SY, QX, QY, idx)
+
+
+def run_imaml(torch, dev) -> dict:
+    """Phase 13: ``solve(build_imaml(), vmap_tasks=8)`` at Tab. 3's widths,
+    Nyström k = 10 on ``backend='cuda'``, with one shared sketch and with a
+    sketch per task. Returns the launches per meta-step, by mode."""
+    from repro_torch.core import (HypergradConfig, PyTreeIndexer, solve,
+                                  tree_leaves, tree_map)
+    from repro_torch.kernels import _lib
+    from repro_torch.tasks import build_imaml
+    problem = build_imaml()
+    p = sum(x.numel() for x in tree_leaves(problem.init_params(
+        torch.Generator().manual_seed(0))))
+    if p != IMAML_P:
+        raise AssertionError(f'imaml has p={p}, expected {IMAML_P}')
+    config = HypergradConfig(k=10, rho=1e-2, backend='cuda')
+    launches, means = {}, {}
+    for shared in (True, False):
+        label = f'imaml {"shared" if shared else "per-task"}'
+        kw = dict(vmap_tasks=IMAML_TASKS, shared_sketch=shared)
+        warm = solve(problem, config, n_outer=1, **kw)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _lib.reset_launches()
+        res = solve(problem, config, n_outer=IMAML_STEPS, **kw)
+        launches[label] = {n: c / IMAML_STEPS for n, c in _lib.LAUNCHES.items()
+                           if c}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        losses = res.history['outer_loss']
+        if len(losses) != IMAML_STEPS or not all(map(math.isfinite, losses)) \
+                or not _finite(torch, res.hparams):
+            raise AssertionError(f'{label}: a loss or the meta-init not '
+                                 'finite')
+        want = (('nystrom_gram', 'nystrom_cross', 'woodbury_apply_block')
+                if shared else
+                ('nystrom_gram', 'woodbury_ctv', 'woodbury_apply'))
+        if not all(launches[label].get(n) for n in want):
+            raise AssertionError(f'{label}: launches {launches[label]}')
+        step_s = res.seconds / IMAML_STEPS
+        print(f'{label}: {step_s:.4f} s/meta-step of {IMAML_TASKS} tasks x 10 '
+              f'inner steps (first-call warm-up {warm.seconds:.4f} s), query '
+              f'loss {[round(x, 5) for x in losses]}, hvp_count '
+              f'{res.hvp_count}, peak device memory {peak:.1f} MiB, '
+              f'launches per meta-step {launches[label]}', flush=True)
+        _idle(torch, f'{label}: one profiled meta-step', lambda: solve(
+            problem, config, n_outer=1, **kw), step_s)
+        # the gate: per-task hypergradients of one meta-step at one draw,
+        # the kernels against torch.matmul ('flat')
+        meta = res.hparams
+        batch = problem.data.task_batch(IMAML_STEPS, IMAML_TASKS)
+        gen = torch.Generator().manual_seed(IMAML_STEPS)
+        draws = [PyTreeIndexer(meta).sample_indices(gen, 10)
+                 for _ in range(1 if shared else IMAML_TASKS)]
+        hg = {be: _meta_hypergrads(torch, problem, meta, batch, be, shared,
+                                   draws) for be in ('cuda', 'flat')}
+        errs = []
+        for t in range(IMAML_TASKS):
+            a, b = (_flat_tree(torch, tree_map(lambda x: x[t], hg[be]))
+                    for be in ('cuda', 'flat'))
+            errs.append(float((a - b).norm() / b.norm()))
+        if not max(errs) <= 1e-4:
+            raise AssertionError(f'{label}: per-task hypergradients cuda vs '
+                                 f'flat rel L2 {max(errs):.3e}')
+        means[label] = _flat_tree(torch, tree_map(lambda x: x.mean(0),
+                                                  hg['cuda']))
+        print(f'{label}: per-task hypergradients cuda vs flat, largest rel '
+              f'L2 of {IMAML_TASKS} tasks {max(errs):.3e} (<= 1e-4)',
+              flush=True)
+    a, b = means.values()
+    print(f'imaml: cosine of the shared and per-task mean hypergradients '
+          f'{float(a @ b / (a.norm() * b.norm())):.6f} (not gated)',
+          flush=True)
+    return launches
+
+
+def run_forward_mode(torch, problem, params, hparams, batch, idx) -> dict:
+    """Phase 14: ``torch.func.jvp`` of the solution map on ``reweighting``
+    (p = 26,122) at the solved state of phase 4, through the kernels against
+    ``backend='flat'``, and the jvp/VJP dot test. Returns the launches of
+    the kernels' jvp."""
+    from torch.func import grad, jvp
+    from repro_torch.core import (HypergradConfig, implicit_root, tree_map,
+                                  tree_vdot)
+    from repro_torch.kernels import _lib
+    g = torch.Generator().manual_seed(14)
+    phi_dot = tree_map(lambda x: torch.randn(x.shape, generator=g).to(
+        x.device), hparams)
+    u = tree_map(lambda x: torch.randn(x.shape, generator=g).to(x.device),
+                 params)
+    maps = {be: implicit_root(lambda phi, b: params, problem.inner_loss,
+                              HypergradConfig(k=10, backend=be))
+            for be in ('cuda', 'flat')}
+
+    def tangent(be):
+        return jvp(lambda h: maps[be](h, batch, indices=idx), (hparams,),
+                   (phi_dot,))[1]
+    tangent('cuda')                                   # first-call set-up
+    torch.cuda.synchronize()
+    _lib.reset_launches()
+    t0 = time.perf_counter()
+    t_cuda = tangent('cuda')
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {n: c for n, c in _lib.LAUNCHES.items() if c}
+    err = float((_flat_tree(torch, t_cuda) - _flat_tree(torch, tangent(
+        'flat'))).norm() / _flat_tree(torch, tangent('flat')).norm())
+    if not err <= 1e-4:
+        raise AssertionError(f'forward mode: jvp cuda vs flat rel L2 '
+                             f'{err:.3e}')
+    jt_u = grad(lambda h: tree_vdot(u, maps['cuda'](h, batch,
+                                                    indices=idx)))(hparams)
+    a, b = float(tree_vdot(u, t_cuda)), float(tree_vdot(jt_u, phi_dot))
+    dot = abs(a - b) / abs(b)
+    if not dot <= 1e-4:
+        raise AssertionError(f'forward mode: <u, J v> {a:.6e} vs <J^T u, v> '
+                             f'{b:.6e}, rel {dot:.3e}')
+    if not (launches.get('woodbury_ctv') and launches.get('woodbury_apply')):
+        raise AssertionError(f'forward mode: launches {launches}')
+    print(f'forward mode: jvp of the solution map on reweighting p={MAIN_P} '
+          f'in {secs * 1e3:.3f} ms, cuda vs flat rel L2 {err:.3e} (<= 1e-4), '
+          f'<u, J v> vs <J^T u, v> rel {dot:.3e} (<= 1e-4), launches '
+          f'{launches}', flush=True)
+    return launches
+
+
+def _topk_gate(torch, got, want, label: str) -> None:
+    """Influence against ``backend='flat'``: scores within 1e-4 of
+    max |score|, top-k indices equal wherever the neighbouring scores
+    differ by more than 1e-5 of it, self-influence within 1e-4."""
+    v = want.scores
+    scale = float(v.abs().max())
+    err = float((got.scores - v).abs().max()) / scale
+    gap = torch.full_like(v, math.inf)
+    gap[:, 1:] = (v[:, 1:] - v[:, :-1]).abs()
+    gap[:, :-1] = torch.minimum(gap[:, :-1], gap[:, 1:].clone())
+    apart = gap > 1e-5 * scale
+    self_err = float(((got.self_scores - want.self_scores).abs()
+                      / want.self_scores.abs()).max())
+    if not (err <= 1e-4 and self_err <= 1e-4 and torch.equal(
+            got.indices[apart], want.indices[apart])):
+        raise AssertionError(f'{label}: scores {err:.3e}, self-influence '
+                             f'{self_err:.3e}, indices equal '
+                             f'{torch.equal(got.indices, want.indices)}')
+    print(f'{label}: cuda vs flat scores {err:.3e} of max |score| (<= 1e-4), '
+          f'self-influence {self_err:.3e} (<= 1e-4), top-{v.shape[1]} indices '
+          f'equal at {int(apart.sum())} of {apart.numel()} separated '
+          f'positions (all {int(torch.equal(got.indices, want.indices))})',
+          flush=True)
+
+
+def run_influence(torch, dev) -> dict:
+    """Phase 15: ``influence(build_influence())`` at p = 26,122 with m = 32
+    queries, parameters trained for the default 200 SGD steps at batch 128.
+    Returns the launches of one call."""
+    from repro_torch.core import (HypergradConfig, PyTreeIndexer, influence,
+                                  influence_curvature_hvp, make_topk_scanner,
+                                  train_influence_params, tree_leaves,
+                                  tree_map)
+    from repro_torch.core.problem import _per_example_grads
+    from repro_torch.kernels import _lib
+    from repro_torch.tasks import build_influence
+    problem = build_influence()
+    t0 = time.perf_counter()
+    params = train_influence_params(problem)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    p = sum(x.numel() for x in tree_leaves(params))
+    if p != MAIN_P:
+        raise AssertionError(f'influence has p={p}, expected {MAIN_P}')
+    queries = problem.reference['queries'](INFLUENCE_M)
+    idx = PyTreeIndexer(params).sample_indices(
+        torch.Generator().manual_seed(15), 10)
+    kw = dict(params=params, top_k=INFLUENCE_TOP, self_influence=True,
+              indices=idx)
+    configs = {be: HypergradConfig(k=10, rho=1e-2, backend=be)
+               for be in ('cuda', 'flat')}
+    first = influence(problem, configs['cuda'], queries, **kw)
+    _lib.reset_launches()
+    res = influence(problem, configs['cuda'], queries, **kw)
+    launches = {n: c for n, c in _lib.LAUNCHES.items() if c}
+    if res.hvp_count != 10 or not all(
+            launches.get(n) for n in ('nystrom_gram', 'nystrom_cross',
+                                      'woodbury_apply_block')):
+        raise AssertionError(f'influence: hvp_count {res.hvp_count}, '
+                             f'launches {launches}')
+    _topk_gate(torch, res, influence(problem, configs['flat'], queries, **kw),
+               'influence')
+    # the sweep alone, against the same solved block
+    solver = configs['cuda'].build()
+    state = solver.prepare(influence_curvature_hvp(problem, params,
+                                                   problem.data, 128),
+                           PyTreeIndexer(params), None, indices=idx)
+    S = solver.apply_matrix(state, tree_map(
+        lambda g: g.movedim(0, -1),
+        _per_example_grads(problem.loss, params, queries)))
+    scan = make_topk_scanner(problem.loss, params, problem.data, 128)
+    scan(S, INFLUENCE_TOP)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scan(S, INFLUENCE_TOP)
+    torch.cuda.synchronize()
+    scan_s = time.perf_counter() - t0
+    n = problem.data.n_train
+    print(f'influence: p={p}, {n} training examples, m={INFLUENCE_M} '
+          f'queries, top {INFLUENCE_TOP}: params trained in {train_s:.3f} s '
+          f'(200 SGD steps at batch 128); influence() {res.seconds:.4f} s '
+          f'(first call {first.seconds:.4f} s), the scan alone '
+          f'{scan_s:.4f} s ({-(-n // 128)} tiles); hvp_count '
+          f'{res.hvp_count}; launches {launches}', flush=True)
+    _idle(torch, 'influence: one profiled influence() call', lambda: influence(
+        problem, configs['cuda'], queries, **kw), res.seconds)
+    return launches
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1114,6 +1421,12 @@ def main() -> None:
     distill_launches = run_distillation(torch, dev)
     alg1 = time_alg1(torch, dev)
 
+    # 13-15. the iMAML meta path, forward mode, influence --------------------
+    imaml_launches = run_imaml(torch, dev)
+    forward_launches = run_forward_mode(torch, problem, res.params,
+                                        res.hparams, ib, idx)
+    influence_launches = run_influence(torch, dev)
+
     # records -----------------------------------------------------------------
     records = []
     for kname, kernel, source, replaces in ROWS:
@@ -1133,6 +1446,12 @@ def main() -> None:
                 cfg: runs[kname] for cfg, runs in distill_launches.items()}
         if kname in ('nystrom_cross', 'woodbury_ctv'):
             rec['alg1_p24'] = alg1
+        if kname in large['float32']:   # rows 1-5: phases 13-15's paths
+            rec['imaml_launches_per_meta_step'] = {
+                mode: runs.get(kname, 0)
+                for mode, runs in imaml_launches.items()}
+            rec['forward_mode_launches'] = forward_launches.get(kname, 0)
+            rec['influence_launches'] = influence_launches.get(kname, 0)
         if kname in large['float32']:   # rows 1-5 at p = 2^24 and 2^20
             for key, runs in (('p24', large), ('p20', f1)):
                 rec[key] = {dt: _p24(recs[kname])

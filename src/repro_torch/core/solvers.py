@@ -523,6 +523,79 @@ class ExactIHVP:
         return self.apply(self.prepare(hvp, indexer, rng), v)
 
 
+# ---------------------------------------------------------------------------
+# The solver as a linear-system solve, and over a task axis
+# ---------------------------------------------------------------------------
+def apply_tasks(solver, state, W: PyTree) -> list:
+    """u_b = (H + ρI)⁻¹ w_b for every row b of ``W``'s leading task axis,
+    against one shared state: the n right-hand sides become one query block
+    and one ``apply_matrix`` (a single set of sketch passes). Returns u's
+    leaves, task axis first."""
+    U = solver.apply_matrix(state, tree_map(lambda x: x.movedim(0, -1), W))
+    return [x.movedim(-1, 0) for x in tree_leaves(U)]
+
+
+@dataclasses.dataclass
+class _SolveSpec:
+    solver: Any
+    state: Any
+    treedef: Any
+
+
+class _LinearSolve(torch.autograd.Function):
+    """w ↦ (H + ρI)⁻¹ w through ``solver.apply``: linear in w, and its own
+    transpose (the system is symmetric), so the backward pass and the jvp
+    apply the solve again."""
+
+    @staticmethod
+    def forward(spec, *w):
+        return tuple(tree_leaves(spec.solver.apply(
+            spec.state, spec.treedef.unflatten([x.detach() for x in w]))))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.spec = inputs[0]
+
+    @staticmethod
+    def backward(ctx, *g):
+        return (None, *_LinearSolve.apply(ctx.spec, *g))
+
+    @staticmethod
+    def jvp(ctx, _spec_dot, *w_dot):
+        return _LinearSolve.apply(ctx.spec, *w_dot)
+
+    @staticmethod
+    def vmap(info, in_dims, spec, *w):
+        W = spec.treedef.unflatten([
+            x.movedim(d, 0) if d is not None
+            else x.expand(info.batch_size, *x.shape)
+            for x, d in zip(w, in_dims[1:])])
+        u = apply_tasks(spec.solver, spec.state, W)
+        return tuple(u), (0,) * len(u)
+
+
+def tangent_apply(solver, state, hvp: HVP, w: PyTree) -> PyTree:
+    """u = (H + ρI)⁻¹ w as a linear-system solve: the counterpart of the
+    reference's ``custom_linear_solve`` (``repro/core/solvers.py:677``).
+
+    Its value is ``solver.apply(state, w)`` bit for bit (ρ is the solver's,
+    as in the reference). It differentiates as a linear map of ``w`` whose
+    transpose is itself (the system is symmetric): reverse mode over it
+    applies the solver to the cotangent, exactly the backward pass of
+    :func:`~repro_torch.core.implicit._implicit_phi_vjp`; forward mode
+    applies it to the tangent; under ``torch.func.vmap`` the rows of ``w``
+    go through one ``apply_matrix`` (:func:`apply_tasks`). ``hvp`` is the
+    system's matvec, H·, at the linearization point: the reference
+    differentiates the solve through it as well (the hyper-Hessian term
+    ``−(H+ρI)⁻¹ dH u``); that composition is not ported, and the solve is
+    differentiated at a frozen linearization point, so ``hvp`` is not
+    called here."""
+    del hvp
+    leaves, treedef = tree_flatten(w)
+    spec = _SolveSpec(solver=solver, state=state, treedef=treedef)
+    return treedef.unflatten(list(_LinearSolve.apply(spec, *leaves)))
+
+
 def build_hvp_bill(solver, params_like: PyTree) -> int:
     """HVPs one prepared-state build costs: the Nyström rank ``k``, or the
     parameter count for the exact solver's column scan."""

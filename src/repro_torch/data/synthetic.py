@@ -2,7 +2,9 @@
 
 The reference draws these with ``numpy.random.RandomState``; the port runs
 the same numpy draws and hands the arrays to torch, so both packages see
-identical data. Only the generators the ported tasks use are here.
+identical data. Only the generators the ported tasks use are here:
+``make_logreg_problem`` (§5.1), ``DistillationTask`` (§5.2),
+``FewShotSampler`` (§5.3) and ``LongTailDataset`` (§5.4).
 """
 from __future__ import annotations
 
@@ -65,6 +67,55 @@ class DistillationTask:
 
     def test(self):
         return self._sample(self.n_test, self.seed + 2)
+
+
+@dataclasses.dataclass
+class FewShotSampler:
+    """N-way K-shot episodes over procedurally generated "characters" (§5.3,
+    an Omniglot analog): each class's prototype is a smooth random field
+    (5 × 5 sine modes); the first 80% of the classes are meta-train, the
+    rest meta-test. Episodes are tensors on ``device``: images (n, s, s, 1)
+    f32, labels (n,) int64."""
+    n_way: int = 5
+    k_shot: int = 1
+    k_query: int = 5
+    image_size: int = 20
+    n_classes: int = 200
+    seed: int = 0
+    device: Any = 'cpu'
+
+    def __post_init__(self):
+        rng = np.random.RandomState(self.seed)
+        s = self.image_size
+        coeff = rng.randn(self.n_classes, 5, 5)
+        grid = np.linspace(0, 1, s)
+        basis = np.stack([np.sin(np.pi * (k + 1) * grid) for k in range(5)])
+        protos = np.einsum('ckl,ks,lt->cst', coeff, basis, basis)
+        self.prototypes = (protos / np.abs(protos).max((1, 2), keepdims=True)
+                           ).astype(np.float32)
+        self.split = int(0.8 * self.n_classes)
+
+    def episode(self, idx: int, test: bool = False):
+        """Episode ``idx`` → (support_x, support_y, query_x, query_y)."""
+        rng = np.random.RandomState(self.seed + 7919 * idx
+                                    + (1 if test else 0))
+        pool = (np.arange(self.split, self.n_classes) if test
+                else np.arange(self.split))
+        classes = rng.choice(pool, self.n_way, replace=False)
+        s = self.image_size
+
+        def draw(per_class):
+            xs, ys = [], []
+            for yi, c in enumerate(classes):
+                xs.append(self.prototypes[c] + 0.3 * rng.randn(
+                    per_class, s, s).astype(np.float32))
+                ys.append(np.full(per_class, yi))
+            return (torch.as_tensor(np.concatenate(xs)[..., None],
+                                    device=self.device),
+                    torch.as_tensor(np.concatenate(ys), dtype=torch.int64,
+                                    device=self.device))
+
+        return draw(self.k_shot) + draw(self.k_query)
 
 
 @dataclasses.dataclass

@@ -1,5 +1,8 @@
-"""The paper's experiment tasks as registered problems (ported so far:
-``logreg_wd``, §5.1, ``distillation``, §5.2, and ``reweighting``, §5.4).
+"""The paper's experiment tasks as registered problems: ``logreg_wd``
+(§5.1), ``distillation`` (§5.2), ``imaml`` (§5.3, a meta-problem driven by
+``solve(..., vmap_tasks=N)``), ``reweighting`` (§5.4), and ``influence``,
+an :class:`~repro_torch.core.problem.InfluenceProblem` on reweighting's
+data, driven by :func:`~repro_torch.core.problem.influence`.
 
 Models use leaky-ReLU as §5 prescribes. Nonlinearities whose derivative
 has a kink are written with the reference's conventions at the kink (JAX
@@ -14,10 +17,11 @@ from typing import Any
 import torch
 from torch.func import grad
 
-from repro_torch.core.problem import BilevelProblem, register_problem
-from repro_torch.data.sources import ArraySource
-from repro_torch.data.synthetic import (DistillationTask, LongTailDataset,
-                                        make_logreg_problem)
+from repro_torch.core.problem import (BilevelProblem, InfluenceProblem,
+                                      register_problem)
+from repro_torch.data.sources import ArraySource, EpisodeSource
+from repro_torch.data.synthetic import (DistillationTask, FewShotSampler,
+                                        LongTailDataset, make_logreg_problem)
 from repro_torch.device import resolve_device
 from repro_torch.optim import sgd
 
@@ -151,6 +155,42 @@ def build_distillation(n_per_class: int = 5, seed: int = 0, width: int = 64,
                       batch_size=256, reset_inner=True))
 
 
+# ----------------------------------------------------------------- §5.3
+@register_problem('imaml')
+def build_imaml(n_way: int = 5, k_shot: int = 1, seed: int = 0,
+                reg: float = 1.0, width: int = 64, image_size: int = 20,
+                device: Any = None) -> BilevelProblem:
+    """iMAML (Tab. 3): the inner problem adapts to a task under a proximal
+    term to the meta-initialization, the outer moves the initialization.
+    A meta-problem: drive it through ``solve(..., vmap_tasks=N)`` (its
+    ``EpisodeSource`` has no flat stream). The default MLP
+    400→64→64→5 has p = 30,149."""
+    device = resolve_device(device)
+    sampler = FewShotSampler(n_way=n_way, k_shot=k_shot, seed=seed,
+                             image_size=image_size, device=device)
+    s = sampler.image_size
+    sizes = (s * s, width, width, n_way)
+
+    def inner(params, hparams, batch):
+        sx, sy = batch
+        prox = sum(torch.sum((p['w'] - h['w']) ** 2)
+                   + torch.sum((p['b'] - h['b']) ** 2)
+                   for p, h in zip(params, hparams))
+        return _xent(mlp_apply(params, sx), sy) + 0.5 * reg * prox
+
+    def outer(params, hparams, batch):
+        qx, qy = batch
+        return _xent(mlp_apply(params, qx), qy)
+
+    return BilevelProblem(
+        name='imaml', inner_loss=inner, outer_loss=outer,
+        init_params=lambda rng: mlp_init(rng, sizes, device),
+        init_hparams=lambda rng: mlp_init(rng, sizes, device),
+        data=EpisodeSource(sampler), device=device,
+        reference={'sampler': sampler},
+        defaults=dict(inner_lr=0.1, outer_lr=1e-3, steps_per_outer=10))
+
+
 # ----------------------------------------------------------------- §5.4
 @register_problem('reweighting')
 def build_reweighting(imbalance: int = 100, seed: int = 0, d: int = 64,
@@ -196,3 +236,28 @@ def build_reweighting(imbalance: int = 100, seed: int = 0, d: int = 64,
         baseline_loss=_plain_xent_loss, reference={'dataset': data},
         defaults=dict(inner_lr=0.1, inner_momentum=0.9, outer_lr=1e-3,
                       steps_per_outer=20, batch_size=128))
+
+
+# -------------------------------------------------- influence functions
+@register_problem('influence')
+def build_influence(imbalance: int = 100, seed: int = 0, d: int = 64,
+                    width: int = 128, device: Any = None) -> InfluenceProblem:
+    """Influence queries over the long-tail data of ``reweighting``: the
+    same MLP (64→128→128→10, p = 26,122 at the defaults) trained on the
+    plain cross-entropy; ``reference['queries'](m)`` is the first m
+    validation examples, the natural query pool."""
+    device = resolve_device(device)
+    data = LongTailDataset(imbalance_factor=imbalance, seed=seed, d=d,
+                           device=device)
+    sizes = (d, width, width, data.n_classes)
+
+    def queries(m: int):
+        return data.Xv[:m], data.yv[:m]
+
+    return InfluenceProblem(
+        name='influence', loss=_plain_xent_loss,
+        init_params=lambda rng: mlp_init(rng, sizes, device),
+        data=ArraySource(train=(data.X, data.y), val=(data.Xv, data.yv)),
+        device=device,
+        defaults=dict(inner_lr=0.1, batch_size=128, train_steps=200),
+        reference={'dataset': data, 'queries': queries})

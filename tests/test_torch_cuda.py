@@ -20,6 +20,11 @@ relative L2 ≤ 1e-4 (the gate of ``chip_smoke.py``'s hypergradients: each
 chunk inverts a κ×κ system, which multiplies the contractions' roundoff).
 Both build the factors with the same cuBLAS calls, so a bf16 factor is
 rounded from the same f32 values on both sides.
+
+The seventh slice's block paths (iMAML's vmapped backward over a shared
+sketch, influence's (p, 32) query block) are held to the same plain
+versions in f64 at the same 1e-4, and must launch exactly one cross and
+one block apply each (``refine=0``: one Woodbury pass).
 """
 import ctypes
 import math
@@ -628,3 +633,86 @@ def test_chunked_apply_through_the_kernels(cuda, dtype, k, kappa, m):
     passes = 2 * math.ceil(k / kappa) + 1
     assert launches['nystrom_cross' if m > 1 else 'woodbury_ctv'] == passes
     assert launches['woodbury_apply'] == launches['woodbury_apply_block'] == 0
+
+
+def _rel_tree(a, b):
+    from repro_torch.core.tree_util import tree_leaves
+    fa = torch.cat([x.reshape(-1).double() for x in tree_leaves(a)])
+    fb = torch.cat([x.reshape(-1).double() for x in tree_leaves(b)])
+    return float((fa - fb).norm() / fb.norm())
+
+
+def test_shared_sketch_meta_backward_is_one_block_apply(cuda):
+    """vmap(grad(...)) over 8 iMAML tasks at Tab. 3's widths (p = 30,149)
+    with one shared sketch and ``refine=0``: the meta-batch's backward
+    passes launch kernel A's cross once and kernel C's block form once, at
+    m = 8, and no vector kernel; the per-task hypergradients match the same
+    run with every kernel's plain version in f64 (relative L2 ≤ 1e-4)."""
+    from torch.func import grad, vmap
+    from repro_torch.core import implicit_root, sgd_solver
+    from repro_torch.tasks import build_imaml
+    problem = build_imaml(device=cuda)
+    meta = problem.init_hparams(torch.Generator().manual_seed(0))
+    (SX, SY), (QX, QY) = problem.data.task_batch(0, 8)
+    pooled = (SX.reshape(-1, 20, 20, 1), SY.reshape(-1))
+
+    def per_task(backend):
+        solution = implicit_root(
+            sgd_solver(problem.inner_loss, 10, 0.1), problem.inner_loss,
+            NystromIHVP(k=10, rho=1e-2, refine=0, backend=backend))
+        sketch = solution.prepare_state(meta, meta, pooled,
+                                        torch.Generator().manual_seed(1))
+        _lib.reset_launches()
+        g = vmap(lambda sx, sy, qx, qy: grad(lambda m: problem.outer_loss(
+            solution(m, (sx, sy), state=sketch), m, (qx, qy)))(meta))(
+            SX, SY, QX, QY)
+        torch.cuda.synchronize()
+        return g, dict(_lib.LAUNCHES)
+
+    got, launches = per_task(CudaBackend())
+    want, plain = per_task(_plain_f64(torch.float32))
+    assert (launches['nystrom_cross'], launches['woodbury_apply_block'],
+            launches['woodbury_ctv'], launches['woodbury_apply']) == (1, 1,
+                                                                      0, 0)
+    assert not any(plain.values())
+    for t in range(8):
+        pick = lambda tree: [{k: v[t] for k, v in layer.items()}  # noqa
+                             for layer in tree]
+        assert _rel_tree(pick(got), pick(want)) <= 1e-4
+
+
+def test_influence_block_is_one_cross_and_one_block_apply(cuda):
+    """``influence`` at p = 26,122 with m = 32 queries and ``refine=0``:
+    one gram (the sketch), one cross and one block apply (the (p, 32)
+    query block); scores and self-influence match the kernels' plain
+    versions in f64 within 1e-4 relative, with equal top-k indices."""
+    from repro_torch.core import influence
+    from repro_torch.tasks import build_influence
+    problem = build_influence(device=cuda)
+    params = problem.init_params(torch.Generator().manual_seed(0))
+    queries = problem.reference['queries'](32)
+    runs = {}
+    for name, be in (('kernel', CudaBackend()),
+                     ('plain', _plain_f64(torch.float32))):
+        _lib.reset_launches()
+        res = influence(problem, NystromIHVP(k=10, rho=1e-2, refine=0,
+                                             backend=be), queries,
+                        params=params, top_k=10, self_influence=True)
+        torch.cuda.synchronize()
+        runs[name] = res, dict(_lib.LAUNCHES)
+    (got, launches), (want, plain) = runs['kernel'], runs['plain']
+    assert (launches['nystrom_gram'], launches['nystrom_cross'],
+            launches['woodbury_apply_block'], launches['woodbury_ctv'],
+            launches['woodbury_apply']) == (1, 1, 1, 0, 0)
+    assert not any(plain.values())
+    scale = float(want.scores.abs().max())
+    assert float((got.scores - want.scores).abs().max()) <= 1e-4 * scale
+    # equal indices wherever the neighbouring scores are apart
+    v = want.scores
+    gap = torch.full_like(v, math.inf)
+    gap[:, 1:] = (v[:, 1:] - v[:, :-1]).abs()
+    gap[:, :-1] = torch.minimum(gap[:, :-1], gap[:, 1:].clone())
+    apart = gap > 1e-5 * scale
+    assert torch.equal(got.indices[apart], want.indices[apart])
+    torch.testing.assert_close(got.self_scores, want.self_scores, rtol=1e-4,
+                               atol=0)

@@ -31,6 +31,16 @@ from repro_torch.core import (CGIHVP, NeumannIHVP, config_from_cli,
                               state_nbytes, unrolled_hypergradient)
 from repro_torch.data import DistillationTask
 from repro_torch.tasks import build_distillation
+from repro_torch.core import (BatchSource, InfluenceProblem, InfluenceResult,
+                              influence, influence_build_hvps,
+                              influence_curvature_hvp, make_topk_scanner,
+                              sgd_solver, tangent_apply,
+                              train_influence_params)
+from repro_torch.core.implicit import implicit_root
+from repro_torch.data import EpisodeSource, FewShotSampler
+from repro_torch.tasks import build_imaml, build_influence
+assert isinstance(build_imaml(width=2, image_size=4, device='cpu').data,
+                  EpisodeSource)
 from repro_torch.launch.steps import build_prefill_step
 from repro_torch.models import build_model
 from repro_torch.models.transformer import init_params
@@ -49,6 +59,15 @@ if not torch.cuda.is_available():
                                     n_outer=1)),
             ('build_distillation', lambda: build_distillation(image_size=4,
                                                               width=2)),
+            ('build_imaml', lambda: build_imaml(width=2, image_size=4)),
+            ('build_influence', lambda: build_influence(d=2, width=2)),
+            ('influence', lambda: influence(
+                build_influence(d=2, width=2, device='cpu'),
+                HypergradConfig(k=2), (torch.zeros(1, 2),
+                                       torch.zeros(1, dtype=torch.int64)))),
+            ('solve(vmap_tasks)', lambda: solve(
+                build_imaml(width=2, image_size=4, device='cpu'),
+                HypergradConfig(k=2), n_outer=1, vmap_tasks=2)),
             ('hypergrad_at', lambda: hypergrad_at(
                 problem, HypergradConfig(k=2, backend='cuda'), w,
                 {'wd': torch.ones(5)}, problem.data.train_batch(0, 4),
