@@ -160,6 +160,35 @@ The iMAML meta path, forward mode and influence (the seventh slice):
     max |score|, top-k indices equal wherever neighbouring scores differ by
     more than 1e-5 of it, self-influence within 1e-4, ``hvp_count == 10``.
 
+The serving tier and checkpoints (the eighth slice), on phase 15's problem,
+parameters and column draw, Nyström k = 10, ρ = 1e-2, ``backend='cuda'``,
+top 10, the same 32 queries:
+
+16. (a) The CLI's route: ``launch.train._serve_problem`` as
+    ``--problem influence --serve --queries 32`` runs it (200 training
+    steps, ``warmup()``, a cold and a warm pass of m = 1 flushes,
+    ``max_delay = 0``), on the kernels' backend; the passes it returns
+    must bill 10 build HVPs cold and 0 warm with hit rate 1.0, and the
+    launches over warmup and both passes must be its two builds' grams
+    and the m = 1 applies' ctv and vector-apply launches. (b) Bursts: a
+    service whose ``warmup()`` calibrates ``block_size`` over (1, 2, 4, 8,
+    16) (q/s for each m printed) takes the 32 queries at once, pumps and
+    flushes, cold and then warm: latency p50/p95, q/s, flush ms, and the
+    device idle share of one profiled warm burst. (c) Restart: the
+    parameters through ``CheckpointManager(async_save=True)`` and a restore
+    on the card (``params_digest`` equal), the sketch through
+    ``save_entry`` into a fresh ``SketchStore``: ``influence(store=)`` is a
+    disk hit with ``hvp_count == 0`` and answers bitwise as the warm call
+    did (m = 32), a service on the restored parameters answers the burst
+    bitwise as the warm burst did; a bf16 sketch spills and loads back bit
+    for bit. Peak device memory. Gates: every answer within 1e-4 of
+    max |score| of ``backend='flat'`` at the same draw and parameters, top-k
+    indices equal where neighbouring scores are apart (phase 15's gate), no
+    degraded flush, and the launch counts exactly: one gram a cold build
+    and none warm or from disk; 3 Cᵀv (kernel B) and 2 vector applies a
+    flush at m = 1, 3 crosses and 2 block applies a flush at m ≥ 2
+    (kernel C), and warmup()'s 4 applies a width.
+
 The line before the last is the kernels' JSON record (seven rows, kernel
 E's the tensor-core variant at the prefill's own call; rows 1–5 also
 carry their p = 2²⁴ f32 and bf16 times under ``p24`` and the p = 2²⁰
@@ -169,11 +198,14 @@ path's variant; rows 1, 3 and 4 carry the launches of phase 11's two
 Nyström runs under ``distillation_launches``, rows 2 and 3 phase 12's
 record under ``alg1_p24``, rows 1–5 the launches of phases 13–15 under
 ``imaml_launches_per_meta_step``, ``forward_mode_launches`` and
-``influence_launches``); the last
-line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
+``influence_launches``, and phase 16's by pass under ``serve_launches``);
+the last
+line is ``{"ok": true, "device": {...}}``; standard error ends with the
+seconds each phase took and the whole run's. Without a CUDA device, or
 without the repository beside it, the script exits non-zero and prints no
 result.
 """
+import contextlib
 import dataclasses
 import json
 import math
@@ -183,6 +215,7 @@ import shutil
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 SRC = Path(__file__).resolve().parent / 'src'
@@ -1190,10 +1223,12 @@ def run_forward_mode(torch, problem, params, hparams, batch, idx) -> dict:
     return launches
 
 
-def _topk_gate(torch, got, want, label: str) -> None:
+def _topk_gate(torch, got, want, label: str, *,
+               check_self: bool = True) -> None:
     """Influence against ``backend='flat'``: scores within 1e-4 of
     max |score|, top-k indices equal wherever the neighbouring scores
-    differ by more than 1e-5 of it, self-influence within 1e-4."""
+    differ by more than 1e-5 of it, self-influence within 1e-4 (unless
+    ``check_self`` is off: the serving tier's answers carry none)."""
     v = want.scores
     scale = float(v.abs().max())
     err = float((got.scores - v).abs().max()) / scale
@@ -1201,24 +1236,30 @@ def _topk_gate(torch, got, want, label: str) -> None:
     gap[:, 1:] = (v[:, 1:] - v[:, :-1]).abs()
     gap[:, :-1] = torch.minimum(gap[:, :-1], gap[:, 1:].clone())
     apart = gap > 1e-5 * scale
-    self_err = float(((got.self_scores - want.self_scores).abs()
-                      / want.self_scores.abs()).max())
+    if check_self and (got.self_scores is None or want.self_scores is None):
+        raise AssertionError(f'{label}: self-influence missing')
+    self_err = 0.0 if not check_self else float(
+        ((got.self_scores - want.self_scores).abs()
+         / want.self_scores.abs()).max())
     if not (err <= 1e-4 and self_err <= 1e-4 and torch.equal(
             got.indices[apart], want.indices[apart])):
         raise AssertionError(f'{label}: scores {err:.3e}, self-influence '
                              f'{self_err:.3e}, indices equal '
                              f'{torch.equal(got.indices, want.indices)}')
+    selfs = (f'self-influence {self_err:.3e} (<= 1e-4), ' if check_self
+             else '')
     print(f'{label}: cuda vs flat scores {err:.3e} of max |score| (<= 1e-4), '
-          f'self-influence {self_err:.3e} (<= 1e-4), top-{v.shape[1]} indices '
-          f'equal at {int(apart.sum())} of {apart.numel()} separated '
-          f'positions (all {int(torch.equal(got.indices, want.indices))})',
-          flush=True)
+          f'{selfs}top-{v.shape[1]} indices equal at {int(apart.sum())} of '
+          f'{apart.numel()} separated positions (all '
+          f'{int(torch.equal(got.indices, want.indices))})', flush=True)
 
 
-def run_influence(torch, dev) -> dict:
+def run_influence(torch, dev) -> tuple:
     """Phase 15: ``influence(build_influence())`` at p = 26,122 with m = 32
     queries, parameters trained for the default 200 SGD steps at batch 128.
-    Returns the launches of one call."""
+    Returns the launches of one call, and the problem, the trained
+    parameters, the column draw and the ``backend='flat'`` answer, which
+    phase 16 serves again."""
     from repro_torch.core import (HypergradConfig, PyTreeIndexer, influence,
                                   influence_curvature_hvp, make_topk_scanner,
                                   train_influence_params, tree_leaves,
@@ -1250,8 +1291,8 @@ def run_influence(torch, dev) -> dict:
                                       'woodbury_apply_block')):
         raise AssertionError(f'influence: hvp_count {res.hvp_count}, '
                              f'launches {launches}')
-    _topk_gate(torch, res, influence(problem, configs['flat'], queries, **kw),
-               'influence')
+    want = influence(problem, configs['flat'], queries, **kw)
+    _topk_gate(torch, res, want, 'influence')
     # the sweep alone, against the same solved block
     solver = configs['cuda'].build()
     state = solver.prepare(influence_curvature_hvp(problem, params,
@@ -1276,7 +1317,280 @@ def run_influence(torch, dev) -> dict:
           f'{res.hvp_count}; launches {launches}', flush=True)
     _idle(torch, 'influence: one profiled influence() call', lambda: influence(
         problem, configs['cuda'], queries, **kw), res.seconds)
+    return launches, problem, params, idx, want
+
+
+SERVE_CANDIDATES = (1, 2, 4, 8, 16)   # warmup()'s block sizes, 3 reps + 1
+SERVE_NAMES = ('nystrom_gram', 'woodbury_ctv', 'woodbury_apply',
+               'nystrom_cross', 'woodbury_apply_block')
+
+
+def _answers(torch, responses):
+    """A list of responses in query order → the (m, top) scores and
+    indices of an ``InfluenceResult``, for ``_topk_gate``."""
+    return types.SimpleNamespace(
+        scores=torch.stack([r.scores for r in responses]),
+        indices=torch.stack([r.indices for r in responses]),
+        self_scores=None)
+
+
+def _want_launches(got: dict, want: dict, label: str) -> None:
+    got = {n: got.get(n, 0) for n in SERVE_NAMES}
+    if got != {n: want.get(n, 0) for n in SERVE_NAMES}:
+        raise AssertionError(f'{label}: launches {got}, expected {want}')
+
+
+def _apply_launches(m: int, applies: int, builds: int = 0) -> dict:
+    """The launches of ``applies`` applies at width m (whitened, ``refine=1``:
+    3 Cᵀv and 2 applies each; the vector kernels at m = 1, the cross and the
+    block form above) after ``builds`` sketch builds (a gram each)."""
+    if m == 1:
+        return {'nystrom_gram': builds, 'woodbury_ctv': 3 * applies,
+                'woodbury_apply': 2 * applies}
+    return {'nystrom_gram': builds, 'nystrom_cross': 3 * applies,
+            'woodbury_apply_block': 2 * applies}
+
+
+def _add(*counts: dict) -> dict:
+    return {n: sum(c.get(n, 0) for c in counts) for n in SERVE_NAMES}
+
+
+def _serve_stats(label: str, svc, m: int, wall_s: float) -> None:
+    s, flush = svc.stats(), svc.flush_ms
+    print(f'{label}: {s["answered"]} queries in {s["flushes"]} flushes of '
+          f'm={m}, {wall_s:.4f} s wall ({s["answered"] / wall_s:.1f} q/s), '
+          f'latency p50 {s["latency_p50_ms"]:.3f} ms p95 '
+          f'{s["latency_p95_ms"]:.3f} ms, flush mean '
+          f'{sum(flush) / len(flush):.3f} ms (min {min(flush):.3f}, max '
+          f'{max(flush):.3f}), build hvps {s["build_hvps"]}, degraded '
+          f'flushes {s["degraded_flushes"]}', flush=True)
+    if s['degraded_flushes']:
+        raise AssertionError(f'{label}: {s["degraded_flushes"]} flushes '
+                             'answered by the CG fallback')
+
+
+def run_serving(torch, smi, problem, params, idx, want) -> dict:
+    """Phase 16: the serving tier at the influence task's full width on
+    phase 15's problem and parameters: the CLI route, calibrated bursts cold
+    and warm, and a restart (checkpoint, spilled sketch, fresh store).
+    Returns the launches of each pass."""
+    import argparse
+    import io
+    import tempfile
+    from repro_torch.checkpoint import CheckpointManager, params_digest
+    from repro_torch.core import (HypergradConfig, PyTreeIndexer, influence,
+                                  state_template, tree_flatten_with_path,
+                                  tree_leaves, tree_map)
+    from repro_torch.kernels import _lib
+    from repro_torch.launch.train import _serve_problem
+    from repro_torch.serve import InfluenceService, SketchStore, sketch_key
+    torch.cuda.reset_peak_memory_stats()
+    X, y = problem.reference['queries'](INFLUENCE_M)
+    pool = [(X[q], y[q]) for q in range(INFLUENCE_M)]
+    config = HypergradConfig(k=10, rho=1e-2, backend='cuda')
+    launches = {}
+
+    # (a) the CLI's route, as `--problem influence --serve --queries 32`
+    # runs it (train, warmup(), a cold and a warm pass of m = 1 flushes),
+    # on the kernels' backend; its query lines are not echoed
+    args = argparse.Namespace(solver='nystrom', steps=200,
+                              queries=INFLUENCE_M, top_k=INFLUENCE_TOP)
+    out = io.StringIO()
+    _lib.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        svc, passes = _serve_problem(problem, config, args)
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    for line in out.getvalue().splitlines():
+        if not re.match(r'\[serve:\w+\] query ', line):
+            print(f'serving cli: {line}', flush=True)
+    cold_rate = (INFLUENCE_M - 1) / INFLUENCE_M   # one miss, then hits
+    got = {phase: (len(r['responses']), r['stats']['build_hvps'],
+                   r['stats']['fallback_hvps'],
+                   r['stats']['degraded_flushes'], r['hit_rate'])
+           for phase, r in passes.items()}
+    if got != {'cold': (INFLUENCE_M, 10, 0, 0, cold_rate),
+               'warm': (INFLUENCE_M, 0, 0, 0, 1.0)}:
+        raise AssertionError(f'serving cli: (answers, build hvps, fallback '
+                             f'hvps, degraded flushes, hit rate) by pass '
+                             f'{got}')
+    # the counters over warmup and both passes: warmup's build and the cold
+    # pass's (which bills one build, 10 HVPs) are the two grams, so the
+    # warm pass (no build, every lookup a hit) launched none
+    launches['cli warmup + cold + warm'] = dict(_lib.LAUNCHES)
+    warmup = _add(*(_apply_launches(c, 4) for c in SERVE_CANDIDATES),
+                  {'nystrom_gram': 1})   # one build, 1 + 3 applies a width
+    _want_launches(_lib.LAUNCHES, _add(
+        warmup, _apply_launches(1, INFLUENCE_M, 1),
+        _apply_launches(1, INFLUENCE_M)), 'serving cli: warmup and passes')
+    flat = influence(problem, HypergradConfig(k=10, rho=1e-2, backend='flat'),
+                     (X, y), params=svc.params, top_k=INFLUENCE_TOP)
+    for label, part in passes.items():
+        _topk_gate(torch, _answers(torch, part['responses']), flat,
+                   f'serving cli {label} pass (m=1)', check_self=False)
+    same = all(torch.equal(a, b) for a, b in zip(tree_leaves(svc.params),
+                                                 tree_leaves(params)))
+    print(f'serving cli: {cli_s:.3f} s in all (200 training steps, warmup, '
+          f'2 x {INFLUENCE_M} queries); its trained parameters equal phase '
+          f'15\'s bit for bit: {same}; launches of warmup and both passes '
+          f'{ {n: _lib.LAUNCHES[n] for n in SERVE_NAMES} }', flush=True)
+
+    # (b) bursts: 32 queries at once, flushed at the calibrated m
+    svc = InfluenceService(problem, config, params=params, top_k=INFLUENCE_TOP,
+                           indices=idx)
+    rates = svc.warmup(SERVE_CANDIDATES)
+    m = svc.batcher.block_size
+    print('serving burst: warmup() q/s by m: ' + ', '.join(
+        f'm={k}: {r:.1f}' for k, r in rates.items()) + f'; calibrated m={m}',
+        flush=True)
+    if INFLUENCE_M % m:
+        raise AssertionError(f'serving burst: calibrated m={m} does not '
+                             f'divide {INFLUENCE_M}')
+
+    def burst(svc):
+        tickets = [svc.submit(q) for q in pool]
+        svc.pump()
+        svc.flush()
+        return [svc.result(t) for t in tickets]
+
+    answers = {}
+    for label in ('cold', 'warm'):
+        if label == 'cold':
+            svc.store.clear()
+        svc.reset_metrics()
+        _lib.reset_launches()
+        t0 = time.perf_counter()
+        answers[label] = burst(svc)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[f'burst {label} (m={m})'] = dict(_lib.LAUNCHES)
+        _want_launches(_lib.LAUNCHES, _apply_launches(
+            m, INFLUENCE_M // m, int(label == 'cold')),
+            f'serving burst {label}')
+        if {r.batched_m for r in answers[label]} != {m}:
+            raise AssertionError(f'serving burst {label}: flush widths '
+                                 f'{ {r.batched_m for r in answers[label]} }')
+        _serve_stats(f'serving burst {label}', svc, m, wall)
+        _topk_gate(torch, _answers(torch, answers[label]), want,
+                   f'serving burst {label} (m={m})', check_self=False)
+    svc.reset_metrics()
+    _idle(torch, 'serving burst: one profiled warm burst',
+          lambda: burst(svc), wall)
+
+    # (c) restart: parameters through a checkpoint, the sketch through a
+    # spill, a fresh store
+    with tempfile.TemporaryDirectory() as tmp:
+        mgr = CheckpointManager(os.path.join(tmp, 'ckpt'), async_save=True)
+        t0 = time.perf_counter()
+        mgr.save(0, params)
+        returned = time.perf_counter() - t0
+        mgr.wait()
+        saved = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        restored, _ = mgr.restore_latest(tree_map(torch.empty_like, params),
+                                         device=tree_leaves(params)[0].device)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        digests = params_digest(params), params_digest(restored)
+        if digests[0] != digests[1]:
+            raise AssertionError(f'restart: digest {digests[1]} after the '
+                                 f'restore, {digests[0]} before')
+        spill = os.path.join(tmp, 'spill')
+        kw = dict(params=params, top_k=INFLUENCE_TOP, indices=idx)
+        first = SketchStore(spill_dir=spill)
+        built = influence(problem, config, (X, y), store=first, **kw)
+        warm = influence(problem, config, (X, y), store=first, **kw)
+        key = sketch_key(params, config.build())
+        t0 = time.perf_counter()
+        path = first.save_entry(key)
+        spill_s = time.perf_counter() - t0
+        restarted = SketchStore(spill_dir=spill)
+        _lib.reset_launches()
+        disk = influence(problem, config, (X, y), store=restarted,
+                         **dict(kw, params=restored))
+        torch.cuda.synchronize()
+        launches['restart disk hit (m=32)'] = dict(_lib.LAUNCHES)
+        if (built.hvp_count, warm.hvp_count, disk.hvp_count) != (10, 0, 0) \
+                or (restarted.disk_hits, restarted.misses) != (1, 0) \
+                or _lib.LAUNCHES['nystrom_gram']:
+            raise AssertionError(
+                f'restart: hvp_count {built.hvp_count}, {warm.hvp_count}, '
+                f'{disk.hvp_count}; disk hits {restarted.disk_hits}, misses '
+                f'{restarted.misses}; launches {_lib.LAUNCHES}')
+        if not (torch.equal(disk.scores, warm.scores)
+                and torch.equal(disk.indices, warm.indices)):
+            raise AssertionError('restart: the disk hit\'s answers differ '
+                                 'from the warm call\'s')
+        _topk_gate(torch, disk, want, 'restart: influence() from the spill',
+                   check_self=False)
+        # the restarted service answers the burst at the calibrated m from
+        # the same store (a memory hit now), bit for bit the warm burst
+        svc = InfluenceService(problem, config, params=restored,
+                               store=restarted, top_k=INFLUENCE_TOP,
+                               indices=idx, block_size=m)
+        _lib.reset_launches()
+        again = burst(svc)
+        launches[f'restart burst (m={m})'] = dict(_lib.LAUNCHES)
+        _want_launches(_lib.LAUNCHES, _apply_launches(m, INFLUENCE_M // m),
+                       'restart burst')
+        if not all(torch.equal(a.scores, b.scores)
+                   and torch.equal(a.indices, b.indices)
+                   for a, b in zip(again, answers['warm'])) \
+                or svc.degraded_flushes:
+            raise AssertionError('restart: the restarted service\'s answers '
+                                 'differ from the warm burst\'s')
+        print(f'restart: async save returned in {returned * 1e3:.3f} ms, '
+              f'landed in {saved * 1e3:.3f} ms; restore on the card '
+              f'{restore_s * 1e3:.3f} ms; digest {digests[0]} before and '
+              f'after; spill {path.stat().st_size} bytes in '
+              f'{spill_s * 1e3:.3f} ms; a fresh store: disk hit, hvp_count '
+              f'0, no gram, scores bitwise the warm call\'s (m=32); the '
+              f'restarted service at m={m}: bitwise the warm burst\'s',
+              flush=True)
+        # a bf16 sketch through the disk tier
+        bf16 = HypergradConfig(k=10, rho=1e-2, backend='cuda',
+                               sketch_dtype='bfloat16')
+        solver = bf16.build()
+        store = SketchStore(spill_dir=spill)
+        made = influence(problem, bf16, (X, y), store=store, **kw)
+        key = sketch_key(params, solver)
+        store.save_entry(key)
+        like = state_template(solver, PyTreeIndexer(params))
+        loaded = SketchStore(spill_dir=spill).load_entry(key, like)
+        pairs = [(p, a, b) for (p, a), (_, b) in zip(
+            tree_flatten_with_path(store._entries[key].state)[0],
+            tree_flatten_with_path(loaded)[0])]
+        if loaded.C.dtype != torch.bfloat16 or not all(
+                torch.equal(a, b) if isinstance(a, torch.Tensor)
+                else b == float(torch.tensor(a, dtype=torch.float32))
+                for _, a, b in pairs):
+            raise AssertionError('restart: the bf16 sketch did not come '
+                                 'back bit for bit')
+        reread = influence(problem, bf16, (X, y), store=SketchStore(
+            spill_dir=spill), **kw)
+        if reread.hvp_count or not torch.equal(reread.scores, made.scores):
+            raise AssertionError('restart: the bf16 disk hit\'s answers '
+                                 'differ')
+        gap = float((made.scores - want.scores).abs().max()
+                    / want.scores.abs().max())
+        print(f'restart: bf16 sketch ({len(pairs)} leaves, C '
+              f'{tuple(loaded.C.shape)} bf16) spilled and loaded bit for '
+              f'bit; its disk hit answers bitwise as built; bf16 against the '
+              f'f32 flat answer {gap:.3e} of max |score| (not gated)',
+              flush=True)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    print(f'serving: peak device memory {peak:.1f} MiB | {smi}', flush=True)
     return launches
+
+
+PHASE_STARTS: list[tuple[str, float]] = []   # (phase, perf_counter)
+
+
+def _phase(label: str) -> None:
+    """Mark where a phase of ``main`` starts, for the seconds by phase that
+    the script prints to stderr when it ends."""
+    PHASE_STARTS.append((label, time.perf_counter()))
 
 
 def main() -> None:
@@ -1288,6 +1602,7 @@ def main() -> None:
     sys.path.insert(0, str(SRC))
 
     # 1. device -------------------------------------------------------------
+    _phase('1')
     smi = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit',
          '--format=csv,noheader'], capture_output=True, text=True,
@@ -1301,6 +1616,7 @@ def main() -> None:
           f'{torch.backends.cudnn.allow_tf32}', flush=True)
 
     # 2. build ----------------------------------------------------------------
+    _phase('2')
     from repro_torch.kernels import _lib, ops, ref
     path, secs = _lib.build()
     _lib.lib()
@@ -1308,6 +1624,7 @@ def main() -> None:
     report_build(path)
 
     # 3. kernels against their plain versions --------------------------------
+    _phase('3')
     main_rec = check_kernels(torch, ops, ref, MAIN_P, MAIN_K, torch.float32,
                              dev, exact_ref=False)
     check_kernels(torch, ops, ref, MAIN_P, MAIN_K, torch.bfloat16, dev,
@@ -1321,6 +1638,7 @@ def main() -> None:
     run_kernel_tests()
 
     # 4. main path --------------------------------------------------------------
+    _phase('4')
     from repro_torch.core import (ExactIHVP, HypergradConfig, PyTreeIndexer,
                                   hypergrad_at, hypergrad_error,
                                   phi_vjp_block, solve, tree_leaves,
@@ -1378,6 +1696,7 @@ def main() -> None:
           f'{err:.3e} (<= 1e-4)', flush=True)
 
     # 5. block path ---------------------------------------------------------
+    _phase('5')
     Xv, yv = problem.data.val_batch(n_outer + 1, M)
 
     def example_loss(params, x, y):
@@ -1405,29 +1724,42 @@ def main() -> None:
           f'(<= 1e-4), launches {block_launches}', flush=True)
 
     # 6. where the time goes ------------------------------------------------
+    _phase('6')
     trace_phases(torch, solve, problem, config, res.seconds / n_outer)
 
     # 7. model kernels against their plain versions --------------------------
+    _phase('7')
     main_rec.update(check_model_kernels(torch, ops, ref, dev))
 
     # 8-9. the prefill, and where its time goes --------------------------------
+    _phase('8-9')
     prefill_launches = run_prefill(torch, dev)
     torch.cuda.empty_cache()
 
     # 10. parity at full width, depth cut ------------------------------------
+    _phase('10')
     parity_cut_depth(torch, dev)
 
     # 11-12. Tab. 2's solver family on distillation; Alg. 1 at p = 2^24 ------
+    _phase('11-12')
     distill_launches = run_distillation(torch, dev)
     alg1 = time_alg1(torch, dev)
 
     # 13-15. the iMAML meta path, forward mode, influence --------------------
+    _phase('13')
     imaml_launches = run_imaml(torch, dev)
+    _phase('14')
     forward_launches = run_forward_mode(torch, problem, res.params,
                                         res.hparams, ib, idx)
-    influence_launches = run_influence(torch, dev)
+    _phase('15')
+    influence_launches, *served = run_influence(torch, dev)
+
+    # 16. the serving tier --------------------------------------------------
+    _phase('16')
+    serve_launches = run_serving(torch, smi, *served)
 
     # records -----------------------------------------------------------------
+    _phase('records')
     records = []
     for kname, kernel, source, replaces in ROWS:
         if kname == 'flash_attention':   # the row of the tensor-core kernel
@@ -1452,6 +1784,9 @@ def main() -> None:
                 for mode, runs in imaml_launches.items()}
             rec['forward_mode_launches'] = forward_launches.get(kname, 0)
             rec['influence_launches'] = influence_launches.get(kname, 0)
+            rec['serve_launches'] = {
+                label: runs.get(kname, 0)
+                for label, runs in serve_launches.items()}
         if kname in large['float32']:   # rows 1-5 at p = 2^24 and 2^20
             for key, runs in (('p24', large), ('p20', f1)):
                 rec[key] = {dt: _p24(recs[kname])
@@ -1472,5 +1807,10 @@ def main() -> None:
 if __name__ == '__main__':
     t0 = time.perf_counter()
     main()
-    print(f'chip_smoke: done in {time.perf_counter() - t0:.1f} s',
-          file=sys.stderr)
+    t1 = time.perf_counter()
+    ends = [t for _, t in PHASE_STARTS[1:]] + [t1]
+    print('chip_smoke: seconds by phase ' + ', '.join(
+        f'{label} {end - start:.1f}'
+        for (label, start), end in zip(PHASE_STARTS, ends)),
+        file=sys.stderr)
+    print(f'chip_smoke: done in {t1 - t0:.1f} s', file=sys.stderr)

@@ -13,7 +13,8 @@
   tangent_apply                                  — the solve as a linear op
   NystromIHVP / CGIHVP / NeumannIHVP / ExactIHVP — IHVP solvers
   nystrom_inverse_dense                          — dense Nyström oracle
-  state_nbytes / solver_fingerprint              — state size and identity
+  state_nbytes / solver_fingerprint /            — state size, identity
+    state_template                                 and unfilled layout
   hypergradient / unrolled_hypergradient         — Eq. 3 assembly + the
                                                    unrolled oracle
   config_from_cli                                — CLI flags → config
@@ -48,10 +49,12 @@ from repro_torch.core.solvers import (SOLVERS, CGIHVP, DenseFactor,
                                       SketchPolicy, SketchState, SolverSpec,
                                       build_hvp_bill, nystrom_inverse_dense,
                                       query_width, solver_fingerprint,
-                                      state_nbytes, tangent_apply)
+                                      state_nbytes, state_template,
+                                      tangent_apply)
 from repro_torch.core.tree_util import (PyTreeIndexer, tree_flatten,
-                                        tree_leaves, tree_map, tree_norm,
-                                        tree_size, tree_vdot)
+                                        tree_flatten_with_path, tree_leaves,
+                                        tree_map, tree_norm, tree_size,
+                                        tree_vdot)
 
 __all__ = [
     'BACKENDS', 'BatchSource', 'BilevelProblem', 'BilevelResult',
@@ -69,7 +72,8 @@ __all__ = [
     'make_topk_scanner', 'nystrom_inverse_dense', 'phi_vjp_block',
     'query_width',
     'register_problem', 'sgd_solver', 'solve', 'solver_fingerprint',
-    'state_nbytes', 'tangent_apply', 'train_influence_params',
-    'tree_flatten', 'tree_leaves', 'tree_map', 'tree_norm', 'tree_size',
-    'tree_vdot', 'unflatten_vec', 'unflatten_vecm', 'unrolled_hypergradient',
+    'state_nbytes', 'state_template', 'tangent_apply',
+    'train_influence_params', 'tree_flatten', 'tree_flatten_with_path',
+    'tree_leaves', 'tree_map', 'tree_norm', 'tree_size', 'tree_vdot',
+    'unflatten_vec', 'unflatten_vecm', 'unrolled_hypergradient',
 ]

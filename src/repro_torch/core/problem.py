@@ -19,8 +19,10 @@ The module also hosts the one-shot influence path: an
 :func:`influence` scores every training example against m queries with one
 prepared sketch. The m query IHVPs go through ``solver.apply_matrix`` as one
 (p, m) block, and the scores stream over the training set in (m, b) tiles
-with a running top-k, never an n_train × m matrix. The serving tier's
-sketch store (``store=``) is not ported yet.
+with a running top-k, never an n_train × m matrix. With ``store=`` (the
+serving tier's :class:`~repro_torch.serve.SketchStore`) the prepared sketch
+is fetched by content key instead of rebuilt: a warm hit, from memory or
+from the store's disk tier, bills zero HVPs.
 """
 from __future__ import annotations
 
@@ -556,14 +558,18 @@ def influence(problem: InfluenceProblem, config: HypergradConfig | Any = None,
     ``params=None`` first trains the model (:func:`train_influence_params`);
     the parity tests pass trained parameters. The sketch's columns come
     from ``torch.Generator().manual_seed(seed)``, or ``indices=`` injects a
-    draw. ``store=`` (the serving tier's sketch cache) is not ported yet and
-    raises.
+    draw.
+
+    ``store``: an optional :class:`~repro_torch.serve.SketchStore`. When
+    given (and the solver is amortizable), the prepared state is fetched by
+    content key (a digest of ``params`` and the solver's ρ-free
+    fingerprint) instead of rebuilt: a warm hit answers all m queries with
+    zero sketch-build HVPs (``hvp_count == 0``), and one cached sketch
+    serves a damping sweep. The store gets the state's template
+    (:func:`~repro_torch.core.solvers.state_template`, no HVP) as a
+    function it calls only on a memory miss with a disk tier, so a spilled
+    sketch re-enters warm as well and a warm memory hit allocates nothing. Iterative solvers bypass it.
     """
-    if store is not None:
-        raise NotImplementedError(
-            'influence(store=...) needs the serving tier (serve/: the sketch '
-            'store), which the port does not have yet; call influence() '
-            'without store= to build the sketch for this call')
     _check_device(problem, device)
     if config is None:
         config = HypergradConfig()
@@ -586,9 +592,24 @@ def influence(problem: InfluenceProblem, config: HypergradConfig | Any = None,
         params = train_influence_params(problem, train_steps=train_steps,
                                         batch_size=bs, seed=seed)
     hvp = influence_curvature_hvp(problem, params, source, bs)
-    state = solver.prepare(hvp, PyTreeIndexer(params),
-                           torch.Generator().manual_seed(seed),
-                           indices=indices)
+    indexer = PyTreeIndexer(params)
+    amortizable = getattr(type(solver), 'amortizable', False)
+
+    def build():
+        return solver.prepare(hvp, indexer,
+                              torch.Generator().manual_seed(seed),
+                              indices=indices)
+
+    built = True
+    if store is not None and amortizable:
+        from repro_torch.core.solvers import state_template
+        from repro_torch.serve import sketch_key
+        state, built = store.get_or_build(
+            sketch_key(params, solver), build,
+            like=lambda: state_template(solver, indexer),
+            build_hvps=influence_build_hvps(solver, params))
+    else:
+        state = build()
 
     # m query gradients → one (p, m) block → one apply_matrix
     G_q = _per_example_grads(problem.loss, params, queries)
@@ -601,8 +622,9 @@ def influence(problem: InfluenceProblem, config: HypergradConfig | Any = None,
             (v.float() * s.float()).reshape(-1, m).sum(0)
             for v, s in zip(tree_leaves(V), tree_leaves(S)))
     vals, idxs = make_topk_scanner(problem.loss, params, source, bs)(S, top_k)
-    if getattr(type(solver), 'amortizable', False):
-        hvps = influence_build_hvps(solver, params)
+    if amortizable:
+        # a warm store hit ran no build at all: the bill is zero
+        hvps = influence_build_hvps(solver, params) if built else 0
     else:
         hvps = getattr(solver, 'iters', 0) * m   # per-query iterative solves
     _sync(problem.device)

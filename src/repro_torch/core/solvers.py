@@ -36,8 +36,9 @@ import torch
 from repro_torch.core.backend import flatten_vecm, get_backend, unflatten_vecm
 from repro_torch.core.hvp import extract_columns, make_hvp
 from repro_torch.core.tree_util import (PyTree, PyTreeIndexer, tree_axpy,
-                                        tree_flatten, tree_leaves, tree_map,
-                                        tree_scale, tree_size, tree_vdot)
+                                        tree_flatten, tree_flatten_with_path,
+                                        tree_leaves, tree_map, tree_scale,
+                                        tree_size, tree_vdot)
 
 HVP = Callable[[PyTree], PyTree]
 
@@ -605,6 +606,50 @@ def build_hvp_bill(solver, params_like: PyTree) -> int:
     return tree_size(params_like)
 
 
+def state_template(solver, indexer: PyTreeIndexer):
+    """The state ``solver.prepare`` would build over ``indexer``'s tree,
+    with every leaf present at its shape, dtype and device but unfilled
+    (``torch.empty``), and no HVP run: what the reference gets from
+    ``jax.eval_shape(build)``. The serving tier's disk tier reads a spill
+    into it (``SketchStore.load_entry``'s ``like``).
+
+    The layout follows the solver's backend, by the backend's own
+    ``prepare_operand`` and ``mul_right`` run on ``meta`` tensors (a
+    leading-k tree for 'tree', the (k, p) buffer for 'flat', (p, k) for
+    'cuda'; ``sketch_dtype``), and its apply: ``B``/``gram_B`` for the
+    whitened form, ``gram_C`` for Eq. 6 and Alg. 1. Only the template's own
+    leaves are allocated: no GEMM and no kernel launch runs. Iterative
+    solvers raise (their state is a handle, with no leaves)."""
+    dev = indexer.device
+
+    def empty(t: torch.Tensor) -> torch.Tensor:
+        return torch.empty(t.shape, dtype=t.dtype, device=dev)
+
+    if isinstance(solver, ExactIHVP):
+        return DenseFactor(H=torch.empty((indexer.total, indexer.total),
+                                         device=dev))
+    if not isinstance(solver, NystromIHVP):
+        raise TypeError(f'{type(solver).__name__} prepares no state of '
+                        'tensors: there is nothing to template')
+    be = solver._be()
+    k = min(solver.k, indexer.total) if indexer.total < 2 ** 31 else solver.k
+    C_meta = be.prepare_operand(indexer.treedef.unflatten([
+        torch.empty((k,) + shape, dtype=dtype, device='meta')
+        for shape, dtype in zip(indexer.shapes, indexer.dtypes)]))
+    kk_meta = torch.empty((k, k), device='meta')
+    idx = {'leaf': torch.empty((k,), dtype=torch.int32, device=dev),
+           'dims': torch.empty((k, indexer.max_rank), dtype=torch.int32,
+                               device=dev)}
+    whitened = solver.stabilized and not solver._chunked()
+    return NystromSketch(
+        C=tree_map(empty, C_meta), H_KK=empty(kk_meta), indices=idx,
+        rho=float(solver.rho),
+        B=(tree_map(empty, be.mul_right(C_meta, kk_meta)) if whitened
+           else None),
+        gram_B=empty(kk_meta) if whitened else None,
+        gram_C=None if whitened else empty(kk_meta))
+
+
 def state_nbytes(state) -> int:
     """Bytes of a prepared solver state: the tensors it holds (a Nyström
     sketch is dominated by C and B, about 2·k·p·itemsize; a dense factor by
@@ -612,9 +657,7 @@ def state_nbytes(state) -> int:
     32-bit scalar the reference stores. An ``IterativeOperator`` holds a
     callable, which has no footprint: it raises."""
     total = 0
-    fields = (dataclasses.fields(state) if dataclasses.is_dataclass(state)
-              else ())
-    for leaf in tree_leaves([getattr(state, f.name) for f in fields]):
+    for _, leaf in tree_flatten_with_path(state)[0]:
         if isinstance(leaf, torch.Tensor):
             total += leaf.numel() * leaf.element_size()
         elif isinstance(leaf, (int, float)) and not isinstance(leaf, bool):

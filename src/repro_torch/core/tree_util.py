@@ -6,9 +6,15 @@ visited in **JAX's order**: dict keys sorted, so ``'b'`` comes before ``'w'``.
 ``torch.utils._pytree`` keeps insertion order instead, which would make every
 fused buffer of :mod:`repro_torch.core.backend` a permutation of the
 reference's.
+
+``tree_flatten`` keeps a dataclass whole, as a leaf. ``tree_flatten_with_path``
+also walks dataclass instances, field by field in declaration order, as the
+reference's ``register_dataclass`` states are walked: it is how a prepared
+solver state or a checkpointed tree is laid out on disk.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable
 
 import numpy as np
@@ -50,6 +56,9 @@ class TreeDef:
             return vals
         if self.kind == 'namedtuple':
             return self.meta(*vals)
+        if self.kind == 'dataclass':
+            cls, names = self.meta
+            return cls(**dict(zip(names, vals)))
         return tuple(vals)
 
 
@@ -86,6 +95,42 @@ def tree_flatten(tree: PyTree) -> tuple[list, TreeDef]:
 
     treedef = go(tree)
     return leaves, treedef
+
+
+def tree_flatten_with_path(tree: PyTree) -> tuple[list, TreeDef]:
+    """([(path, leaf), ...] in JAX order, structure), dataclass instances
+    walked field by field. A path is a tuple of entries rendered as the
+    reference's checkpoint renders JAX's keys: a dict key as ``str(key)``, a
+    list or tuple position as ``str(i)``, a named-tuple or dataclass field
+    as ``'.' + name``; ``'/'.join(path)`` is the leaf's name in a checkpoint
+    (``repro/checkpoint/manager.py``'s ``_flatten``). Kept apart from
+    :func:`tree_flatten`, which every eager step calls, so that one builds
+    no paths."""
+    pairs: list = []
+
+    def go(x, path):
+        if x is None:
+            return TreeDef('none', None, ())
+        if isinstance(x, dict):
+            keys = tuple(sorted(x))
+            return TreeDef('dict', keys, tuple(go(x[k], path + (str(k),))
+                                               for k in keys))
+        if _is_namedtuple(x):
+            return TreeDef('namedtuple', type(x), tuple(
+                go(v, path + ('.' + f,)) for f, v in zip(x._fields, x)))
+        if isinstance(x, (list, tuple)):
+            kind = 'list' if isinstance(x, list) else 'tuple'
+            return TreeDef(kind, None, tuple(go(v, path + (str(i),))
+                                             for i, v in enumerate(x)))
+        if dataclasses.is_dataclass(x) and not isinstance(x, type):
+            names = tuple(f.name for f in dataclasses.fields(x))
+            return TreeDef('dataclass', (type(x), names), tuple(
+                go(getattr(x, n), path + ('.' + n,)) for n in names))
+        pairs.append((path, x))
+        return TreeDef('leaf', None, ())
+
+    treedef = go(tree, ())
+    return pairs, treedef
 
 
 def tree_leaves(tree: PyTree) -> list:

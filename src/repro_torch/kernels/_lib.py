@@ -10,6 +10,12 @@ what ``nvcc -Xptxas -v`` said of each kernel (registers, spills).
 
 Each wrapper bumps its entry in :data:`LAUNCHES` where it launches its
 kernel and nowhere else, so a run can show that it went through the kernel.
+
+A kernel that cannot be built or loaded, a launch that reports a CUDA
+error, or a wrapper that refuses its operands (:class:`KernelRefusal`)
+raises :class:`KernelError`: a fault of the kernels' path itself, which
+callers that degrade on other failures (the serving tier's CG fallback)
+must not answer around.
 """
 from __future__ import annotations
 
@@ -55,6 +61,17 @@ ATB_SCRATCH_BYTES = 256 * 2 ** 20
 _lib: ctypes.CDLL | None = None
 
 
+class KernelError(RuntimeError):
+    """The hand-written kernels failed: ``nvcc`` missing, a compile or link
+    failure, a library that does not load, or a CUDA error from a launch."""
+
+
+class KernelRefusal(KernelError, ValueError):
+    """A wrapper refused its operands (dtype, shape, layout, device, or a
+    gradient a forward-only kernel cannot give): the kernel was not
+    launched. A ``ValueError`` too, as the refusals always were."""
+
+
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
@@ -63,8 +80,8 @@ def reset_launches() -> None:
 def _nvcc() -> str:
     nvcc = shutil.which('nvcc') or '/usr/local/cuda/bin/nvcc'
     if not os.path.exists(nvcc):
-        raise RuntimeError('nvcc not found: the CUDA kernels are built on a '
-                           'machine with the CUDA toolkit')
+        raise KernelError('nvcc not found: the CUDA kernels are built on a '
+                          'machine with the CUDA toolkit')
     return nvcc
 
 
@@ -112,13 +129,13 @@ def build() -> tuple[Path, float]:
             if proc.returncode != 0:
                 failed.append(logs[-1])
         if failed:
-            raise RuntimeError('nvcc failed:\n' + '\n'.join(failed))
+            raise KernelError('nvcc failed:\n' + '\n'.join(failed))
         so = Path(tmp) / out.name
         link = subprocess.run([nvcc, *NVCC_FLAGS, '-shared', '-o', str(so),
                                *map(str, objs)],
                               capture_output=True, text=True)
         if link.returncode != 0:
-            raise RuntimeError(f'nvcc link failed:\n{link.stdout}{link.stderr}')
+            raise KernelError(f'nvcc link failed:\n{link.stdout}{link.stderr}')
         out.with_suffix('.log').write_text('\n'.join(logs))
         os.replace(so, out)
     return out, time.perf_counter() - t0
@@ -129,7 +146,10 @@ def lib() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         path, _ = build()
-        cdll = ctypes.CDLL(str(path))
+        try:
+            cdll = ctypes.CDLL(str(path))
+        except OSError as e:
+            raise KernelError(f'cannot load {path.name}: {e}') from e
         p, i, ll, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                        ctypes.c_float)
         cdll.rt_atb.argtypes = [p, i, p, i, p, p, ll, i, i, i, i, i, ll, p]
@@ -155,7 +175,7 @@ def check(code: int, what: str) -> None:
     """Raise when a launch reported a CUDA error."""
     if code != 0:
         msg = lib().rt_error_string(code).decode()
-        raise RuntimeError(f'{what}: CUDA error {code} ({msg})')
+        raise KernelError(f'{what}: CUDA error {code} ({msg})')
 
 
 def stream() -> int:
@@ -264,7 +284,7 @@ def rows16(dtype: torch.dtype, k: int, ptr: int) -> bool:
 
 def require(cond: bool, msg: str) -> None:
     if not cond:
-        raise ValueError(msg)
+        raise KernelRefusal(msg)
 
 
 def device_of(*xs: torch.Tensor) -> str:
@@ -282,5 +302,5 @@ def device_of(*xs: torch.Tensor) -> str:
 def require_no_grad(name: str, *xs: torch.Tensor) -> None:
     """Raise where a forward-only kernel would be asked for a gradient."""
     if torch.is_grad_enabled() and any(x.requires_grad for x in xs):
-        raise RuntimeError(f'{name} is a forward-only kernel: run it under '
+        raise KernelRefusal(f'{name} is a forward-only kernel: run it under '
                            'torch.no_grad() or torch.inference_mode()')

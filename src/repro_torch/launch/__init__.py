@@ -1,1 +1,2 @@
-"""Step functions of the port: the serving prefill so far."""
+"""Entry points of the port: the serving prefill (``steps``) and the
+problem routes of the training CLI (``train``)."""

@@ -25,6 +25,10 @@ The seventh slice's block paths (iMAML's vmapped backward over a shared
 sketch, influence's (p, 32) query block) are held to the same plain
 versions in f64 at the same 1e-4, and must launch exactly one cross and
 one block apply each (``refine=0``: one Woodbury pass).
+
+The serving tier's flushes (the eighth slice) are held to the same service
+on ``backend='flat'`` at the same 1e-4 of max |score|, with the launches
+of a cold m = 1 flush and a warm m = 4 flush counted exactly.
 """
 import ctypes
 import math
@@ -716,3 +720,58 @@ def test_influence_block_is_one_cross_and_one_block_apply(cuda):
     assert torch.equal(got.indices[apart], want.indices[apart])
     torch.testing.assert_close(got.self_scores, want.self_scores, rtol=1e-4,
                                atol=0)
+
+
+def test_service_flushes_through_the_kernels_match_flat(cuda):
+    """The serving tier at the influence task's full width (p = 26,122),
+    Nyström k = 10: a cold m = 1 flush (the sketch build: one gram; the
+    vector apply with ``refine=1``: three ctv and two vector applies), then
+    a warm m = 4 flush (three crosses and two block applies, no gram),
+    against the same service on ``backend='flat'``, which launches nothing:
+    scores within 1e-4 of max |score|, top-k indices equal wherever the
+    neighbouring scores are apart, no degraded flush."""
+    from repro_torch.core import HypergradConfig
+    from repro_torch.serve import InfluenceService
+    from repro_torch.tasks import build_influence
+    problem = build_influence(device=cuda)
+    params = problem.init_params(torch.Generator().manual_seed(0))
+    X, y = problem.reference['queries'](5)
+    runs = {}
+    for be in ('cuda', 'flat'):
+        svc = InfluenceService(problem, HypergradConfig(k=10, rho=1e-2,
+                                                        backend=be),
+                               params=params, top_k=10, block_size=1,
+                               max_delay=60.0)
+        _lib.reset_launches()
+        tickets = [svc.submit((X[0], y[0]))]
+        assert svc.pump() == 1
+        torch.cuda.synchronize()
+        cold = dict(_lib.LAUNCHES)
+        _lib.reset_launches()
+        svc.batcher.block_size = 4
+        tickets += [svc.submit((X[q], y[q])) for q in range(1, 5)]
+        assert svc.pump() == 4
+        torch.cuda.synchronize()
+        warm = dict(_lib.LAUNCHES)
+        answers = [svc.result(t) for t in tickets]
+        assert [a.batched_m for a in answers] == [1, 4, 4, 4, 4]
+        assert [a.cache_hit for a in answers] == [False] + [True] * 4
+        assert svc.degraded_flushes == 0
+        runs[be] = answers, cold, warm
+    (got, cold, warm), (want, *plain) = runs['cuda'], runs['flat']
+    names = ('nystrom_gram', 'woodbury_ctv', 'woodbury_apply',
+             'nystrom_cross', 'woodbury_apply_block')
+    assert tuple(cold[n] for n in names) == (1, 3, 2, 0, 0)
+    assert tuple(warm[n] for n in names) == (0, 0, 0, 3, 2)
+    assert not any(v for launches in plain for v in launches.values())
+    v = torch.stack([a.scores for a in want])
+    scale = float(v.abs().max())
+    got_v = torch.stack([a.scores for a in got])
+    assert float((got_v - v).abs().max()) <= 1e-4 * scale
+    gap = torch.full_like(v, math.inf)
+    gap[:, 1:] = (v[:, 1:] - v[:, :-1]).abs()
+    gap[:, :-1] = torch.minimum(gap[:, :-1], gap[:, 1:].clone())
+    apart = gap > 1e-5 * scale
+    got_i = torch.stack([a.indices for a in got])
+    want_i = torch.stack([a.indices for a in want])
+    assert torch.equal(got_i[apart], want_i[apart])

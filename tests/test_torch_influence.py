@@ -1,7 +1,7 @@
 """The port's one-shot influence path against the reference's:
 per-example gradients, the streamed top-k scanner (with ties), training,
 ``influence`` end to end with self-influence (Nyström through the kernels'
-plain versions, and the exact solver), and the refusal of ``store=``.
+plain versions, and the exact solver), and ``store=`` honoured.
 
 The reference's trained parameters and column draw are injected. Sizes:
 ``build_influence(d=8, width=16)`` (p = 586, 1,200 training examples),
@@ -13,7 +13,6 @@ parameters 1e-5 (20 SGD steps).
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from repro.core.hypergrad import HypergradConfig as JConfig
@@ -207,7 +206,17 @@ def test_exact_solver_matches_reference():
 
 
 def test_store_is_refused_not_ignored():
+    """``store=`` is honoured, not ignored: the call's sketch lands in the
+    store under its content key, billed k HVPs, and a second call is a
+    warm hit that bills none (the serving tier's cases are in
+    ``tests/test_torch_serve.py``)."""
+    from repro_torch.serve import SketchStore, sketch_key
     tp = build_influence(**TOY, device='cpu')
-    with pytest.raises(NotImplementedError, match='store'):
-        influence(tp, HypergradConfig(k=2), tp.reference['queries'](2),
-                  store=object(), device='cpu')
+    params = tp.init_params(torch.Generator().manual_seed(0))
+    store = SketchStore()
+    solver = HypergradConfig(k=2).build()
+    runs = [influence(tp, solver, tp.reference['queries'](2), params=params,
+                      store=store, device='cpu') for _ in range(2)]
+    assert store.keys() == [sketch_key(params, solver)]
+    assert [r.hvp_count for r in runs] == [2, 0]
+    assert store._entries[store.keys()[0]].build_hvps == 2

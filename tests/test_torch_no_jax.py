@@ -1,6 +1,7 @@
-"""The port stands alone: every module of ``repro_torch`` imports with
-``jax`` and ``repro`` blocked, and its entry points refuse to drop to the
-CPU on their own."""
+"""The port stands alone: every module of ``repro_torch`` (the serving
+tier, checkpoints and the training CLI included) imports with ``jax`` and
+``repro`` blocked, and its entry points refuse to drop to the CPU on their
+own."""
 import os
 import pkgutil
 import subprocess
@@ -45,6 +46,11 @@ from repro_torch.launch.steps import build_prefill_step
 from repro_torch.models import build_model
 from repro_torch.models.transformer import init_params
 from repro_torch.tasks import build_logreg_weight_decay
+from repro_torch.checkpoint import (CheckpointManager, params_digest, restore,
+                                    save)
+from repro_torch.serve import (InfluenceService, QueryBatcher, SketchStore,
+                               calibrate_block_size, sketch_key)
+from repro_torch.launch.train import main as train_main
 problem = build_logreg_weight_decay(D=5, n=8, device='cpu')
 if not torch.cuda.is_available():
     w = {'w': torch.zeros(5)}
@@ -68,6 +74,8 @@ if not torch.cuda.is_available():
             ('solve(vmap_tasks)', lambda: solve(
                 build_imaml(width=2, image_size=4, device='cpu'),
                 HypergradConfig(k=2), n_outer=1, vmap_tasks=2)),
+            ('launch.train', lambda: train_main(['--problem', 'influence',
+                                                 '--serve'])),
             ('hypergrad_at', lambda: hypergrad_at(
                 problem, HypergradConfig(k=2, backend='cuda'), w,
                 {'wd': torch.ones(5)}, problem.data.train_batch(0, 4),
