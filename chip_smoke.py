@@ -189,6 +189,29 @@ top 10, the same 32 queries:
     flush at m = 1, 3 crosses and 2 block applies a flush at m ≥ 2
     (kernel C), and warmup()'s 4 applies a width.
 
+Second order and the multi-level engine (the ninth slice), every edge and
+map through the kernels (``backend='cuda'``) against ``backend='flat'`` on
+the card:
+
+17. (a) ``jacfwd(grad)`` and ``jacrev(grad)`` through ``implicit_root`` on a
+    non-quadratic toy (inner ``0.5‖x‖² + 0.025‖x‖₄⁴·Σexp(φ) − (Aφ)·x``,
+    outer ``‖x − 1‖²``, 200 SGD steps), full-rank Nyström (k = 4,
+    ρ = 1e-2): relative L2 ≤ 1e-4, kernels A, B and C each launched inside
+    the rules. (b) ``distill_hpo`` and ``reweight_maml`` at the registry
+    defaults, ``ENGINE_STEPS`` = 3 outer steps (seconds per step,
+    launches): top losses within 1e-4 relative, ``edge_hvps`` equal to
+    ``engine_edge_bills``, ``engine_hypergrad`` against the port's dense
+    oracle within ``ENGINE_HG_BOUND`` (the reference's own error at the
+    same settings, measured on the CPU by
+    ``tests/test_torch_engine_bounds.py``) and against ``'flat'`` within
+    1e-4. (c) ``distill_hpo(**STREAM_KW)``, images p = 18,000 and k = 10:
+    a warm-up step under ``torch.profiler`` (device time of its kernels,
+    card-only trace) and ``STREAM_TIMED`` timed step(s): seconds per step,
+    launches per step, the device idle share (the warm-up's device time
+    against the unprofiled step), peak device memory; gated on the top
+    losses and on the top gradient at the final values (``top_gradient``,
+    each run's live sketches) within 1e-4.
+
 The line before the last is the kernels' JSON record (seven rows, kernel
 E's the tensor-core variant at the prefill's own call; rows 1–5 also
 carry their p = 2²⁴ f32 and bf16 times under ``p24`` and the p = 2²⁰
@@ -198,7 +221,9 @@ path's variant; rows 1, 3 and 4 carry the launches of phase 11's two
 Nyström runs under ``distillation_launches``, rows 2 and 3 phase 12's
 record under ``alg1_p24``, rows 1–5 the launches of phases 13–15 under
 ``imaml_launches_per_meta_step``, ``forward_mode_launches`` and
-``influence_launches``, and phase 16's by pass under ``serve_launches``);
+``influence_launches``, phase 16's by pass under ``serve_launches``, and
+phase 17's under ``engine_launches``: (a), each graph of (b), and (c) per
+timed step);
 the last
 line is ``{"ok": true, "device": {...}}``; standard error ends with the
 seconds each phase took and the whole run's. Without a CUDA device, or
@@ -1584,6 +1609,249 @@ def run_serving(torch, smi, problem, params, idx, want) -> dict:
     return launches
 
 
+ENGINE_STEPS = 3
+# The bound of phase 17 (b)'s oracle gate: the error of the reference's own
+# engine_hypergrad against its engine_hypergrad_reference (rho = 0) on each
+# registered graph at the registry defaults, after Engine().solve with
+# EngineConfig(n_outer=3), measured on the CPU by
+# tests/test_torch_engine.py and tests/test_torch_engine_distill.py
+# (test_chip_bound_is_the_reference_error). At distill_hpo's defaults the
+# reference's full-rank sketch and its dense oracle part ways (4.25 against
+# 0.0907), so that bound holds the port to little: there the gate that
+# binds is the kernels against backend='flat'.
+ENGINE_HG_BOUND = {'reweight_maml': 4.36e-4, 'distill_hpo': 45.9}
+# phase 17 (c): a sketch that streams (images p = 2000 x 9 = 18,000, k = 10)
+STREAM_KW = dict(n_syn=2000, n_train=1024, n_val=1024, k_student=10,
+                 k_images=10, rho=0.1)
+STREAM_P = 18000
+# a step there is some 15 s of host dispatch on an H100: one timed step,
+# not two, keeps (c) as near a minute as it comes without cutting a width
+STREAM_TIMED = 1
+
+
+def _on_backend(graph, backend: str):
+    """The graph with every edge's config on ``backend`` (a plain dataclass
+    swap: no knob of the graph's own)."""
+    return dataclasses.replace(graph, edges=[
+        dataclasses.replace(e, config=dataclasses.replace(e.config,
+                                                          backend=backend))
+        for e in graph.edges])
+
+
+def _kernels_of_rules(label: str, launches: dict) -> None:
+    """Kernels A (gram or cross), B (ctv) and C (vector or block apply)
+    must each have launched."""
+    groups = {'A': ('nystrom_gram', 'nystrom_cross'), 'B': ('woodbury_ctv',),
+              'C': ('woodbury_apply', 'woodbury_apply_block')}
+    missing = [k for k, names in groups.items()
+               if not any(launches.get(n) for n in names)]
+    if missing:
+        raise AssertionError(f'{label}: kernel(s) {missing} never launched: '
+                             f'{launches}')
+
+
+def run_second_order(torch, dev) -> dict:
+    """Phase 17 (a): jacfwd(grad) and jacrev(grad) through ``implicit_root``
+    on the non-quadratic toy, full-rank Nystrom (k = 4, rho = 1e-2) on
+    ``backend='cuda'`` against ``backend='flat'`` on the card. Returns the
+    kernels' launches."""
+    import numpy as np
+    from torch.func import grad, jacfwd, jacrev
+    from repro_torch.core import HypergradConfig, implicit_root, sgd_solver
+    from repro_torch.kernels import _lib
+    A = torch.from_numpy(np.random.RandomState(0).randn(4, 4).astype(
+        np.float32)).to(dev)
+
+    def inner(x, phi, b):
+        return (0.5 * torch.sum(x ** 2)
+                + 0.025 * torch.sum(x ** 4) * torch.sum(torch.exp(phi))
+                - (A @ phi) @ x)
+
+    def outer(backend):
+        solve = implicit_root(
+            sgd_solver(inner, 200, 0.2,
+                       init=lambda p, b: torch.zeros(4, device=dev)),
+            inner, HypergradConfig(solver='nystrom', k=4, rho=1e-2,
+                                   backend=backend))
+        return lambda p: torch.sum((solve(p, None) - 1.0) ** 2)
+
+    phi = torch.full((4,), 0.1, device=dev)
+    got = {}
+    for backend in ('flat', 'cuda'):
+        f = outer(backend)
+        torch.cuda.synchronize()
+        _lib.reset_launches()
+        t0 = time.perf_counter()
+        got[backend] = {'jacfwd(grad)': jacfwd(grad(f))(phi),
+                        'jacrev(grad)': jacrev(grad(f))(phi)}
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {n: c for n, c in _lib.LAUNCHES.items() if c}
+    for kind, H in got['cuda'].items():
+        want = got['flat'][kind]
+        err = float((H - want).norm() / want.norm())
+        if not (err <= 1e-4 and bool(torch.isfinite(H).all())):
+            raise AssertionError(f'second order {kind}: cuda vs flat rel L2 '
+                                 f'{err:.3e}')
+        print(f'second order: {kind} of the toy through implicit_root, '
+              f'cuda vs flat rel L2 {err:.3e} (<= 1e-4), max |H| '
+              f'{float(H.abs().max()):.4f}, asymmetry max |H - H^T| '
+              f'{float((H - H.T).abs().max()):.4f}', flush=True)
+    _kernels_of_rules('second order', launches)
+    print(f'second order: both derivatives through the kernels in '
+          f'{secs:.3f} s, launches {launches}', flush=True)
+    return launches
+
+
+def run_engine_graphs(torch, dev) -> dict:
+    """Phase 17 (b): both registered graphs at the registry defaults, every
+    edge on ``backend='cuda'``, ``ENGINE_STEPS`` outer steps, against the
+    same on ``backend='flat'``; the bills; ``engine_hypergrad`` against the
+    port's dense oracle. Returns the kernels' launches by graph."""
+    from repro_torch.core import hypergrad_error
+    from repro_torch.engine import (Engine, EngineConfig, engine_edge_bills,
+                                    engine_hypergrad,
+                                    engine_hypergrad_reference, get_graph)
+    from repro_torch.kernels import _lib
+    launches = {}
+    for name in ('distill_hpo', 'reweight_maml'):
+        base = get_graph(name)
+        runs = {}
+        for backend in ('cuda', 'flat'):
+            graph = _on_backend(base, backend)
+            torch.cuda.synchronize()
+            _lib.reset_launches()
+            res = Engine().solve(graph, EngineConfig(n_outer=ENGINE_STEPS))
+            torch.cuda.synchronize()
+            if backend == 'cuda':
+                launches[name] = {n: c for n, c in _lib.LAUNCHES.items()
+                                  if c}
+            runs[backend] = (graph, res)
+        (g, res), (gf, resf) = runs['cuda'], runs['flat']
+        _kernels_of_rules(f'engine {name}', launches[name])
+        if not all(map(math.isfinite, res.losses)):
+            raise AssertionError(f'engine {name}: losses {res.losses}')
+        loss_err = max(abs(a - b) / abs(b)
+                       for a, b in zip(res.losses, resf.losses))
+        if not loss_err <= 1e-4:
+            raise AssertionError(f'engine {name}: top losses cuda '
+                                 f'{res.losses} vs flat {resf.losses}')
+        bills = engine_edge_bills(g, n_outer=ENGINE_STEPS)
+        if res.edge_hvps != bills:
+            raise AssertionError(f'engine {name}: bills {res.edge_hvps} vs '
+                                 f'{bills}')
+        hg, _ = engine_hypergrad(g, res.values)
+        hgf, _ = engine_hypergrad(gf, res.values)
+        oracle, _ = engine_hypergrad_reference(g, res.values)
+        err = float(hypergrad_error(hg, oracle))
+        be_err = float(hypergrad_error(hg, hgf))
+        if not (err <= ENGINE_HG_BOUND[name] and be_err <= 1e-4):
+            raise AssertionError(
+                f'engine {name}: hypergradient vs oracle {err:.3e} (bound '
+                f'{ENGINE_HG_BOUND[name]}), cuda vs flat {be_err:.3e}')
+        print(f'engine {name}: {res.seconds / ENGINE_STEPS:.4f} s/outer step '
+              f'on cuda ({resf.seconds / ENGINE_STEPS:.4f} on flat), top '
+              f'loss {[round(x, 6) for x in res.losses]}, cuda vs flat '
+              f'{loss_err:.3e} (<= 1e-4), bills {res.edge_hvps}, '
+              f'hypergradient vs the port\'s oracle {err:.3e} (<= the '
+              f"reference's {ENGINE_HG_BOUND[name]}), cuda vs flat "
+              f'{be_err:.3e} (<= 1e-4), launches {launches[name]}',
+              flush=True)
+    return launches
+
+
+def _kernel_ms(torch, fn):
+    """(ms of device time, kernels) of one call of ``fn`` under
+    ``torch.profiler`` tracing the card alone, summed from the raw events:
+    an outer step of the engine launches some 10⁵ kernels, and the CPU-side
+    trace and its parsed events would cost minutes. None where the profiler
+    saw no kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ns = [e.duration_ns() for e in prof.profiler.kineto_results.events()
+          if e.device_type() == DeviceType.CUDA
+          and not e.is_user_annotation()]
+    return (sum(ns) / 1e6, len(ns)) if ns else None
+
+
+def run_engine_stream(torch, dev) -> dict:
+    """Phase 17 (c): ``distill_hpo(**STREAM_KW)`` (images p = 18,000,
+    k = 10) on ``backend='cuda'``: a profiled warm-up step and
+    ``STREAM_TIMED`` timed outer steps, against ``backend='flat'`` on the
+    losses and the top gradient at the final values (each run's live
+    sketches). Returns the launches per timed step."""
+    from repro_torch.core import hypergrad_error, tree_leaves
+    from repro_torch.engine import Engine, EngineConfig, get_graph
+    from repro_torch.kernels import _lib
+    base = get_graph('distill_hpo', **STREAM_KW)
+    p = sum(x.numel() for x in tree_leaves(base.nodes['images'].init(
+        torch.Generator())))
+    if p != STREAM_P:
+        raise AssertionError(f'images has p={p}, expected {STREAM_P}')
+    n_steps = 1 + STREAM_TIMED
+    out = {}
+    for backend in ('cuda', 'flat'):
+        graph = _on_backend(base, backend)
+        program = Engine().lower(graph, EngineConfig(n_outer=n_steps))
+        carry = program.init()
+        losses, secs, busy = [], [], None
+        for i in range(n_steps):
+            torch.cuda.synchronize()
+            if i == 1:
+                torch.cuda.reset_peak_memory_stats()
+                _lib.reset_launches()
+            t0 = time.perf_counter()
+            if i == 0 and backend == 'cuda':   # the warm-up, profiled
+                result = []
+                busy = _kernel_ms(torch, lambda: result.append(
+                    program.step(carry, i)))
+                carry, loss = result[0]
+            else:
+                carry, loss = program.step(carry, i)
+            losses.append(float(loss))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        launches = {n: c / STREAM_TIMED for n, c in _lib.LAUNCHES.items()
+                    if c}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        out[backend] = (program, carry, losses, secs, launches, peak, busy)
+    program, carry, losses, secs, launches, peak, busy = out['cuda']
+    losses_f, secs_f = out['flat'][2:4]
+    _kernels_of_rules('engine stream', launches)
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses, losses_f))
+    # the top gradient at the final values against each run's live sketches
+    hg, _ = program.top_gradient(carry[0])
+    hgf, _ = out['flat'][0].top_gradient(carry[0])
+    hg_err = float(hypergrad_error(hg, hgf))
+    finite = all(map(math.isfinite, losses)) and all(
+        bool(torch.isfinite(x).all()) for x in tree_leaves(hg))
+    if not (finite and loss_err <= 1e-4 and hg_err <= 1e-4):
+        raise AssertionError(f'engine stream: losses cuda {losses} vs flat '
+                             f'{losses_f}, top gradient {hg_err:.3e}')
+    step_s = sum(secs[1:]) / STREAM_TIMED
+    print(f'engine stream: distill_hpo images p={STREAM_P} k=10, '
+          f'{step_s:.4f} s/outer step on cuda over {STREAM_TIMED} timed '
+          f'step(s) (profiled warm-up {secs[0]:.4f} s; flat '
+          f'{sum(secs_f[1:]) / STREAM_TIMED:.4f}), top loss '
+          f'{[round(x, 6) for x in losses]} (the reference on its data: '
+          f'0.50845, 0.50856, 0.5095), cuda vs flat {loss_err:.3e} '
+          f'(<= 1e-4), top gradient {hg_err:.3e} (<= 1e-4), peak device '
+          f'memory {peak:.1f} MiB, launches per step {launches}', flush=True)
+    if busy is None:
+        print('engine stream: the profiler recorded no device events; '
+              'device time not measured', flush=True)
+    else:
+        ms, n = busy
+        print(f'engine stream: the profiled warm-up step ran {n} kernels, '
+              f'{ms:.3f} ms of device time, against an unprofiled '
+              f'{step_s * 1e3:.3f} ms step: device idle '
+              f'{100 * (1 - ms / (step_s * 1e3)):.1f}%', flush=True)
+    return launches
+
+
 PHASE_STARTS: list[tuple[str, float]] = []   # (phase, perf_counter)
 
 
@@ -1758,6 +2026,12 @@ def main() -> None:
     _phase('16')
     serve_launches = run_serving(torch, smi, *served)
 
+    # 17. the multi-level engine through kernels A-C ------------------------
+    _phase('17')
+    second_launches = run_second_order(torch, dev)
+    engine_launches = run_engine_graphs(torch, dev)
+    stream_launches = run_engine_stream(torch, dev)
+
     # records -----------------------------------------------------------------
     _phase('records')
     records = []
@@ -1787,6 +2061,11 @@ def main() -> None:
             rec['serve_launches'] = {
                 label: runs.get(kname, 0)
                 for label, runs in serve_launches.items()}
+            rec['engine_launches'] = {
+                'second_order': second_launches.get(kname, 0),
+                **{name: runs.get(kname, 0)
+                   for name, runs in engine_launches.items()},
+                'stream_per_step': stream_launches.get(kname, 0)}
         if kname in large['float32']:   # rows 1-5 at p = 2^24 and 2^20
             for key, runs in (('p24', large), ('p20', f1)):
                 rec[key] = {dt: _p24(recs[kname])

@@ -22,20 +22,31 @@ from repro_torch.core.tree_util import (PyTree, PyTreeIndexer, tree_axpy,
 LossFn = Callable[..., torch.Tensor]  # loss(params, *args) -> scalar
 
 
-def make_hvp(loss_fn: LossFn, params: PyTree, *args) -> Callable[[PyTree], PyTree]:
-    """v ↦ (∇²_θ loss) v, forward-over-reverse: ``jvp`` of ``grad``.
+class HVP:
+    """v ↦ (∇²_θ loss) v at (params, *args), forward-over-reverse: ``jvp`` of
+    ``grad``. One extra forward pass over plain ``grad``, with backprop's
+    memory profile.
 
-    One extra forward pass over plain ``grad``, with backprop's memory
-    profile. ``params`` is rebuilt in JAX's leaf order (dict keys sorted),
-    the order of the one-hot tangents ``extract_columns`` makes: ``jvp``
-    refuses a tangent whose dict keys come in another order."""
-    params = tree_map(lambda x: x, params)
-    grad_fn = grad(loss_fn)
+    It keeps its operands (``loss_fn``, ``params``, ``args``) so that a
+    solve against it (:func:`~repro_torch.core.solvers.tangent_apply`) can
+    differentiate the system through ``args``. ``params`` is rebuilt in
+    JAX's leaf order (dict keys sorted), the order of the one-hot tangents
+    ``extract_columns`` makes: ``jvp`` refuses a tangent whose dict keys
+    come in another order."""
 
-    def hvp(v: PyTree) -> PyTree:
-        return jvp(lambda p: grad_fn(p, *args), (params,), (v,))[1]
+    def __init__(self, loss_fn: LossFn, params: PyTree, args: tuple):
+        self.loss_fn, self.args = loss_fn, tuple(args)
+        self.params = tree_map(lambda x: x, params)
+        self._grad = grad(loss_fn)
 
-    return hvp
+    def __call__(self, v: PyTree) -> PyTree:
+        return jvp(lambda p: self._grad(p, *self.args), (self.params,),
+                   (v,))[1]
+
+
+def make_hvp(loss_fn: LossFn, params: PyTree, *args) -> HVP:
+    """v ↦ (∇²_θ loss) v at (params, *args): an :class:`HVP`."""
+    return HVP(loss_fn, params, args)
 
 
 def extract_columns(hvp: Callable[[PyTree], PyTree],

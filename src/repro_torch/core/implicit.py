@@ -7,23 +7,35 @@ function theorem at the point the solver returns:
 * reverse mode: the φ-cotangent of θ*(φ) is −(∂²f/∂φ∂θ)ᵀ (H+ρI)⁻¹ v, with
   the solver's ``prepare``/``apply`` and one VJP through the inner gradient;
 * forward mode (``forward_mode=True``, the default): the φ-tangent is
-  −(H+ρI)⁻¹ (∂²f/∂θ∂φ) φ̇, the same solver applied through
-  :func:`~repro_torch.core.solvers.tangent_apply`.
+  −(H+ρI)⁻¹ (∂²f/∂θ∂φ) φ̇, the same solver.
 
 The map is a ``torch.autograd.Function``, so the hypergradient (Eq. 3) is
 plain ``torch.autograd.grad`` (or ``torch.func.grad``) of ``g(θ*(φ), φ)``,
 and ``torch.func.jvp`` gives the oracle tangent dθ*/dφ · φ̇.
 
+Both rules are differentiable again, as the reference's are (its jvp rule
+re-enters itself): the mixed term is plain PyTorch at live φ, and the solve
+is :func:`~repro_torch.core.solvers.linear_solve`, whose own rules are
+solve(ẇ − Ḣ·u) forward and the transposed solve backward. So
+``jacfwd(grad)``, ``jacrev(grad)``, ``hessian`` and an HVP of a loss that
+contains the map (jvp of grad: the multi-level engine's nested maps) take
+the reference's convention (AID): θ* and the solver state are frozen, φ is
+live in the mixed term and in the solve's system matvec. Forward over
+forward (``jacfwd(jacfwd(map))``) raises: PyTorch runs a Function's jvp
+rule with forward-mode AD off; ``jacrev(jacfwd(map))`` gives that
+derivative.
+
 ``torch.func.vmap`` over a task axis gives per-task hypergradients (iMAML's
 meta-batches). The solver's CUDA kernels read raw device pointers, which a
-batched tensor does not have, so every step that can reach them runs inside
-the forward of a Function with a ``vmap`` rule: the rule moves the task axis
-to the front of plain tensors and runs a *task-batched* version. With a
-state shared across tasks (``state=`` closed over by the vmapped function),
-the n tasks' right-hand sides become one (p, n) block and one
-``apply_matrix`` (kernel A's cross and kernel C's block form); without one,
-each task prepares and applies its own sketch. The inner solver and the
-mixed-term VJP run under ``torch.func.vmap`` across tasks.
+batched tensor does not have, so the solver only runs inside the forward
+of a Function with a ``vmap`` rule (the map's and the solve's): the rule
+moves the task axis to the front of plain tensors and runs a
+*task-batched* version. With a state shared across tasks (``state=``
+closed over by the vmapped function, or a point without the task axis),
+the n right-hand sides become one (p, n) block and one ``apply_matrix``
+(kernel A's cross and kernel C's block form); otherwise each task prepares
+and applies its own sketch. The inner solver and the mixed terms run under
+``torch.func.vmap`` across tasks.
 
 Example — a quadratic inner problem with an analytic solution map
 (``f = ½·Σ d·θ² − θ·φ`` has ``θ*(φ) = φ/d``, so ``dθ*/dφ = 1/d``):
@@ -66,6 +78,8 @@ import torch
 from torch.func import grad, jvp, vmap
 
 from repro_torch.core.hvp import make_hvp
+from repro_torch.core.solvers import (_detached, _save, _saved, _zeros_for,
+                                      forward_rule, linear_solve)
 from repro_torch.core.tree_util import (PyTree, PyTreeIndexer, TreeDef,
                                         tree_flatten, tree_leaves, tree_map,
                                         tree_scale)
@@ -110,37 +124,6 @@ def _prepared(solver, inner_loss, theta, phi, batch, rng, state, indices):
     return solver.prepare(hvp, PyTreeIndexer(theta), rng, indices=indices)
 
 
-def _implicit_phi_vjp(solver, inner_loss: InnerLoss, theta: PyTree,
-                      phi: PyTree, batch: Any, v: PyTree, rng,
-                      state, indices: dict | None = None) -> PyTree:
-    """The φ-cotangent of θ*(φ): −(∂²f/∂φ∂θ)ᵀ (H+ρI)⁻¹ v.
-
-    ``state`` is an optional pre-built solver state; when absent the
-    solver's ``prepare`` runs here (k HVPs), sampling with ``rng`` or taking
-    the injected ``indices``."""
-    state = _prepared(solver, inner_loss, theta, phi, batch, rng, state,
-                      indices)
-    u = tree_map(torch.Tensor.detach, solver.apply(state, v))
-    return _mixed_vjp(inner_loss, theta, phi, batch, u)
-
-
-def _implicit_phi_tangent(solver, inner_loss: InnerLoss, theta: PyTree,
-                          phi: PyTree, batch: Any, phi_dot: PyTree, rng,
-                          state, indices: dict | None = None) -> PyTree:
-    """The φ-tangent of θ*(φ): −(H+ρI)⁻¹ (∂²f/∂θ∂φ) φ̇, the forward-mode
-    mirror of :func:`_implicit_phi_vjp` (the stationarity condition
-    ∇_θ f(θ*(φ), φ) = 0 differentiated along φ̇), solved with the same
-    ``apply`` through :func:`~repro_torch.core.solvers.tangent_apply`. The
-    linearization point and the state are frozen: AID differentiates the
-    implicit map, never the sketch."""
-    from repro_torch.core.solvers import tangent_apply
-    state = _prepared(solver, inner_loss, theta, phi, batch, rng, state,
-                      indices)
-    m_dot = _mixed_jvp(inner_loss, theta, phi, batch, phi_dot)
-    hvp = make_hvp(inner_loss, theta, phi, batch)
-    return tree_scale(tangent_apply(solver, state, hvp, m_dot), -1.0)
-
-
 def phi_vjp_block(solver, inner_loss: InnerLoss, theta: PyTree,
                   phi: PyTree, batch: Any, V: PyTree, rng=None,
                   state=None, *, indices: dict | None = None) -> PyTree:
@@ -166,10 +149,10 @@ def phi_vjp_block(solver, inner_loss: InnerLoss, theta: PyTree,
 class _Spec:
     """Everything a solution-map Function needs besides its tensors.
 
-    A Function's operands are flat: φ's leaves, the batch's leaves, the
-    injected index draw (``leaf``, ``dims``) when there is one, then — for
-    the derivative rules — θ's leaves and the cotangent's (or φ̇'s) leaves.
-    ``tasks`` is None, or the task count of a batched call, where
+    The map's operands are flat: φ's leaves, the batch's leaves, and the
+    injected index draw (``leaf``, ``dims``) when there is one; its rules
+    extend that layout with θ's leaves and a cotangent's (or tangent's)
+    leaves. ``tasks`` is None, or the task count of a batched call, where
     ``batched[i]`` says whether operand i carries the leading task axis (an
     operand without it is shared by every task)."""
     inner_solver_fn: InnerSolver
@@ -198,10 +181,6 @@ class _Spec:
         return (self.phi_def.unflatten(ops[:a]),
                 self.batch_def.unflatten(ops[a:b]), idx)
 
-    def task(self, ops, b: int) -> list:
-        """Task b's operands: the b-th slice where an operand has the axis."""
-        return [x[b] if t else x for x, t in zip(ops, self.batched)]
-
     def over_tasks(self, fn, ops) -> tuple:
         """``fn(*operands)`` → tuple of tensors, for every task at once
         under ``torch.func.vmap``."""
@@ -209,145 +188,58 @@ class _Spec:
         return vmap(fn, in_dims=dims)(*ops)
 
 
-def _detached(args) -> list:
-    return [a.detach() if isinstance(a, torch.Tensor) else a for a in args]
+def _frozen(tree: PyTree) -> PyTree:
+    return tree_map(lambda x: x.detach() if isinstance(x, torch.Tensor)
+                    else x, tree)
 
 
-def _save(ctx, args, forward: bool) -> None:
-    """Save a Function's operands: tensors through the context (for the
-    backward pass, and for the jvp when ``forward``), the rest as is."""
-    tensors = [a if isinstance(a, torch.Tensor) else None for a in args]
-    ctx.others = [None if isinstance(a, torch.Tensor) else a for a in args]
-    ctx.save_for_backward(*tensors)
-    if forward:
-        ctx.save_for_forward(*tensors)
+def _ihvp(spec: _Spec, ops: list, theta: list, w: list) -> list:
+    """u = (H + ρI)⁻¹ w at (θ, φ, batch): the solve of both rules, through
+    :func:`~repro_torch.core.solvers.linear_solve`. θ, the batch and the
+    state are frozen, φ is live: the solve differentiates through the
+    system matvec in φ (the reference's ``custom_linear_solve``). Without a
+    shared ``state`` the solver prepares at (θ, φ, batch) once per call
+    (per task where the point is batched), with ``rng`` or the injected
+    draw, and the rules' own solves re-apply that state."""
+    n = spec.n_map
+
+    def unpack(point):
+        phi, batch, idx = spec.trees(point[:n])
+        return spec.theta_def.unflatten(point[n:]), (phi, _frozen(batch)), idx
+
+    def prepare(th, args, idx):
+        return _prepared(spec.solver, spec.inner_loss, th, *args, spec.rng,
+                         None, idx)
+
+    live = (True,) * spec.n_phi + (False,) * (n - spec.n_phi + len(theta))
+    batched = (spec.batched + (True,) * len(w) if spec.tasks is not None
+               else ())
+    return linear_solve(spec.solver, spec.state, spec.inner_loss,
+                        [*ops, *theta], unpack, live,
+                        spec.theta_def.unflatten(w), prepare=prepare,
+                        tasks=spec.tasks, batched=batched)
 
 
-def _saved(ctx) -> list:
-    return [t if o is None else o
-            for t, o in zip(ctx.saved_tensors, ctx.others)]
+def _mixed(spec: _Spec, fn, ops: list, theta: list, x: list, x_def,
+           x_batched: tuple, like: list) -> list:
+    """``fn(inner_loss, θ, φ, batch, x)`` — the mixed term of a rule — at
+    frozen θ and batch and live φ, over every task where the spec is
+    task-batched, in the dtypes of ``like``'s leaves (a forward-mode
+    formula of PyTorch's may widen a tangent to f64)."""
+    n, nt = spec.n_map, len(theta)
 
-
-def _vmap_rule(fn_cls):
-    """The ``vmap`` staticmethod of ``fn_cls``: move every batched operand's
-    axis to the front and re-apply ``fn_cls`` on plain tensors with the task
-    layout recorded in the spec (its forward then runs the task-batched
-    version). Every output carries the task axis first."""
-    def rule(info, in_dims, spec, *args):
-        if spec.tasks is not None:
-            raise NotImplementedError(
-                'implicit_root supports one vmapped task axis, not nested '
-                'vmaps')
-        ops = [a if d is None else a.movedim(d, 0)
-               for a, d in zip(args, in_dims[1:])]
-        bspec = dataclasses.replace(
-            spec, tasks=info.batch_size,
-            batched=tuple(d is not None for d in in_dims[1:]))
-        out = fn_cls.apply(bspec, *ops)
-        spec.theta_def = bspec.theta_def
-        return out, (0,) * len(out)
-    return staticmethod(rule)
-
-
-def _all_tasks(spec: _Spec, x: torch.Tensor, batched: bool) -> torch.Tensor:
-    """x with the leading task axis (a shared operand broadcast to it)."""
-    return x if batched else x.expand(spec.tasks, *x.shape)
-
-
-def _ihvp_tasks(spec: _Spec, ops: list, theta: list, w: list) -> list:
-    """u_b = (H_b + ρI)⁻¹ w_b for every task b (leaves with the task axis).
-
-    A shared state serves all tasks as one (p, n) block through
-    ``apply_matrix`` (kernels A and C once); without one, each task
-    prepares its own state at its own θ (its own draw: the task's slice of
-    the index operands, or the next from ``rng``) and applies it to its
-    right-hand side."""
-    from repro_torch.core.solvers import apply_tasks
-    if spec.state is not None:
-        return apply_tasks(spec.solver, spec.state,
-                           spec.theta_def.unflatten(w))
-    us = []
-    for b in range(spec.tasks):
-        phi, batch, idx = spec.trees(spec.task(ops, b))
-        th = spec.theta_def.unflatten([x[b] for x in theta])
-        state = _prepared(spec.solver, spec.inner_loss, th, phi, batch,
-                          spec.rng, None, idx)
-        us.append(tree_leaves(spec.solver.apply(
-            state, spec.theta_def.unflatten([x[b] for x in w]))))
-    return [torch.stack(xs) for xs in zip(*us)]
-
-
-class _PhiVJP(torch.autograd.Function):
-    """The reverse-mode rule's value, −(∂²f/∂φ∂θ)ᵀ (H+ρI)⁻¹ v, as a
-    forward-only Function: operands (*map operands, *θ, *v) → φ̄'s leaves.
-    Under ``vmap`` it runs task-batched (:func:`_ihvp_tasks`)."""
-
-    @staticmethod
-    def forward(spec, *args):
-        ops, n = _detached(args), spec.n_map
-        half = n + (len(ops) - n) // 2     # θ's leaves, then v's
-        theta, v = ops[n:half], ops[half:]
-        if spec.tasks is None:
-            phi, batch, idx = spec.trees(ops[:n])
-            th = spec.theta_def.unflatten(theta)
-            return tuple(tree_leaves(_implicit_phi_vjp(
-                spec.solver, spec.inner_loss, th, phi, batch,
-                spec.theta_def.unflatten(v), spec.rng, spec.state, idx)))
-        theta = [_all_tasks(spec, x, t)
-                 for x, t in zip(theta, spec.batched[n:half])]
-        v = [_all_tasks(spec, x, t) for x, t in zip(v, spec.batched[half:])]
-        u = _ihvp_tasks(spec, ops[:n], theta, v)
+    def run(*o):
+        phi, batch, _ = spec.trees(o[:n])
+        th = spec.theta_def.unflatten([t.detach() for t in o[n:n + nt]])
+        return tuple(tree_leaves(fn(spec.inner_loss, th, phi, _frozen(batch),
+                                    x_def.unflatten(o[n + nt:]))))
+    if spec.tasks is None:
+        out = run(*ops, *theta, *x)
+    else:
         mspec = dataclasses.replace(
-            spec, batched=spec.batched[:n] + (True,) * (2 * len(theta)))
-
-        def mixed(*o):
-            phi, batch, _ = spec.trees(o[:n])
-            th = spec.theta_def.unflatten(o[n:n + len(theta)])
-            uu = spec.theta_def.unflatten(o[n + len(theta):])
-            return tuple(tree_leaves(_mixed_vjp(spec.inner_loss, th, phi,
-                                                batch, uu)))
-        return mspec.over_tasks(mixed, ops[:n] + theta + u)
-
-    @staticmethod
-    def setup_context(ctx, inputs, output):
-        pass
-
-
-class _PhiTangent(torch.autograd.Function):
-    """The forward-mode rule's value, −(H+ρI)⁻¹ (∂²f/∂θ∂φ) φ̇, as a
-    forward-only Function: operands (*map operands, *θ, *φ̇) → θ̇'s leaves.
-    Under ``vmap`` it runs task-batched (:func:`_ihvp_tasks`)."""
-
-    @staticmethod
-    def forward(spec, *args):
-        ops, n = _detached(args), spec.n_map
-        cut = len(ops) - spec.n_phi        # θ's leaves, then φ̇'s
-        theta, phi_dot = ops[n:cut], ops[cut:]
-        if spec.tasks is None:
-            phi, batch, idx = spec.trees(ops[:n])
-            return tuple(tree_leaves(_implicit_phi_tangent(
-                spec.solver, spec.inner_loss, spec.theta_def.unflatten(theta),
-                phi, batch, spec.phi_def.unflatten(phi_dot), spec.rng,
-                spec.state, idx)))
-        theta = [_all_tasks(spec, x, t)
-                 for x, t in zip(theta, spec.batched[n:])]
-        mspec = dataclasses.replace(
-            spec, batched=(spec.batched[:n] + (True,) * len(theta)
-                           + spec.batched[cut:]))
-
-        def mixed(*o):
-            phi, batch, _ = spec.trees(o[:n])
-            th = spec.theta_def.unflatten(o[n:n + len(theta)])
-            return tuple(tree_leaves(_mixed_jvp(
-                spec.inner_loss, th, phi, batch,
-                spec.phi_def.unflatten(o[n + len(theta):]))))
-        m_dot = mspec.over_tasks(mixed, ops[:n] + theta + phi_dot)
-        return tuple(-u for u in _ihvp_tasks(spec, ops[:n], theta,
-                                             list(m_dot)))
-
-    @staticmethod
-    def setup_context(ctx, inputs, output):
-        pass
+            spec, batched=spec.batched[:n] + (True,) * nt + x_batched)
+        out = mspec.over_tasks(run, [*ops, *theta, *x])
+    return [o.to(l.dtype) for o, l in zip(out, like)]
 
 
 class _SolutionMap(torch.autograd.Function):
@@ -355,9 +247,11 @@ class _SolutionMap(torch.autograd.Function):
 
     Operands: φ's leaves, the batch's leaves and the index draw; the rest
     (solver, sampling stream, a shared state) rides on the spec. The batch
-    and the draw get no gradient. Both rules call a forward-only Function,
-    so that under ``torch.func`` transforms the kernels see plain tensors.
-    The jvp rule exists where ``spec.forward_mode`` says so."""
+    and the draw get no gradient. Both rules reach the solver through
+    :func:`_ihvp` (a Function, so that under ``torch.func`` transforms the
+    kernels see plain tensors) and the mixed term through plain PyTorch,
+    so both can be differentiated again. The jvp rule exists where
+    ``spec.forward_mode`` says so."""
 
     @staticmethod
     def forward(spec, *args):
@@ -373,6 +267,25 @@ class _SolutionMap(torch.autograd.Function):
         return tuple(t.detach().clone() for t in out)
 
     @staticmethod
+    def vmap(info, in_dims, spec, *args):
+        """Move every batched operand's axis to the front and re-apply the
+        map on plain tensors with the task layout recorded in the spec (its
+        forward then runs the task-batched version); every output carries
+        the task axis first."""
+        if spec.tasks is not None:
+            raise NotImplementedError(
+                'implicit_root supports one vmapped task axis, not nested '
+                'vmaps')
+        ops = [a if d is None else a.movedim(d, 0)
+               for a, d in zip(args, in_dims[1:])]
+        bspec = dataclasses.replace(
+            spec, tasks=info.batch_size,
+            batched=tuple(d is not None for d in in_dims[1:]))
+        out = _SolutionMap.apply(bspec, *ops)
+        spec.theta_def = bspec.theta_def
+        return out, (0,) * len(out)
+
+    @staticmethod
     def setup_context(ctx, inputs, output):
         spec, *args = inputs
         ctx.spec = spec
@@ -383,15 +296,15 @@ class _SolutionMap(torch.autograd.Function):
         spec = ctx.spec
         args = _saved(ctx)
         ops, theta = args[:spec.n_map], args[spec.n_map:]
-        v = [torch.zeros_like(t) if g is None else g
-             for g, t in zip(v, theta)]
         if spec.tasks is not None:   # θ and v carry the task axis
             spec = dataclasses.replace(
-                spec, batched=spec.batched + (True,) * (2 * len(theta)))
-        phi_bar = _PhiVJP.apply(spec, *ops, *theta, *v)
+                spec, batched=spec.batched + (True,) * len(theta))
+        u = _ihvp(spec, ops, theta, _zeros_for(v, theta))
+        phi_bar = _mixed(spec, _mixed_vjp, ops, theta, u, spec.theta_def,
+                         (True,) * len(u), ops[:spec.n_phi])
         return (None, *phi_bar, *[None] * (spec.n_map - spec.n_phi))
 
-    @staticmethod
+    @forward_rule
     def jvp(ctx, _spec_dot, *dots):
         spec = ctx.spec
         if not spec.forward_mode:
@@ -400,18 +313,14 @@ class _SolutionMap(torch.autograd.Function):
                 'the reverse-mode rule only, no jvp')
         args = _saved(ctx)
         ops, theta = args[:spec.n_map], args[spec.n_map:]
-        phi = ops[:spec.n_phi]
-        phi_dot = [torch.zeros_like(p) if d is None else d
-                   for d, p in zip(dots[:spec.n_phi], phi)]
+        phi_dot = _zeros_for(dots[:spec.n_phi], ops[:spec.n_phi])
         if spec.tasks is not None:   # θ has the task axis, φ̇ φ's layout
             spec = dataclasses.replace(
-                spec, batched=(spec.batched + (True,) * len(theta)
-                               + spec.batched[:spec.n_phi]))
-        return _PhiTangent.apply(spec, *ops, *theta, *phi_dot)
+                spec, batched=spec.batched + (True,) * len(theta))
+        m_dot = _mixed(spec, _mixed_jvp, ops, theta, phi_dot, spec.phi_def,
+                       spec.batched[:spec.n_phi], theta)
+        return tuple(-u for u in _ihvp(spec, ops, theta, m_dot))
 
-
-for _fn in (_PhiVJP, _PhiTangent, _SolutionMap):
-    _fn.vmap = _vmap_rule(_fn)
 
 
 def _index_operands(indices: dict | None) -> list:

@@ -34,7 +34,7 @@ from typing import Any, Callable, ClassVar
 import torch
 
 from repro_torch.core.backend import flatten_vecm, get_backend, unflatten_vecm
-from repro_torch.core.hvp import extract_columns, make_hvp
+from repro_torch.core.hvp import HVP, extract_columns, make_hvp
 from repro_torch.core.tree_util import (PyTree, PyTreeIndexer, tree_axpy,
                                         tree_flatten, tree_flatten_with_path,
                                         tree_leaves, tree_map, tree_scale,
@@ -536,43 +536,259 @@ def apply_tasks(solver, state, W: PyTree) -> list:
     return [x.movedim(-1, 0) for x in tree_leaves(U)]
 
 
+def _detached(args) -> list:
+    return [a.detach() if isinstance(a, torch.Tensor) else a for a in args]
+
+
+def _save(ctx, args, forward: bool) -> None:
+    """Save a Function's operands: tensors through the context (for the
+    backward pass, and for the jvp when ``forward``), the rest as is."""
+    tensors = [a if isinstance(a, torch.Tensor) else None for a in args]
+    ctx.others = [None if isinstance(a, torch.Tensor) else a for a in args]
+    ctx.save_for_backward(*tensors)
+    if forward:
+        ctx.save_for_forward(*tensors)
+
+
+def _saved(ctx) -> list:
+    return [t if o is None else o
+            for t, o in zip(ctx.saved_tensors, ctx.others)]
+
+
+def _zeros_for(grads, like) -> list:
+    """(Co)tangents in the dtypes of ``like``'s leaves, zeros where None (a
+    forward-mode formula of PyTorch's may widen a tangent to f64, which the
+    kernels refuse)."""
+    return [torch.zeros_like(x) if g is None else g.to(x.dtype)
+            for g, x in zip(grads, like)]
+
+
+_RULE_LEVELS: list = []   # the forward-mode levels of the jvp rules running
+
+
+def forward_rule(jvp_rule):
+    """Wrap a Function's ``jvp`` staticmethod so that forward mode over it
+    raises instead of answering zero. PyTorch runs a jvp rule with
+    forward-mode AD off, so a forward-mode transform *outside* the one the
+    rule serves (``jacfwd(jacfwd(...))``) would see no tangent through the
+    rule's work. A forward level opened inside another rule (that rule's
+    own mixed-term jvp) is fine, and so are reverse levels (``jacrev`` of
+    ``jacfwd``, ``jacfwd`` of ``grad``)."""
+    from torch._C._functorch import TransformType
+    from torch._functorch.pyfunctorch import \
+        retrieve_all_functorch_interpreters
+
+    def rule(ctx, *dots):
+        levels = [i.level() for i in retrieve_all_functorch_interpreters()
+                  if i.key() == TransformType.Jvp]
+        if any(lv not in _RULE_LEVELS for lv in levels[:-1]):
+            raise NotImplementedError(
+                'forward mode over forward mode through a solution map '
+                '(jacfwd of jacfwd) is not available: take jacrev of '
+                'jacfwd, or jacfwd/jacrev of grad')
+        _RULE_LEVELS.append(levels[-1] if levels else None)
+        try:
+            return jvp_rule(ctx, *dots)
+        finally:
+            _RULE_LEVELS.pop()
+    return staticmethod(rule)
+
+
 @dataclasses.dataclass
 class _SolveSpec:
+    """Everything a :class:`_LinearSolve` needs besides its tensors.
+
+    Operands: the system's point (``n_point`` leaves), then w's leaves. The
+    system is ρI + H, H the Hessian in ``params`` of ``loss_fn`` at
+    ``unpack(point) = (params, args, extra)``: ``params`` is frozen (the
+    linearization point), the point leaves that ``live`` marks are live
+    (the solve differentiates through them), and ``extra`` (an injected
+    index draw) only ``prepare`` reads. ``state`` is a prepared state, or
+    None: then ``prepare(params, args, extra)`` builds one at the first
+    forward (one per task where the point carries the task axis), and every
+    call of the rules re-applies it (``prepared``). ``tasks``/``batched``
+    as in the solution map's spec."""
     solver: Any
     state: Any
-    treedef: Any
+    loss_fn: Callable
+    unpack: Callable[[list], tuple]
+    n_point: int
+    live: tuple
+    w_def: Any
+    prepare: Callable | None = None
+    prepared: Any = None
+    prepared_tasks: list | None = None
+    tasks: int | None = None
+    batched: tuple = ()
+
+    def state_at(self, point: list):
+        if self.state is not None:
+            return self.state
+        if self.prepared is None:
+            self.prepared = self.prepare(*self.unpack(point))
+        return self.prepared
+
+    def system(self, point: list) -> Callable[[PyTree], PyTree]:
+        """u ↦ H u at the point, ``params`` frozen."""
+        params, args, _ = self.unpack(point)
+        return make_hvp(self.loss_fn, tree_map(torch.Tensor.detach, params),
+                        *args)
+
+    def live_at(self, point: list, dots: list) -> list[int]:
+        """The point leaves that are live and carry a tangent (cotangent
+        request) here."""
+        return [i for i, (x, d) in enumerate(zip(point, dots))
+                if self.live[i] and d and isinstance(x, torch.Tensor)
+                and x.is_floating_point()]
+
+    def per_task(self, fn, ops: list, flags: Callable[[tuple], tuple]):
+        """``fn(*ops)``, under ``torch.func.vmap`` over the task axis where
+        the spec is task-batched (``flags(batched)``: which of ``ops`` carry
+        it)."""
+        if self.tasks is None:
+            return fn(*ops)
+        return torch.func.vmap(fn, in_dims=tuple(
+            0 if b else None for b in flags(self.batched)))(*ops)
 
 
 class _LinearSolve(torch.autograd.Function):
-    """w ↦ (H + ρI)⁻¹ w through ``solver.apply``: linear in w, and its own
-    transpose (the system is symmetric), so the backward pass and the jvp
-    apply the solve again."""
+    """w ↦ u = (H + ρI)⁻¹ w through ``solver.apply``, differentiated as the
+    reference's ``custom_linear_solve``: the jvp is
+    solve(ẇ − Ḣ·u), with Ḣ the derivative of the system matvec
+    ρ·u + H(point)·u along the live point's tangent, and the backward pass
+    the transposed solve (the system is symmetric): w̄ = solve(ū) and
+    point̄ = −∇⟨w̄, H(point)·u⟩. Both rules re-apply this Function, so
+    higher orders re-enter them and the kernels always see plain tensors.
+    Under ``vmap`` the rows of w go through one ``apply_matrix`` against one
+    state, or each task prepares its own where the point is batched."""
 
     @staticmethod
-    def forward(spec, *w):
-        return tuple(tree_leaves(spec.solver.apply(
-            spec.state, spec.treedef.unflatten([x.detach() for x in w]))))
+    def forward(spec, *args):
+        ops, n = _detached(args), spec.n_point
+        point, w = ops[:n], ops[n:]
+        if spec.tasks is None:
+            return tuple(tree_leaves(spec.solver.apply(
+                spec.state_at(point), spec.w_def.unflatten(w))))
+        w = [x if t else x.expand(spec.tasks, *x.shape)
+             for x, t in zip(w, spec.batched[n:])]
+        if spec.state is not None or not any(spec.batched[:n]):
+            return tuple(apply_tasks(spec.solver, spec.state_at(point),
+                                     spec.w_def.unflatten(w)))
+        if spec.prepared_tasks is None:
+            spec.prepared_tasks = [
+                spec.prepare(*spec.unpack([x[b] if t else x for x, t in zip(
+                    point, spec.batched)])) for b in range(spec.tasks)]
+        us = [tree_leaves(spec.solver.apply(
+            state, spec.w_def.unflatten([x[b] for x in w])))
+            for b, state in enumerate(spec.prepared_tasks)]
+        return tuple(torch.stack(xs) for xs in zip(*us))
 
     @staticmethod
     def setup_context(ctx, inputs, output):
         ctx.spec = inputs[0]
+        _save(ctx, [*inputs[1:], *output], forward=True)
+
+    @forward_rule
+    def jvp(ctx, _spec_dot, *dots):
+        spec, n = ctx.spec, ctx.spec.n_point
+        saved = _saved(ctx)
+        point, w = saved[:n], saved[n:len(dots)]
+        u = saved[len(dots):]
+        rhs = _zeros_for(dots[n:], w)
+        live = spec.live_at(point, [d is not None for d in dots[:n]])
+        if live:
+            def h_dot(*xs):
+                pt, ud = list(xs[:n]), list(xs[n:n + len(u)])
+                tangents = xs[n + len(u):]
+
+                def hu(*lv):
+                    for i, x in zip(live, lv):
+                        pt[i] = x
+                    return tuple(tree_leaves(spec.system(pt)(
+                        spec.w_def.unflatten(ud))))
+                return torch.func.jvp(hu, tuple(xs[i] for i in live),
+                                      tuple(tangents))[1]
+            hd = spec.per_task(
+                h_dot, [*point, *u, *(dots[i] for i in live)],
+                lambda b: (*b[:n], *(True,) * len(u), *(b[i] for i in live)))
+            rhs = [r - h.to(r.dtype) for r, h in zip(rhs, hd)]
+        return _LinearSolve.apply(_task_rhs(spec), *point, *rhs)
 
     @staticmethod
     def backward(ctx, *g):
-        return (None, *_LinearSolve.apply(ctx.spec, *g))
+        spec, n = ctx.spec, ctx.spec.n_point
+        saved = _saved(ctx)
+        point, u = saved[:n], saved[n + len(g):]
+        w_bar = _LinearSolve.apply(_task_rhs(spec), *point,
+                                   *_zeros_for(g, u))
+        point_bar = [None] * n
+        live = spec.live_at(point, ctx.needs_input_grad[1:n + 1])
+        if live:
+            def vjp(*xs):
+                pt, ud = list(xs[:n]), list(xs[n:n + len(u)])
+
+                def hu(*lv):
+                    for i, x in zip(live, lv):
+                        pt[i] = x
+                    return tuple(tree_leaves(spec.system(pt)(
+                        spec.w_def.unflatten(ud))))
+                _, pull = torch.func.vjp(hu, *(xs[i] for i in live))
+                return tuple(-x for x in pull(tuple(xs[n + len(u):])))
+            grads = spec.per_task(
+                vjp, [*point, *u, *w_bar],
+                lambda b: (*b[:n], *(True,) * (2 * len(u))))
+            for i, x in zip(live, grads):
+                point_bar[i] = x.to(point[i].dtype)
+        return (None, *point_bar, *w_bar)
 
     @staticmethod
-    def jvp(ctx, _spec_dot, *w_dot):
-        return _LinearSolve.apply(ctx.spec, *w_dot)
+    def vmap(info, in_dims, spec, *args):
+        dims = in_dims[1:]
+        if spec.tasks is not None:
+            # a vmap over a task-batched solve (jacfwd of jacfwd): one
+            # solve per row of the outer axis, each against the spec's
+            # state(s) unless the point itself varies along that axis
+            fresh = any(d is not None for d in dims[:spec.n_point])
+            rows = [_LinearSolve.apply(
+                dataclasses.replace(spec, prepared=None, prepared_tasks=None)
+                if fresh else spec,
+                *[a if d is None else a.select(d, b)
+                  for a, d in zip(args, dims)])
+                for b in range(info.batch_size)]
+            return (tuple(torch.stack(xs) for xs in zip(*rows)),
+                    (0,) * len(rows[0]))
+        ops = [a if d is None else a.movedim(d, 0)
+               for a, d in zip(args, dims)]
+        bspec = dataclasses.replace(
+            spec, tasks=info.batch_size,
+            batched=tuple(d is not None for d in dims))
+        out = _LinearSolve.apply(bspec, *ops)
+        spec.prepared, spec.prepared_tasks = (bspec.prepared,
+                                              bspec.prepared_tasks)
+        return out, (0,) * len(out)
 
-    @staticmethod
-    def vmap(info, in_dims, spec, *w):
-        W = spec.treedef.unflatten([
-            x.movedim(d, 0) if d is not None
-            else x.expand(info.batch_size, *x.shape)
-            for x, d in zip(w, in_dims[1:])])
-        u = apply_tasks(spec.solver, spec.state, W)
-        return tuple(u), (0,) * len(u)
+
+def _task_rhs(spec: _SolveSpec) -> _SolveSpec:
+    """The spec of a rule's own solve: the same point and state, and a
+    right-hand side that carries the task axis wherever the spec has one."""
+    if spec.tasks is None:
+        return spec
+    n = spec.n_point
+    return dataclasses.replace(
+        spec, batched=spec.batched[:n] + (True,) * (len(spec.batched) - n))
+
+
+def linear_solve(solver, state, loss_fn, point: list, unpack, live: tuple,
+                 w: PyTree, *, prepare=None, tasks=None,
+                 batched: tuple = ()) -> list:
+    """u = (H + ρI)⁻¹ w through :class:`_LinearSolve` (see
+    :class:`_SolveSpec` for the point's layout). Returns u's leaves."""
+    leaves, w_def = tree_flatten(w)
+    spec = _SolveSpec(solver=solver, state=state, loss_fn=loss_fn,
+                      unpack=unpack, n_point=len(point), live=tuple(live),
+                      w_def=w_def, prepare=prepare, tasks=tasks,
+                      batched=tuple(batched))
+    return list(_LinearSolve.apply(spec, *point, *leaves))
 
 
 def tangent_apply(solver, state, hvp: HVP, w: PyTree) -> PyTree:
@@ -581,20 +797,25 @@ def tangent_apply(solver, state, hvp: HVP, w: PyTree) -> PyTree:
 
     Its value is ``solver.apply(state, w)`` bit for bit (ρ is the solver's,
     as in the reference). It differentiates as a linear map of ``w`` whose
-    transpose is itself (the system is symmetric): reverse mode over it
-    applies the solver to the cotangent, exactly the backward pass of
-    :func:`~repro_torch.core.implicit._implicit_phi_vjp`; forward mode
-    applies it to the tangent; under ``torch.func.vmap`` the rows of ``w``
-    go through one ``apply_matrix`` (:func:`apply_tasks`). ``hvp`` is the
-    system's matvec, H·, at the linearization point: the reference
-    differentiates the solve through it as well (the hyper-Hessian term
-    ``−(H+ρI)⁻¹ dH u``); that composition is not ported, and the solve is
-    differentiated at a frozen linearization point, so ``hvp`` is not
-    called here."""
-    del hvp
-    leaves, treedef = tree_flatten(w)
-    spec = _SolveSpec(solver=solver, state=state, treedef=treedef)
-    return treedef.unflatten(list(_LinearSolve.apply(spec, *leaves)))
+    transpose is itself (the system is symmetric): reverse mode applies the
+    solver to the cotangent, forward mode to the tangent; under
+    ``torch.func.vmap`` the rows of ``w`` go through one ``apply_matrix``
+    (:func:`apply_tasks`). ``hvp`` is the system's matvec, H·, at the
+    linearization point, an :class:`~repro_torch.core.hvp.HVP` from
+    ``make_hvp``: the solve is also differentiated through it, in the
+    HVP's ``args`` (its ``params`` are the frozen linearization point), as
+    the reference does: du = solve(dw − dH·u), the hyper-Hessian term. The
+    state is frozen."""
+    p_leaves, p_def = tree_flatten(hvp.params)
+    a_leaves, a_def = tree_flatten(hvp.args)
+    n = len(p_leaves)
+
+    def unpack(point):
+        return (p_def.unflatten(point[:n]), a_def.unflatten(point[n:]), None)
+
+    u = linear_solve(solver, state, hvp.loss_fn, [*p_leaves, *a_leaves],
+                     unpack, (False,) * n + (True,) * len(a_leaves), w)
+    return tree_flatten(w)[1].unflatten(u)
 
 
 def build_hvp_bill(solver, params_like: PyTree) -> int:

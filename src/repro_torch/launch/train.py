@@ -1,6 +1,6 @@
 """The problem routes of the training CLI: registered problems through
 ``solve()``, influence problems through ``influence()`` or the serving
-tier.
+tier, and the multi-level engine's graphs through ``Engine.solve``.
 
 The counterpart of ``repro/launch/train.py``'s ``--problem`` routes:
 
@@ -8,15 +8,15 @@ The counterpart of ``repro/launch/train.py``'s ``--problem`` routes:
       --steps 5
   PYTHONPATH=src python -m repro_torch.launch.train --problem influence \\
       --serve --queries 8
+  PYTHONPATH=src python -m repro_torch.launch.train --problem distill_hpo \\
+      --steps 3 --log-every 1
 
 ``--serve`` stands up the serving tier (:mod:`repro_torch.serve`) and
 answers ``--queries`` queries twice, cold (the first flush builds the
 sketch into the store) and warm (every flush hits the store: zero build
 HVPs), printing each pass's latency and cache statistics. Runs on the card
 unless ``--device cpu``. Not ported: the LM training pipeline (no
-``--problem``; ROADMAP item 12) and the multi-level engine's graphs
-(``--problem distill_hpo | reweight_maml``; ROADMAP item 10): they exit
-with a message.
+``--problem``; ROADMAP item 12): it exits with a message.
 """
 from __future__ import annotations
 
@@ -25,22 +25,45 @@ import argparse
 from repro_torch.core.hypergrad import config_from_cli
 from repro_torch.core.tree_util import tree_map
 
-#: the reference engine's graph problems (``repro/engine`` GRAPHS)
-ENGINE_GRAPHS = ('distill_hpo', 'reweight_maml')
+def _run_graph(args):
+    """``--problem <graph-name>``: a multi-level GRAPHS entry (trilevel
+    chains) routed through ``Engine.solve``. ``--solver``/``--rho``/
+    ``--sketch-refresh-every`` configure every edge uniformly (per-edge
+    overrides are a builder-kwarg affair); ``--steps`` counts outer
+    steps."""
+    from repro_torch.engine import Engine, EngineConfig, get_graph
+    kwargs = {'solver': args.solver}
+    if args.rho is not None:
+        kwargs['rho'] = args.rho
+    if args.sketch_refresh_every is not None:
+        kwargs['refresh_every'] = args.sketch_refresh_every
+    graph = get_graph(args.problem, device=args.device, **kwargs)
+    order = graph.chain_order()
+    print(f'[train] graph={args.problem} levels={"<-".join(order)} '
+          f'solver={args.solver} n_outer={args.steps}')
+    result = Engine().solve(graph, EngineConfig(n_outer=args.steps))
+    for i, loss in enumerate(result.losses):
+        if i % max(1, args.log_every) == 0 or i == len(result.losses) - 1:
+            print(f'[engine] outer {i}: top_loss={loss:.6f}')
+    bills = ' '.join(f'{e}={n}' for e, n in result.edge_hvps.items())
+    print(f'[train] done: graph={args.problem} hvps={result.hvp_count} '
+          f'({bills}) wall_s={result.seconds:.1f}')
+    return result
 
 
 def _run_problem(args):
     """``--problem <name>``: resolve the registry entry and drive it through
     the problem API. An :class:`~repro_torch.core.problem.InfluenceProblem`
     routes to ``influence()`` (or, with ``--serve``, the serving tier)
-    instead of ``solve()``; ``--steps`` then counts training steps and
-    ``--queries``/``--top-k`` size the query block and the result."""
+    instead of ``solve()``; a multi-level graph name (``repro_torch.engine``
+    GRAPHS registry) routes to ``Engine.solve`` — ``--steps`` then counts
+    training (resp. outer) steps and ``--queries``/``--top-k`` size the
+    query block and the result."""
     from repro_torch.core.problem import (InfluenceProblem, get_problem,
                                           influence, solve)
-    if args.problem in ENGINE_GRAPHS:
-        raise SystemExit(
-            f'--problem {args.problem} is a multi-level graph of the engine, '
-            'ROADMAP item 10, which the port does not have yet')
+    from repro_torch.engine import GRAPHS
+    if args.problem in GRAPHS:
+        return _run_graph(args)
     hg_cfg = config_from_cli(
         args.solver,
         flags={'k': args.k, 'rho': args.rho,
@@ -134,10 +157,11 @@ def main(argv=None):
     ap.add_argument('--problem', default=None,
                     help='a registered problem (repro_torch.core PROBLEMS, '
                          'e.g. reweighting | distillation | logreg_wd | '
-                         'influence) through solve()/influence(); --steps '
-                         'then counts outer (resp. training) steps. The LM '
-                         'pipeline (no --problem) and the engine graphs '
-                         '(distill_hpo, reweight_maml) are not ported')
+                         'influence) through solve()/influence(), or a '
+                         'multi-level graph (repro_torch.engine GRAPHS: '
+                         'distill_hpo | reweight_maml) through Engine.solve; '
+                         '--steps then counts outer (resp. training) steps. '
+                         'The LM pipeline (no --problem) is not ported')
     ap.add_argument('--solver', default='nystrom')
     ap.add_argument('--k', type=int, default=None,
                     help='sketch rank / iterations (default 8)')

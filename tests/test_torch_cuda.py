@@ -29,6 +29,11 @@ one block apply each (``refine=0``: one Woodbury pass).
 The serving tier's flushes (the eighth slice) are held to the same service
 on ``backend='flat'`` at the same 1e-4 of max |score|, with the launches
 of a cold m = 1 flush and a warm m = 4 flush counted exactly.
+
+The ninth slice's gates (``chip_smoke.py`` phase 17): second derivatives
+through ``implicit_root`` and the engine's two registered graphs, the
+kernels against ``backend='flat'`` at 1e-4 relative, with kernels A, B
+and C each launched on the way.
 """
 import ctypes
 import math
@@ -775,3 +780,75 @@ def test_service_flushes_through_the_kernels_match_flat(cuda):
     got_i = torch.stack([a.indices for a in got])
     want_i = torch.stack([a.indices for a in want])
     assert torch.equal(got_i[apart], want_i[apart])
+
+
+def _toy_outer(dev, backend):
+    """The non-quadratic toy of ``tests/test_torch_second_order.py``: its
+    outer loss through a full-rank Nyström map (k = 4, ρ = 1e-2)."""
+    import numpy as np
+    from repro_torch.core import HypergradConfig, implicit_root, sgd_solver
+    A = torch.from_numpy(np.random.RandomState(0).randn(4, 4).astype(
+        np.float32)).to(dev)
+
+    def inner(x, phi, b):
+        return (0.5 * torch.sum(x ** 2)
+                + 0.025 * torch.sum(x ** 4) * torch.sum(torch.exp(phi))
+                - (A @ phi) @ x)
+    solve = implicit_root(
+        sgd_solver(inner, 200, 0.2,
+                   init=lambda p, b: torch.zeros(4, device=dev)),
+        inner, HypergradConfig(solver='nystrom', k=4, rho=1e-2,
+                               backend=backend))
+    return lambda p: torch.sum((solve(p, None) - 1.0) ** 2)
+
+
+def _launched_a_b_c(launches):
+    return (launches['nystrom_gram'] + launches['nystrom_cross'] > 0
+            and launches['woodbury_ctv'] > 0
+            and launches['woodbury_apply']
+            + launches['woodbury_apply_block'] > 0)
+
+
+@pytest.mark.parametrize('kind', ['jacfwd', 'jacrev'])
+def test_second_order_rules_launch_the_kernels(cuda, kind):
+    """``chip_smoke.py`` phase 17 (a): a second derivative of the toy
+    through ``implicit_root``'s new rules, the kernels against
+    ``backend='flat'`` at 1e-4 relative L2, with kernels A, B and C each
+    launched inside the rules."""
+    from torch.func import grad, jacfwd, jacrev
+    outer = {'jacfwd': jacfwd, 'jacrev': jacrev}[kind]
+    phi = torch.full((4,), 0.1, device=cuda)
+    want = outer(grad(_toy_outer(cuda, 'flat')))(phi)
+    _lib.reset_launches()
+    got = outer(grad(_toy_outer(cuda, 'cuda')))(phi)
+    torch.cuda.synchronize()
+    assert _launched_a_b_c(_lib.LAUNCHES), _lib.LAUNCHES
+    assert float((got - want).norm() / want.norm()) <= 1e-4
+
+
+@pytest.mark.parametrize('name', ['reweight_maml', 'distill_hpo'])
+def test_engine_graph_through_the_kernels_matches_flat(cuda, name):
+    """``chip_smoke.py`` phase 17 (b) at the reference's test sizes, one
+    outer step: every edge on ``backend='cuda'`` against
+    ``backend='flat'``, top losses at 1e-4 relative, the bills, and kernels
+    A, B and C launched."""
+    import dataclasses
+    from repro_torch.engine import (Engine, EngineConfig, engine_edge_bills,
+                                    get_graph)
+    kw = {'reweight_maml': dict(d=4, n_tasks=2, n_support=8, n_query=8),
+          'distill_hpo': dict(d=4, n_classes=2, n_syn=4, n_train=16,
+                              n_val=16)}[name]
+    base = get_graph(name, device=cuda, **kw)
+    losses = {}
+    for backend in ('flat', 'cuda'):
+        graph = dataclasses.replace(base, edges=[
+            dataclasses.replace(e, config=dataclasses.replace(
+                e.config, backend=backend)) for e in base.edges])
+        _lib.reset_launches()
+        res = Engine().solve(graph, EngineConfig(n_outer=1))
+        torch.cuda.synchronize()
+        losses[backend] = res.losses
+        assert res.edge_hvps == engine_edge_bills(graph, n_outer=1)
+    assert _launched_a_b_c(_lib.LAUNCHES), _lib.LAUNCHES
+    for a, b in zip(losses['cuda'], losses['flat']):
+        assert math.isfinite(a) and abs(a - b) <= 1e-4 * abs(b)

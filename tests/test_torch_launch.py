@@ -1,7 +1,8 @@
 """The port's training CLI (``python -m repro_torch.launch.train``) on the
 CPU: ``--problem influence --serve`` answers its queries cold, then warm
 with zero build HVPs and every lookup a hit; the one-shot ``influence`` and
-``solve`` routes run; routes not ported exit with their ROADMAP item.
+``solve`` routes run; the route not ported (the LM pipeline) exits with
+its ROADMAP item. The engine graphs' route: ``tests/test_torch_engine.py``.
 
 The influence task runs at its full width (p = 26,122, small on a CPU) with
 5 training steps and 2 queries.
@@ -47,8 +48,6 @@ def test_oneshot_influence_and_solve_routes(capsys):
 
 
 @pytest.mark.parametrize('argv,item', [
-    (['--problem', 'distill_hpo'], 'item 10'),
-    (['--problem', 'reweight_maml'], 'item 10'),
     (['--arch', 'yi_9b'], 'item 12'),
 ])
 def test_routes_not_ported_exit_with_their_item(argv, item):

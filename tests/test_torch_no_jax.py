@@ -1,5 +1,6 @@
 """The port stands alone: every module of ``repro_torch`` (the serving
-tier, checkpoints and the training CLI included) imports with ``jax`` and
+tier, checkpoints, the multi-level engine and the training CLI included)
+imports with ``jax`` and
 ``repro`` blocked, and its entry points refuse to drop to the CPU on their
 own."""
 import os
@@ -51,6 +52,10 @@ from repro_torch.checkpoint import (CheckpointManager, params_digest, restore,
 from repro_torch.serve import (InfluenceService, QueryBatcher, SketchStore,
                                calibrate_block_size, sketch_key)
 from repro_torch.launch.train import main as train_main
+from repro_torch.engine import (GRAPHS, Engine, EngineConfig, distill_hpo,
+                                engine_edge_bills, engine_hypergrad,
+                                get_graph, reweight_maml)
+assert sorted(GRAPHS) == ['distill_hpo', 'reweight_maml']
 problem = build_logreg_weight_decay(D=5, n=8, device='cpu')
 if not torch.cuda.is_available():
     w = {'w': torch.zeros(5)}
@@ -76,6 +81,10 @@ if not torch.cuda.is_available():
                 HypergradConfig(k=2), n_outer=1, vmap_tasks=2)),
             ('launch.train', lambda: train_main(['--problem', 'influence',
                                                  '--serve'])),
+            ('distill_hpo', lambda: distill_hpo()),
+            ('get_graph', lambda: get_graph('reweight_maml')),
+            ('launch.train graph', lambda: train_main(
+                ['--problem', 'reweight_maml', '--steps', '1'])),
             ('hypergrad_at', lambda: hypergrad_at(
                 problem, HypergradConfig(k=2, backend='cuda'), w,
                 {'wd': torch.ones(5)}, problem.data.train_batch(0, 4),

@@ -23,8 +23,8 @@ case by case).
                    degradation (but a kernel fault propagates), deadlines,
                    schema-v2 rows, ``audit_query_path`` refused.
 
-Left out: ``test_influence_and_engine_bills_share_one_definition`` needs the
-multi-level engine (ROADMAP item 10). Tolerances: the service against the
+``test_influence_and_engine_bills_share_one_definition`` lives in
+``tests/test_torch_engine.py``, beside the engine it reads. Tolerances: the service against the
 reference, those of ``tests/test_torch_influence.py`` (scores rtol 1e-5 with
 atol 1e-5·max|ref|, indices equal); cross-package applies on one spilled
 sketch rtol 1e-5 with atol 1e-5·max|ref|; everything within the port is
