@@ -212,6 +212,37 @@ the card:
     losses and on the top gradient at the final values (``top_gradient``,
     each run's live sketches) within 1e-4.
 
+The bilevel LM trainer (the tenth slice), ``launch.train.train_lm``:
+
+18. (a) ``yi_9b.reduced()`` (f32), the CLI's loop: batch 4, seq 32, 6
+    steps, an outer step every 3, Nyström k = 8, ρ = 1e-2,
+    ``column_chunk=4``, on ``backend='cuda'`` and ``'flat'`` with the same
+    seeded parameters and draws: inner losses, outer values and
+    hypergradients within 1e-4 relative, each outer step's move of the
+    domain logits within 1e-4 where its hypergradient has signal (elsewhere
+    it is f32 noise, which adam turns into ±0.64·lr either way: held to
+    2·lr a step); gram on ``atb_cc``, ctv and the vector apply launched.
+    (b) Yi-9B at full width (d_model 4096, 32/4 heads, d_ff 11008, vocab
+    64000), depth ``LM_DEPTH`` = 2, f32 parameters, bf16 compute, remat
+    'full', p = 870,338,560: ``train_lm`` with batch 8, seq 128, 4 steps,
+    an outer step every 2, k = 8, ``column_chunk=LM_CHUNK``, ``'cuda'``
+    with a bf16 sketch. Prints seconds per inner and outer step, launches,
+    peak device memory, the noisy-domain weight; then the last outer step
+    again at its parameters, batches and draw, split into the HVP columns,
+    ``prepare`` and the apply with the mixed term, the draw's host time
+    against ``randperm(p/8)``'s, one profiled step (device idle share).
+    Gates: kernels A-C on the step's own bf16 B (p, 8) and seeded vectors
+    against their plain versions in f64 (``blocked_f64_backend``; gram
+    relative L2 ≤ 1e-5, ctv and apply rtol 1e-5, atol 1e-5·‖ref‖∞), and
+    the step's IHVP u = (H_k + ρI)⁻¹∇θg on the same C and B through the
+    kernels against the same apply with each kernel replaced by its f64
+    plain version (relative L2 ≤ 1e-4, phase 12's gate for Alg. 1). The
+    hypergradients are printed, not gated: the mixed term rounds u to the
+    bf16 compute dtype, so f32-level differences in u come out at bf16's
+    resolution; beside them ``backend='flat'``'s (torch.matmul in f32),
+    the f64 apply on kernel A's own gram, and the eigenvalues of BᵀB
+    against ρ; gram on ``atb_tc``, ctv and the vector apply launched.
+
 The line before the last is the kernels' JSON record (seven rows, kernel
 E's the tensor-core variant at the prefill's own call; rows 1–5 also
 carry their p = 2²⁴ f32 and bf16 times under ``p24`` and the p = 2²⁰
@@ -223,7 +254,8 @@ record under ``alg1_p24``, rows 1–5 the launches of phases 13–15 under
 ``imaml_launches_per_meta_step``, ``forward_mode_launches`` and
 ``influence_launches``, phase 16's by pass under ``serve_launches``, and
 phase 17's under ``engine_launches``: (a), each graph of (b), and (c) per
-timed step);
+timed step; phase 18's under ``lm_launches``: (a)'s cuda run and (b)'s
+training run);
 the last
 line is ``{"ok": true, "device": {...}}``; standard error ends with the
 seconds each phase took and the whole run's. Without a CUDA device, or
@@ -979,6 +1011,42 @@ def plain_f64_backend(torch, dtype):
         combinem = combine
 
     return PlainF64(sketch_dtype=dtype)
+
+
+def blocked_f64_backend(torch, dtype, rows: int = 1 << 24):
+    """The ``cuda`` backend with kernels A-C replaced by their plain
+    versions (``kernels/ref.py``) evaluated in f64 on the same values, a
+    block of ``rows`` rows at a time (sums over blocks in f64), rounded to
+    f32: ``plain_f64_backend`` for a sketch of p = 870 M, whose f64 copy
+    would be 56 GB. ``combine`` hands the plain apply the kernel's own
+    operand w̃ = −ρ²w, as ``CudaBackend.combine`` does; everything else
+    (``cv``'s cuBLAS, the bf16 storage) is the kernel path's own."""
+    from repro_torch.core import CudaBackend
+    from repro_torch.kernels import ref
+
+    def blocks(n):
+        return (slice(r, r + rows) for r in range(0, n, rows))
+
+    class BlockedF64(CudaBackend):
+        def gram(self, C):
+            return sum(ref.nystrom_gram(C[b].double())
+                       for b in blocks(C.shape[0])).float()
+
+        def ctv(self, C, v):
+            return sum(ref.woodbury_ctv(C[b].double(), v[b].double())
+                       for b in blocks(C.shape[0])).float()
+
+        def woodbury_apply(self, C, w, v, rho):
+            out = torch.empty_like(v, dtype=torch.float32)
+            for b in blocks(C.shape[0]):
+                out[b] = ref.woodbury_apply(C[b].double(), w.double(),
+                                            v[b].double(), rho).float()
+            return out
+
+        def combine(self, C, w, v, rho):
+            return self.woodbury_apply(C, -(rho * rho) * w, v, rho)
+
+    return BlockedF64(sketch_dtype=dtype)
 
 
 def low_rank_sketch(torch, p, k, dtype, dev, seed, rank=32):
@@ -1852,6 +1920,312 @@ def run_engine_stream(torch, dev) -> dict:
     return launches
 
 
+# the LM trainer (the tenth slice): §5.4's data reweighting on Yi-9B
+LM_REDUCED = dict(steps=6, batch=4, seq=32, outer_every=3)
+LM_FULL = dict(steps=4, batch=8, seq=128, outer_every=2)
+LM_DEPTH = 2          # Yi-9B's 48 layers cut to 2; the widths are whole
+# column_chunk, HVP columns per vmapped batch: 2, the reference's
+# build_hypergrad_step value. At the CLI's 4 the training run peaked at
+# 72.3 GB (67.33 GiB) of device memory, past the 72 GB this phase allows.
+LM_CHUNK = 2
+LM_K = 8
+
+
+def _lm_config(backend: str, **kw):
+    from repro_torch.core import HypergradConfig
+    return HypergradConfig(solver='nystrom', k=LM_K, rho=RHO,
+                           column_chunk=LM_CHUNK, backend=backend, **kw)
+
+
+def _quiet(fn):
+    """``fn()`` with its stdout (train_lm's [train]/[outer] lines) kept:
+    returns (result, the lines)."""
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn()
+    return out, buf.getvalue().splitlines()
+
+
+def _lm_gate(label: str, got, want) -> dict:
+    """Two LM runs at the same data and draws: inner losses and outer values
+    within 1e-4 relative, hypergradients within 1e-4 relative L2, and each
+    outer step's move of the domain logits within 1e-4 relative L2 on the
+    domains whose hypergradient carries signal at that step (|g| >
+    1e-5·max|g|, ~100 f32 ulps of the largest: the domains of the step's
+    inner batch). A domain without
+    one gets f32 rounding noise, which adam turns into a step of about
+    ±0.64·lr either way: there the logits are only held to 2·lr a step."""
+    import numpy as np
+    loss = max(abs(a / b - 1) for a, b in zip(got.losses, want.losses))
+    val = max(abs(a['val'] / b['val'] - 1)
+              for a, b in zip(got.outer, want.outer))
+    hg = move = 0.0
+    prev = (np.zeros(64), np.zeros(64))
+    for n, (a, b) in enumerate(zip(got.outer, want.outer), 1):
+        ga, gb = (o['hypergrad'].double().cpu().numpy() for o in (a, b))
+        hg = max(hg, float(np.linalg.norm(ga - gb) / np.linalg.norm(gb)))
+        live = np.abs(gb) > 1e-5 * np.abs(gb).max()
+        la, lb = (o['logits'].double().cpu().numpy() for o in (a, b))
+        da, db = la - prev[0], lb - prev[1]
+        move = max(move, float(np.linalg.norm(da[live] - db[live])
+                               / np.linalg.norm(db[live])))
+        if np.abs(la - lb).max() > 2 * 1e-2 * n:
+            raise AssertionError(f'{label}: a domain logit moved past the '
+                                 'bound of adam\'s steps')
+        prev = (la, lb)
+    errs = dict(loss=loss, val=val, hypergrad=hg, logit_moves=move)
+    if not (len(got.losses) == len(want.losses)
+            and len(got.outer) == len(want.outer)
+            and max(loss, val, hg, move) <= 1e-4):
+        raise AssertionError(f'{label}: cuda vs flat {errs}')
+    return errs
+
+
+def run_lm_reduced(torch, dev) -> dict:
+    """Phase 18 (a): ``train_lm`` at ``yi_9b.reduced()`` (f32, the CLI's
+    loop: batch 4, seq 32, 6 steps, an outer step every 3, k = 8,
+    ``column_chunk=4``) on ``backend='cuda'`` and ``'flat'``, the same
+    seeded parameters and draws. Returns the cuda run's launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _lib
+    from repro_torch.launch.train import train_lm
+    cfg = get_config('yi_9b').reduced()
+    runs, launches, secs = {}, {}, {}
+    for backend in ('cuda', 'flat'):
+        _lib.reset_launches()
+        t0 = time.perf_counter()
+        runs[backend], lines = _quiet(lambda: train_lm(
+            cfg, _lm_config(backend), device=dev, log_every=0,
+            **LM_REDUCED))
+        secs[backend] = time.perf_counter() - t0
+        launches[backend] = {n: c for n, c in _lib.LAUNCHES.items() if c}
+    got = launches['cuda']
+    if not (got.get('nystrom_gram') and not got.get('nystrom_gram_tc')):
+        raise AssertionError(f'lm reduced: gram not on atb_cc: {got}')
+    _kernels_of_rules('lm reduced', got)
+    errs = _lm_gate('lm reduced', runs['cuda'], runs['flat'])
+    run = runs['cuda']
+    print(f'lm reduced: train_lm(yi_9b.reduced() f32 p='
+          f'{sum(x.numel() for x in _leaves(run.params))}, '
+          f"{LM_REDUCED}) cuda {secs['cuda']:.3f} s, flat "
+          f"{secs['flat']:.3f} s; inner losses "
+          f'{[round(x, 4) for x in run.losses]}, outer values '
+          f"{[round(o['val'], 4) for o in run.outer]}, cuda vs flat {errs} "
+          f'(<= 1e-4); launches {got}; {lines[-1]}', flush=True)
+    return got
+
+
+def _leaves(tree):
+    from repro_torch.core import tree_leaves
+    return tree_leaves(tree)
+
+
+def run_lm_full(torch, dev, smi: str) -> dict:
+    """Phase 18 (b): ``train_lm`` on Yi-9B at full width, depth
+    ``LM_DEPTH`` (f32 parameters, bf16 compute, remat 'full'), batch 8,
+    seq 128, 4 steps with an outer step every 2 (two fresh sketches), k = 8,
+    ``column_chunk=LM_CHUNK``, ``backend='cuda'`` with a bf16 sketch. Then
+    the last outer step again at its parameters, batches and draw, split
+    (HVP columns, prepare, apply with the mixed term), once profiled, and
+    against ``backend='flat'``. Returns the training run's launches."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core import PyTreeIndexer, make_hvp
+    from repro_torch.core.solvers import (NystromSketch, _build_operand,
+                                          _whitened_form)
+    from repro_torch.data import TokenStream
+    from repro_torch.kernels import _lib, ops
+    from repro_torch.core.backend import flatten_vec
+    from repro_torch.launch.steps import (domain_losses, lm_hypergrad,
+                                          loss_and_grads, to_device)
+    from repro_torch.launch.train import train_lm
+    cfg = dataclasses.replace(get_config('yi_9b'), n_layers=LM_DEPTH)
+    hg_cfg = _lm_config('cuda', sketch_dtype='bfloat16')
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _lib.reset_launches()
+    t0 = time.perf_counter()
+    run, lines = _quiet(lambda: train_lm(cfg, hg_cfg, device=dev,
+                                         log_every=0, **LM_FULL))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: c for n, c in _lib.LAUNCHES.items() if c}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    p = sum(x.numel() for x in _leaves(run.params))
+    if not launches.get('nystrom_gram_tc'):
+        raise AssertionError(f'lm full width: gram not on atb_tc: {launches}')
+    _kernels_of_rules('lm full width', launches)
+    finite = (all(map(math.isfinite, run.losses))
+              and all(math.isfinite(o['val']) and
+                      bool(torch.isfinite(o['hypergrad']).all())
+                      for o in run.outer))
+    if not (finite and len(run.outer) == 2):
+        raise AssertionError(f'lm full width: not finite: {run.losses} '
+                             f"{[o['val'] for o in run.outer]}")
+    inner_s = run.step_s
+    print(f'lm full width: {smi} | Yi-9B d_model {cfg.d_model}, heads '
+          f'{cfg.n_heads}/{cfg.n_kv_heads}, d_ff {cfg.d_ff}, vocab '
+          f'{cfg.vocab_size}, depth {LM_DEPTH} (of 48), p={p:,} '
+          f'(param_count {cfg.param_count():,}), f32 params, bf16 compute, '
+          f'remat {cfg.remat}; {LM_FULL}, k={LM_K}, column_chunk={LM_CHUNK},'
+          f' cuda, bf16 sketch: {wall:.3f} s in all (init included), s per '
+          f'inner step {[round(x, 4) for x in inner_s]}, s per outer step '
+          f"{[round(o['build_s'] + o['grad_s'], 4) for o in run.outer]} "
+          f"(sketch refresh {[round(o['build_s'], 4) for o in run.outer]}, "
+          f"hypergradient {[round(o['grad_s'], 4) for o in run.outer]}), "
+          f'inner losses {[round(x, 4) for x in run.losses]}, outer values '
+          f"{[round(o['val'], 4) for o in run.outer]}, noisy-domain weight "
+          f"{[round(o['noisy_weight'], 4) for o in run.outer]} (uniform "
+          f'{2 / 64:.4f} over 64 logits), peak device memory {peak:.2f} GB,'
+          f' launches {launches}; {lines[-1]}', flush=True)
+
+    # the last outer step again, split, profiled, and against 'flat'
+    i = LM_FULL['steps'] - 1
+    params = run.params
+    h = {'domain_logits': run.outer[-2]['logits']}
+    want = run.outer[-1]['hypergrad']
+    run.opt_state = None                      # adam's moments: 7 GB
+    torch.cuda.empty_cache()
+    stream = TokenStream(vocab_size=cfg.vocab_size, seq_len=LM_FULL['seq'])
+    ib = to_device(stream.batch(i, LM_FULL['batch']), dev)
+    ob = to_device(stream.batch(10_000_000 + i, LM_FULL['batch'],
+                                clean_only=True), dev)
+    inner_loss, outer_loss = domain_losses(cfg)
+    solver = hg_cfg.build()
+    be = solver._be()
+    indexer = PyTreeIndexer(params)
+    t0 = time.perf_counter()
+    idx = indexer.sample_indices(torch.Generator().manual_seed(i), LM_K)
+    draw_s = time.perf_counter() - t0
+    # what the O(k) draw replaces above RANDPERM_BELOW: randperm on the
+    # host, timed over p/8 (the whole of p would hold the phase a minute)
+    t0 = time.perf_counter()
+    perm = torch.randperm(p // 8, generator=torch.Generator().manual_seed(i))
+    randperm_s = time.perf_counter() - t0
+    del perm
+
+    def outer_step(split=None, keep=None):
+        hvp = make_hvp(inner_loss, params, h, ib)
+        torch.cuda.synchronize()
+        t = [time.perf_counter()]
+        C, H = _build_operand(be, hvp, indexer, idx, LM_CHUNK)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        H = 0.5 * (H + H.T)
+        B, gram_B = _whitened_form(be, C, H)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        sketch = NystromSketch(C=C, H_KK=H, indices=idx, rho=RHO, B=B,
+                               gram_B=gram_B)
+        del C, B
+        val, hg = lm_hypergrad(solver, inner_loss, outer_loss, params, h,
+                               ib, ob, state=sketch)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        if split is not None:
+            split.extend(np.diff(t).tolist())
+        if keep is not None:
+            keep.append(sketch)
+        return val, hg['domain_logits']
+
+    split, kept = [], []
+    val, got = outer_step(split, kept)
+    step_s = sum(split)
+    again = _rel_l2(got, want)
+    sk = kept.pop()
+    # kernels A-C at this path's shapes, on its own bf16 B (p, k = 8), and
+    # seeded v and w, against their plain versions in f64
+    ref64 = blocked_f64_backend(torch, torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    v = torch.randn(p, generator=gen, device=dev)
+    w = torch.randn(LM_K, generator=gen, device=dev)
+    gram64 = ref64.gram(sk.B)
+    checks = {'gram (A)': _rel_l2(ops.nystrom_gram(sk.B), gram64)}
+    if not checks['gram (A)'] <= 1e-5:
+        raise AssertionError(f'lm full width: gram of B vs f64 {checks}')
+    want64 = ref64.ctv(sk.B, v)
+    checks['ctv (B)'] = _gate('lm ctv (B)', ops.woodbury_ctv(sk.B, v),
+                              want64, 1e-5 * float(want64.abs().max()), 1e-5)
+    want64 = ref64.woodbury_apply(sk.B, w, v, RHO)
+    checks['apply (C)'] = _gate(
+        'lm apply (C)', ops.woodbury_apply(sk.B, w, v, RHO), want64,
+        1e-5 * float(want64.abs().max()), 1e-5)
+    del v, want64
+    # the IHVP u = (H_k + ρI)⁻¹ ∇θ g of this step (f32, before the mixed
+    # term rounds it to the bf16 compute dtype) through the kernels and
+    # through their f64 plain versions; then the hypergradients
+    solver64 = dataclasses.replace(solver, backend=ref64)
+    sk64 = dataclasses.replace(sk, gram_B=gram64)
+    _, g_theta = loss_and_grads(lambda th: outer_loss(th, h, ob), params)
+    u = flatten_vec(solver.apply(sk, g_theta))
+    u_err = _rel_l2(u, flatten_vec(solver64.apply(sk64, g_theta)))
+    del u, g_theta
+    _, hg64 = lm_hypergrad(solver64, inner_loss, outer_loss, params, h, ib,
+                           ob, state=sk64)
+    hg64 = hg64['domain_logits']
+    # the same on kernel A's gram: how much of the gap is the k×k system's
+    # sensitivity to the gram
+    _, hg64a = lm_hypergrad(solver64, inner_loss, outer_loss, params, h, ib,
+                            ob, state=sk)
+    hg64a = hg64a['domain_logits']
+    del sk64
+    lam = torch.linalg.eigvalsh(gram64.double())
+    flat = _lm_config('flat', sketch_dtype='bfloat16').build()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    C_kp = sk.C.T.contiguous()
+    sk.C = None
+    B_kp = sk.B.T.contiguous()
+    sk.B = None
+    gram_f = flat._be().gram(B_kp)
+    fsk = NystromSketch(C=C_kp, H_KK=sk.H_KK, indices=idx, rho=RHO, B=B_kp,
+                        gram_B=0.5 * (gram_f + gram_f.T))
+    del sk, C_kp, B_kp
+    _, fhg = lm_hypergrad(flat, inner_loss, outer_loss, params, h, ib, ob,
+                          state=fsk)
+    del fsk
+    fhg = fhg['domain_logits']
+    flat_peak = torch.cuda.max_memory_allocated() / 1e9
+    errs = {'u cuda vs f64': u_err,
+            'cuda vs f64': _rel_l2(got, hg64),
+            'cuda vs f64 on A\'s gram': _rel_l2(got, hg64a),
+            'flat vs f64': _rel_l2(fhg, hg64),
+            'cuda vs flat': _rel_l2(got, fhg),
+            'gram flat vs f64': _rel_l2(gram_f, gram64)}
+    torch.cuda.empty_cache()
+    busy = _kernel_ms(torch, outer_step)
+    print(f'lm full width, the last outer step again (step {i + 1}): '
+          f'{step_s:.4f} s = HVP columns {split[0]:.4f} + prepare (gram, '
+          f'whitening) {split[1]:.4f} + apply with the mixed term '
+          f'{split[2]:.4f}; value {float(val):.4f}; hypergradient vs the '
+          f'training run {again:.3e}; kernels on its B against f64: gram '
+          f'(A) rel L2 {checks["gram (A)"]:.3e} (<= 1e-5), max |err| ctv '
+          f'(B) {checks["ctv (B)"]:.3e}, apply (C) {checks["apply (C)"]:.3e}'
+          f' (rtol 1e-5, atol 1e-5 |ref|_inf); on the same bf16 C and B, '
+          f'relative L2 of the IHVP u (gate <= 1e-4) and of the '
+          f'hypergradients: '
+          + ', '.join(f'{k} {e:.3e}' for k, e in errs.items())
+          + f'; eigenvalues of BᵀB {float(lam.min()):.4e} .. '
+          f'{float(lam.max()):.4e} against rho {RHO}; flat peak '
+          f'{flat_peak:.2f} GB; the draw {draw_s * 1e3:.3f} ms on the host '
+          f'(randperm(p/8) alone takes {randperm_s:.3f} s: '
+          f'{100 * randperm_s / step_s:.1f}% of the step)', flush=True)
+    if not (again <= 1e-4 and u_err <= 1e-4):
+        raise AssertionError(f'lm full width: {errs}, vs the training run '
+                             f'{again:.3e}')
+    if busy is None:
+        print('lm full width: the profiler recorded no device events; '
+              'device time not measured', flush=True)
+    else:
+        ms, n = busy
+        print(f'lm full width: the profiled outer step ran {n} kernels, '
+              f'{ms:.3f} ms of device time, against an unprofiled '
+              f'{step_s * 1e3:.3f} ms step: device idle '
+              f'{100 * (1 - ms / (step_s * 1e3)):.1f}%', flush=True)
+    return launches
+
+
 PHASE_STARTS: list[tuple[str, float]] = []   # (phase, perf_counter)
 
 
@@ -1862,6 +2236,10 @@ def _phase(label: str) -> None:
 
 
 def main() -> None:
+    # phase 18 (b) holds a 14 GB sketch, its whitened factor and 28 GB f32
+    # upcasts of them on 'flat'; the caching allocator's fixed segments
+    # split and fragment under that, where expandable ones grow in place
+    os.environ.setdefault('PYTORCH_CUDA_ALLOC_CONF', 'expandable_segments:True')
     import torch
     if not torch.cuda.is_available():
         fail('no CUDA device: this script measures the port on a GPU')
@@ -2031,6 +2409,13 @@ def main() -> None:
     second_launches = run_second_order(torch, dev)
     engine_launches = run_engine_graphs(torch, dev)
     stream_launches = run_engine_stream(torch, dev)
+    torch.cuda.empty_cache()
+
+    # 18. the bilevel LM trainer: reduced, then Yi-9B at full width --------
+    _phase('18')
+    lm_launches = {'reduced': run_lm_reduced(torch, dev)}
+    torch.cuda.empty_cache()
+    lm_launches['full_width'] = run_lm_full(torch, dev, smi)
 
     # records -----------------------------------------------------------------
     _phase('records')
@@ -2066,6 +2451,9 @@ def main() -> None:
                 **{name: runs.get(kname, 0)
                    for name, runs in engine_launches.items()},
                 'stream_per_step': stream_launches.get(kname, 0)}
+            rec['lm_launches'] = {
+                label: runs.get(kname, 0)
+                for label, runs in lm_launches.items()}
         if kname in large['float32']:   # rows 1-5 at p = 2^24 and 2^20
             for key, runs in (('p24', large), ('p20', f1)):
                 rec[key] = {dt: _p24(recs[kname])

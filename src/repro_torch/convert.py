@@ -5,7 +5,8 @@ The reference's parameter trees reach here as numpy (in the tests:
 lists, tuples of arrays, including the structured index dicts
 ``{'leaf', 'dims'}`` of ``PyTreeIndexer`` — into tensors on a device;
 ``to_numpy`` turns a port tree back. Leaf order is JAX's on both sides.
-``model_params_from_jax`` carries a transformer's parameters across.
+``model_params_from_jax`` carries a transformer's parameters across, and
+``model_indices_from_jax`` a structured column draw over them.
 """
 from __future__ import annotations
 
@@ -14,7 +15,8 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.core.tree_util import PyTree, tree_map
+from repro_torch.core.tree_util import (PyTree, PyTreeIndexer,
+                                        tree_flatten_with_path, tree_map)
 
 _INT_INDEX_KEYS = ('leaf', 'dims')
 
@@ -66,3 +68,47 @@ def model_params_from_jax(tree: PyTree, cfg, device: Any = 'cpu') -> dict:
                   for i in range(cfg.n_blocks)]
     tree['blocks'] = list(blocks)
     return to_torch(tree, device)
+
+
+def _stacked_paths(cfg, port_tree: dict) -> list:
+    """(path, rank) of each leaf of the reference's transformer tree, in its
+    leaf order: with ``scan_layers`` ``blocks`` is one dict whose leaves
+    lead with an ``n_blocks`` axis (the port's block 0 gives the names and
+    the unstacked shapes)."""
+    tree = dict(port_tree)
+    if cfg.scan_layers:
+        tree['blocks'] = tree_map(
+            lambda x: x.expand((cfg.n_blocks,) + tuple(x.shape)),
+            tree['blocks'][0])
+    pairs, _ = tree_flatten_with_path(tree)
+    return [(path, x.ndim) for path, x in pairs]
+
+
+def model_indices_from_jax(indices: dict, cfg, device: Any = 'cpu') -> dict:
+    """A structured draw over the reference's transformer tree
+    (``{'leaf': (k,), 'dims': (k, R)}``, numpy or arrays) → the same
+    coordinates over the port's tree, as int32 tensors on ``device``.
+
+    Leaves are matched by path. With ``scan_layers`` a reference leaf under
+    ``blocks`` is stacked, so its first coordinate is the block: it becomes
+    the port's list position, and the remaining coordinates shift down one.
+    Coordinates past a leaf's rank are 0, as the indexers pad them."""
+    from repro_torch.models.transformer import abstract_params
+    port = abstract_params(cfg)
+    port_pairs, _ = tree_flatten_with_path(port)
+    port_leaf = {path: i for i, (path, _) in enumerate(port_pairs)}
+    max_rank = PyTreeIndexer(port).max_rank
+    ref_paths = _stacked_paths(cfg, port)
+    leaf = np.asarray(indices['leaf']).astype(np.int64).reshape(-1)
+    dims = np.asarray(indices['dims']).astype(np.int64).reshape(len(leaf), -1)
+    out_leaf = np.empty(len(leaf), np.int64)
+    out_dims = np.zeros((len(leaf), max_rank), np.int64)
+    for j, (lid, d) in enumerate(zip(leaf, dims)):
+        path, rank = ref_paths[lid]
+        coords = list(d[:rank])
+        if cfg.scan_layers and path[0] == 'blocks':
+            path = ('blocks', str(coords[0])) + path[1:]
+            coords = coords[1:]
+        out_leaf[j] = port_leaf[path]
+        out_dims[j, :len(coords)] = coords
+    return indices_to_torch({'leaf': out_leaf, 'dims': out_dims}, device)

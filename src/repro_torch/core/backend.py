@@ -30,6 +30,7 @@ the reference's element for element.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any
 
 import torch
@@ -89,6 +90,82 @@ def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a.float() @ b.float()
 
 
+# Rows of p that a row-wise contraction (``cv``, ``mul_right``) upcasts and
+# multiplies at a time: 2²⁴ rows of a k = 8 sketch are 512 MiB in f32, where
+# the whole of a p ≈ 10⁹ bf16 sketch would be 28 GB.
+ROW_BLOCK = 1 << 24
+
+
+def _by_rows(f, C: torch.Tensor, axis: int, out_shape: tuple,
+             out_axis: int, dtype) -> torch.Tensor:
+    """``f(C)`` for an ``f`` whose every output row (index ``r`` along
+    ``out_axis``) depends only on C's row r (along ``axis``, the p axis):
+    ``ROW_BLOCK`` rows at a time into one output of ``dtype``, so that the
+    f32 upcast inside ``f`` never holds more than a block. Each row is the
+    same sum of k products either way; the BLAS may still order a short
+    tail block's sums differently (on the CPU ``cv``'s matrix-vector product
+    moves some rows' last bit there, ``mul_right``'s B stays bitwise:
+    ``tests/test_torch_lm_build.py``)."""
+    p = C.shape[axis]
+    if p <= ROW_BLOCK:
+        return f(C).to(dtype)
+    out = torch.empty(out_shape, dtype=dtype, device=C.device)
+    for r in range(0, p, ROW_BLOCK):
+        n = min(ROW_BLOCK, p - r)
+        out.narrow(out_axis, r, n).copy_(f(C.narrow(axis, r, n)))
+    return out
+
+
+class _TreeSink:
+    """The tree backend's operand from chunks of columns: the chunks'
+    leaves concatenated along k at the end (the operand stays a tree)."""
+
+    def __init__(self):
+        self.parts: list = []
+
+    def write(self, start: int, cols: PyTree) -> None:
+        del start
+        self.parts.append(cols)
+
+    def finish(self) -> PyTree:
+        if len(self.parts) == 1:
+            return self.parts[0]
+        return tree_map(lambda *xs: torch.cat(xs, 0), *self.parts)
+
+
+class _FusedSink:
+    """The flat family's operand from chunks of columns: the fused buffer,
+    allocated once in ``dtype``, sketch-major (k, p) or row-major (p, k);
+    each chunk is written into its rows (resp. columns) as it comes, leaves
+    in JAX's order, and may be freed before the next one."""
+
+    def __init__(self, k: int, p: int, dtype, device, k_major: bool):
+        self.k_major = k_major
+        self.buf = torch.empty((k, p) if k_major else (p, k), dtype=dtype,
+                               device=device)
+
+    def write(self, start: int, cols: PyTree) -> None:
+        off = 0
+        for c in tree_leaves(cols):
+            w, n = c.shape[0], math.prod(c.shape[1:])
+            src = c.reshape(w, n)
+            if self.k_major:
+                self.buf[start:start + w, off:off + n].copy_(src)
+            else:
+                self.buf[off:off + n, start:start + w].copy_(src.T)
+            off += n
+
+    def finish(self) -> torch.Tensor:
+        return self.buf
+
+
+def _sink_of_tree(be, C: PyTree):
+    """``be``'s sink sized for a whole leading-k tree."""
+    leaves = tree_leaves(C)
+    p = sum(math.prod(l.shape[1:]) for l in leaves)
+    return be.operand_sink(leaves[0].shape[0], p, leaves[0].device)
+
+
 # ---------------------------------------------------------------------------
 # backends
 # ---------------------------------------------------------------------------
@@ -99,6 +176,11 @@ class TreeBackend:
 
     def prepare_operand(self, C: PyTree):
         return C
+
+    def operand_sink(self, k: int, p: int, device) -> _TreeSink:
+        """Where the sketch build writes its chunks of columns."""
+        del k, p, device
+        return _TreeSink()
 
     def vec(self, v: PyTree):
         return v
@@ -174,8 +256,19 @@ class FlatBackend:
     name = 'flat'
     sketch_dtype: Any = torch.float32
 
+    k_major = True     # the fused buffer is (k, p)
+
     def prepare_operand(self, C: PyTree) -> torch.Tensor:
-        return flatten_sketch(C, dtype=self.sketch_dtype)
+        """The fused buffer of a whole leading-k tree (equal to
+        ``flatten_sketch(C, sketch_dtype)``, or its transpose for 'cuda')."""
+        sink = _sink_of_tree(self, C)
+        sink.write(0, C)
+        return sink.finish()
+
+    def operand_sink(self, k: int, p: int, device) -> _FusedSink:
+        """The fused buffer, allocated once in ``sketch_dtype``, that the
+        sketch build writes its chunks of columns into."""
+        return _FusedSink(k, p, self.sketch_dtype, device, self.k_major)
 
     def vec(self, v: PyTree) -> torch.Tensor:
         return flatten_vec(v)
@@ -187,16 +280,19 @@ class FlatBackend:
         return _mm(Ckp, vf)
 
     def cv(self, Ckp: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-        return _mm(w, Ckp)
+        return _by_rows(lambda c: _mm(w, c), Ckp, 1, (Ckp.shape[1],), 0,
+                        torch.float32)
 
     def gram(self, Ckp: torch.Tensor) -> torch.Tensor:
-        return self.cross(Ckp, Ckp)
+        c = Ckp.float()          # one upcast serves both operands
+        return c @ c.T
 
     def cross(self, Akp: torch.Tensor, Bkp: torch.Tensor) -> torch.Tensor:
         return _mm(Akp, Bkp.T)
 
     def mul_right(self, Ckp: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
-        return _mm(M.T, Ckp).to(self.sketch_dtype)            # (j, p)
+        return _by_rows(lambda c: _mm(M.T, c), Ckp, 1,          # (j, p)
+                        (M.shape[1], Ckp.shape[1]), 1, self.sketch_dtype)
 
     def slice_k(self, Ckp: torch.Tensor, start: int,
                 width: int) -> torch.Tensor:
@@ -246,16 +342,14 @@ class CudaBackend(FlatBackend):
     made: the entry points raise without a card unless ``device='cpu'``.
     """
     name = 'cuda'
-
-    def prepare_operand(self, C: PyTree) -> torch.Tensor:
-        return torch.cat([c.to(self.sketch_dtype).reshape(c.shape[0], -1).T
-                          for c in tree_leaves(C)], dim=0).contiguous()  # (p, k)
+    k_major = False    # the fused buffer is (p, k)
 
     def ctv(self, Cpk: torch.Tensor, vf: torch.Tensor) -> torch.Tensor:
         return ops.woodbury_ctv(Cpk, vf)
 
     def cv(self, Cpk: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-        return _mm(Cpk, w)
+        return _by_rows(lambda c: _mm(c, w), Cpk, 0, (Cpk.shape[0],), 0,
+                        torch.float32)
 
     def gram(self, Cpk: torch.Tensor) -> torch.Tensor:
         return ops.nystrom_gram(Cpk)
@@ -264,7 +358,8 @@ class CudaBackend(FlatBackend):
         return _mm(Apk.T, Bpk)
 
     def mul_right(self, Cpk: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
-        return _mm(Cpk, M).to(self.sketch_dtype)              # (p, j)
+        return _by_rows(lambda c: _mm(c, M), Cpk, 0,            # (p, j)
+                        (Cpk.shape[0], M.shape[1]), 0, self.sketch_dtype)
 
     def slice_k(self, Cpk: torch.Tensor, start: int,
                 width: int) -> torch.Tensor:

@@ -15,9 +15,9 @@ from typing import Callable
 import torch
 from torch.func import grad, jvp, vmap
 
-from repro_torch.core.tree_util import (PyTree, PyTreeIndexer, tree_axpy,
-                                        tree_leaves, tree_map, tree_scale,
-                                        tree_vdot)
+from repro_torch.core.tree_util import (PyTree, PyTreeIndexer, slice_indices,
+                                        tree_axpy, tree_leaves, tree_map,
+                                        tree_scale, tree_vdot)
 
 LossFn = Callable[..., torch.Tensor]  # loss(params, *args) -> scalar
 
@@ -49,22 +49,37 @@ def make_hvp(loss_fn: LossFn, params: PyTree, *args) -> HVP:
     return HVP(loss_fn, params, args)
 
 
+def for_each_column_chunk(hvp: Callable[[PyTree], PyTree],
+                          indexer: PyTreeIndexer, indices: dict,
+                          column_chunk: int | None,
+                          fn: Callable[[int, PyTree], None]) -> None:
+    """``fn(start, columns)`` for each chunk of the draw in order, where
+    ``columns`` = H[:, K[start:start + w]] is a tree with a leading w axis.
+
+    A chunk's one-hot tangents are built just before its HVPs and the
+    chunk's columns are dropped once ``fn`` returns, so at most one chunk of
+    each is live (the sketch build writes each chunk into the fused buffer
+    as it comes). The w HVPs of a chunk run batched under
+    ``torch.func.vmap``; ``column_chunk`` bounds w (None: all k at once)."""
+    k = indices['leaf'].shape[0]
+    chunk = k if column_chunk is None else max(1, min(column_chunk, k))
+    for s in range(0, k, chunk):
+        fn(s, vmap(hvp)(indexer.one_hots(slice_indices(indices, s,
+                                                       s + chunk))))
+
+
 def extract_columns(hvp: Callable[[PyTree], PyTree],
                     indexer: PyTreeIndexer,
                     indices: dict,
                     column_chunk: int | None = None) -> PyTree:
-    """C = H[:, K] as a tree with leading axis k = #indices.
-
-    The k HVPs run batched under ``torch.func.vmap``; ``column_chunk`` bounds
-    how many run at once (peak activation memory O(chunk · activations)
-    instead of O(k · activations))."""
-    tangents = indexer.one_hots(indices)
-    k = indices['leaf'].shape[0]
-    chunk = k if column_chunk is None else max(1, min(column_chunk, k))
-    if chunk >= k:
-        return vmap(hvp)(tangents)
-    parts = [vmap(hvp)(tree_map(lambda t: t[s:s + chunk], tangents))
-             for s in range(0, k, chunk)]
+    """C = H[:, K] as a tree with leading axis k = #indices, assembled from
+    :func:`for_each_column_chunk` (peak activation memory
+    O(chunk · activations) instead of O(k · activations))."""
+    parts: list = []
+    for_each_column_chunk(hvp, indexer, indices, column_chunk,
+                          lambda _, cols: parts.append(cols))
+    if len(parts) == 1:
+        return parts[0]
     return tree_map(lambda *xs: torch.cat(xs, 0), *parts)
 
 

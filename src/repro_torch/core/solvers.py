@@ -34,7 +34,8 @@ from typing import Any, Callable, ClassVar
 import torch
 
 from repro_torch.core.backend import flatten_vecm, get_backend, unflatten_vecm
-from repro_torch.core.hvp import HVP, extract_columns, make_hvp
+from repro_torch.core.hvp import (HVP, extract_columns,
+                                  for_each_column_chunk, make_hvp)
 from repro_torch.core.tree_util import (PyTree, PyTreeIndexer, tree_axpy,
                                         tree_flatten, tree_flatten_with_path,
                                         tree_leaves, tree_map, tree_scale,
@@ -160,10 +161,8 @@ class NystromIHVP:
         be = self._be()
         weights = diag_weights if self.importance_sampling else None
         idx = indexer.sample_indices(rng, self.k, weights, indices=indices)
-        C_tree = extract_columns(hvp, indexer, idx, self.column_chunk)
-        H_KK = indexer.gather(C_tree, idx)
+        C_op, H_KK = _build_operand(be, hvp, indexer, idx, self.column_chunk)
         H_KK = 0.5 * (H_KK + H_KK.T)
-        C_op = be.prepare_operand(C_tree)
         B = gram_B = gram_C = None
         if self.stabilized and not self._chunked():
             B, gram_B = _whitened_form(be, C_op, H_KK)
@@ -199,6 +198,27 @@ class NystromIHVP:
     def solve(self, hvp: HVP, indexer: PyTreeIndexer, v: PyTree, rng, *,
               indices: dict | None = None) -> PyTree:
         return self.apply(self.prepare(hvp, indexer, rng, indices=indices), v)
+
+
+def _build_operand(be, hvp: HVP, indexer: PyTreeIndexer, idx: dict,
+                   column_chunk: int | None):
+    """(C in the backend's layout, H_KK unsymmetrized), chunk by chunk: each
+    chunk's columns are gathered at the draw (its rows of H_KK) and written
+    into the backend's operand (for the flat family, the fused buffer
+    allocated once in ``sketch_dtype``), then dropped. The peak is the
+    operand plus one chunk's one-hots and columns, where a whole tree of
+    columns, its copy in the buffer's dtype and layout, and their
+    concatenation would coexist."""
+    sink = be.operand_sink(idx['leaf'].shape[0], indexer.total,
+                           indexer.device)
+    rows: list = []
+
+    def take(start: int, cols: PyTree) -> None:
+        rows.append(indexer.gather(cols, idx))
+        sink.write(start, cols)
+
+    for_each_column_chunk(hvp, indexer, idx, column_chunk, take)
+    return sink.finish(), torch.cat(rows, 0)
 
 
 def _whitened_form(be, C_op, H_KK: torch.Tensor):

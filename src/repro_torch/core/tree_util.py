@@ -182,6 +182,17 @@ def tree_size(a: PyTree) -> int:
 # ---------------------------------------------------------------------------
 # Structured indexing across a tree (Nyström column selection).
 # ---------------------------------------------------------------------------
+# Uniform column draws take randperm(p)'s first k below this size (the
+# draws every seeded run of the port has made) and an O(k) draw from it up:
+# randperm at p ≈ 10⁹ is 7 GB of int64 and seconds of host time.
+RANDPERM_BELOW = 2 ** 24
+
+
+def slice_indices(indices: dict, start: int, stop: int) -> dict:
+    """Entries ``start:stop`` of a structured draw."""
+    return {key: indices[key][start:stop] for key in ('leaf', 'dims')}
+
+
 class PyTreeIndexer:
     """Maps parameter coordinates to one-hot tangent trees.
 
@@ -255,7 +266,9 @@ class PyTreeIndexer:
         return (indices['dims'].long() * strides).sum(-1)
 
     def one_hots(self, indices: dict) -> PyTree:
-        """Batched one-hot tree: every leaf carries a leading k axis."""
+        """Batched one-hot tree: every leaf carries a leading k axis. The
+        sketch build calls it on one chunk of the draw at a time
+        (:func:`slice_indices`), so that k·p one-hots never coexist."""
         leaf = indices['leaf'].long()
         local = self._local_offsets(indices)
         k = leaf.shape[0]
@@ -291,7 +304,9 @@ class PyTreeIndexer:
         elsewhere (the reference's, in the parity tests), checked and used
         in place of sampling.
 
-        p < 2³¹: k distinct flat indices, uniform, or with ``weights`` (a
+        p < 2³¹: k distinct flat indices, uniform (``randperm(p)``'s first
+        k below ``RANDPERM_BELOW``, an O(k) draw above it: see
+        :meth:`_uniform_distinct`), or with ``weights`` (a
         flat (p,) vector, Remark 1's Drineas–Mahoney weights) drawn without
         replacement in proportion to them (Gumbel top-k, the scheme of the
         reference's ``jax.random.choice``). p ≥ 2³¹: a leaf in proportion to
@@ -302,8 +317,10 @@ class PyTreeIndexer:
             return self.check(indices)
         if self.total < 2 ** 31:
             kk = min(k, self.total)
-            if weights is None:
+            if weights is None and self.total < RANDPERM_BELOW:
                 flat = torch.randperm(self.total, generator=rng)[:kk]
+            elif weights is None:
+                return self.from_flat(self._uniform_distinct(rng, kk))
             else:
                 w = weights.detach().to('cpu', torch.float64).reshape(-1)
                 if w.shape != (self.total,):
@@ -321,6 +338,22 @@ class PyTreeIndexer:
         u = torch.rand((k, self.max_rank), generator=rng, dtype=torch.float64)
         dims = torch.minimum((u * sizes_k).long(), sizes_k - 1)
         return self._structured(leaf.numpy(), dims.numpy())
+
+    def _uniform_distinct(self, rng: torch.Generator, k: int) -> np.ndarray:
+        """k distinct flat indices in [0, p), uniform without replacement,
+        in O(k) time and memory: uniform draws, a repeat dropped and drawn
+        again (sequential rejection, so every ordered k-subset is equally
+        likely). ``randperm(p)`` would cost O(p): 7 GB of int64 at
+        p ≈ 10⁹."""
+        picked: list[int] = []
+        seen: set[int] = set()
+        while len(picked) < k:
+            for t in torch.randint(self.total, (k - len(picked),),
+                                   generator=rng).tolist():
+                if t not in seen:
+                    seen.add(t)
+                    picked.append(t)
+        return np.asarray(picked, np.int64)
 
     def all_indices(self) -> dict:
         """Every parameter (tiny models only — ExactIHVP)."""

@@ -4,7 +4,8 @@ The reference draws these with ``numpy.random.RandomState``; the port runs
 the same numpy draws and hands the arrays to torch, so both packages see
 identical data. Only the generators the ported tasks use are here:
 ``make_logreg_problem`` (§5.1), ``DistillationTask`` (§5.2),
-``FewShotSampler`` (§5.3) and ``LongTailDataset`` (§5.4).
+``FewShotSampler`` (§5.3), ``LongTailDataset`` (§5.4) and ``TokenStream``
+(§5.4 at LM scale).
 """
 from __future__ import annotations
 
@@ -155,3 +156,54 @@ class LongTailDataset:
         self.Xv = torch.as_tensor(np.concatenate(xs), device=self.device)
         self.yv = torch.as_tensor(np.concatenate(ys), dtype=torch.int64,
                                   device=self.device)
+
+
+# ------------------------------------------------------------------ LM corpus
+@dataclasses.dataclass
+class TokenStream:
+    """Domain-mixture synthetic corpus for LM training.
+
+    Each domain is a depth-1 Markov chain over a structured sub-vocabulary
+    (the first min(V, 512) tokens) with 10% uniform noise;
+    ``noisy_domains`` emit uniform tokens, with no structure: the bilevel
+    data reweighting should learn to down-weight them. Batches are host
+    tensors; the consumer moves them to its device."""
+    vocab_size: int
+    seq_len: int
+    n_domains: int = 8
+    noisy_domains: tuple[int, ...] = (6, 7)
+    seed: int = 0
+
+    def __post_init__(self):
+        rng = np.random.RandomState(self.seed)
+        V = min(self.vocab_size, 512)
+        self._V = V
+        self.next_tok = rng.randint(0, V, size=(self.n_domains, V))
+
+    def batch(self, step: int, batch_size: int, clean_only: bool = False
+              ) -> dict:
+        """{'inputs', 'labels'} (B, S) int32, 'domain' (B,) int64 and
+        'mask' (B, S) f32 ones, for global step ``step``; ``clean_only``
+        draws from the structured domains only (the outer batch)."""
+        rng = np.random.RandomState((self.seed + 31337 * step
+                                     + (7 if clean_only else 0)) % (2**32 - 1))
+        V, S = self._V, self.seq_len
+        if clean_only:
+            domains = rng.choice([d for d in range(self.n_domains)
+                                  if d not in self.noisy_domains], batch_size)
+        else:
+            domains = rng.randint(0, self.n_domains, batch_size)
+        toks = np.empty((batch_size, S + 1), np.int32)
+        toks[:, 0] = rng.randint(0, V, batch_size)
+        for t in range(S):
+            nxt = self.next_tok[domains, toks[:, t]]
+            noise = rng.randint(0, V, batch_size)
+            flip = rng.rand(batch_size) < 0.1
+            nxt = np.where(flip, noise, nxt)
+            nxt = np.where(np.isin(domains, self.noisy_domains),
+                           rng.randint(0, V, batch_size), nxt)
+            toks[:, t + 1] = nxt
+        return {'inputs': torch.from_numpy(np.ascontiguousarray(toks[:, :-1])),
+                'labels': torch.from_numpy(np.ascontiguousarray(toks[:, 1:])),
+                'domain': torch.from_numpy(np.asarray(domains, np.int64)),
+                'mask': torch.ones((batch_size, S), dtype=torch.float32)}

@@ -1,10 +1,15 @@
-"""Serving steps: the port of ``repro/launch/steps.py``'s prefill on one
-card, without a mesh or sharding specs.
+"""The step functions of the port, on one card, without a mesh or sharding
+specs: the port of ``repro/launch/steps.py``.
 
+  train_step(params, opt_state, step, batch)
+      → params, opt_state, step + 1, {'loss', 'grad_norm'}
   prefill_step(params, batch) → logits of the last position (B, V_padded)
+  hypergrad_step(params, hparams, inner_batch, outer_batch, rng)
+      → hparams after one Nyström hypergradient step (§5.4 at LM scale)
 
 ``serve_params`` casts the floating parameters to bf16, as the reference's
-serving load does (``_param_sds(serve=True)``).
+serving load does (``_param_sds(serve=True)``). Batches are trees of
+tensors; a step moves them to its parameters' device.
 """
 from __future__ import annotations
 
@@ -12,10 +17,146 @@ from typing import Callable
 
 import torch
 
-from repro_torch.core.tree_util import tree_map
+from repro_torch.core import NystromIHVP, implicit_root
+from repro_torch.core.tree_util import tree_flatten, tree_leaves, tree_map
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import check_ported, forward
+from repro_torch.models.transformer import check_ported, forward, train_loss
+from repro_torch.optim import (adafactor, adamw, chain, clip_by_global_norm,
+                               stacked_blocks)
+
+N_DOMAINS = 64          # outer-parameter dimension for LM data reweighting
+
+
+def make_optimizer(cfg: ModelConfig):
+    """Adafactor above 100B parameters (its factored state is what fits),
+    AdamW below. Adafactor runs on the reference's stacked layout of the
+    blocks (``stacked_blocks``) where ``cfg.scan_layers`` stacks them, so
+    that its per-leaf factoring and clipping give the reference's
+    numbers."""
+    if cfg.param_count() > 100e9:
+        base = adafactor(1e-2)
+        return chain(clip_by_global_norm(1.0),
+                     stacked_blocks(base) if cfg.scan_layers else base)
+    return chain(clip_by_global_norm(1.0), adamw(3e-4, weight_decay=0.1))
+
+
+def to_device(batch: dict, device) -> dict:
+    """A host batch's tensors on ``device``."""
+    return {key: x.to(device, non_blocking=True) for key, x in batch.items()}
+
+
+def loss_and_grads(loss_fn: Callable, params, *args):
+    """(loss, ∇loss) by one plain autograd pass, so that the model's remat
+    (``torch.utils.checkpoint``) applies."""
+    leaves, treedef = tree_flatten(params)
+    live = [x.detach().requires_grad_(True) for x in leaves]
+    loss = loss_fn(treedef.unflatten(live), *args)
+    grads = torch.autograd.grad(loss, live)
+    return loss.detach(), treedef.unflatten(list(grads))
+
+
+def build_train_step(cfg: ModelConfig, optimizer=None,
+                     microbatches: int | None = None) -> Callable:
+    """``train_step(params, opt_state, step, batch)``: the masked token CE's
+    gradient, then ``optimizer`` (default :func:`make_optimizer`).
+
+    ``microbatches`` > 1 splits the batch along its first axis and sums the
+    microbatches' gradients in f32 from zeros before dividing, as the
+    reference's scan does; the loss is their mean. Default: 4 for the
+    scanned production path above 300B parameters, else 1."""
+    check_ported(cfg)
+    optimizer = optimizer or make_optimizer(cfg)
+    if microbatches is None:
+        microbatches = 4 if (cfg.param_count() > 3e11
+                             and cfg.scan_layers) else 1
+
+    def loss_fn(params, batch):
+        return train_loss(cfg, params, batch)
+
+    def train_step(params, opt_state, step, batch):
+        device = tree_leaves(params)[0].device
+        batch = to_device(batch, device)
+        if microbatches > 1:
+            gsum = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                                  device=p.device), params)
+            losses = []
+            size = next(iter(batch.values())).shape[0] // microbatches
+            for i in range(microbatches):
+                mb = {key: x[i * size:(i + 1) * size]
+                      for key, x in batch.items()}
+                loss_i, grads = loss_and_grads(loss_fn, params, mb)
+                gsum = tree_map(torch.add, gsum, grads)
+                losses.append(loss_i)
+            grads = tree_map(lambda g: g / microbatches, gsum)
+            loss = torch.stack(losses).mean()
+        else:
+            loss, grads = loss_and_grads(loss_fn, params, batch)
+        params, opt_state = optimizer.apply(grads, opt_state, params, step)
+        gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                               for g in tree_leaves(grads)))
+        return params, opt_state, step + 1, {'loss': loss, 'grad_norm': gnorm}
+
+    return train_step
+
+
+def domain_losses(cfg: ModelConfig):
+    """(inner_loss, outer_loss) of §5.4's data reweighting: the inner loss
+    weights each example by N_DOMAINS · softmax(domain_logits)[domain], the
+    outer loss is the plain token CE on a clean batch."""
+    def inner_loss(params, hparams, batch):
+        w = torch.softmax(hparams['domain_logits'], dim=-1) * N_DOMAINS
+        return train_loss(cfg, params, batch,
+                          example_weights=w[batch['domain']])
+
+    def outer_loss(params, hparams, batch):
+        del hparams
+        return train_loss(cfg, params, batch)
+
+    return inner_loss, outer_loss
+
+
+def lm_hypergrad(solver, inner_loss: Callable, outer_loss: Callable, params,
+                 hparams: dict, inner_batch: dict, outer_batch: dict, *,
+                 state=None, rng=None, indices: dict | None = None):
+    """(outer value, hypergradient) at ``params`` as the implicit solution:
+    the gradient of ``outer_loss(θ*(φ), φ, outer_batch)`` through
+    ``implicit_root``, whose backward solves against ``state`` (a prepared
+    sketch) or prepares one at (params, φ, inner_batch) from ``rng`` or the
+    injected ``indices``."""
+    solution = implicit_root(lambda phi, b: params, inner_loss, solver)
+
+    def outer_obj(phi):
+        theta = solution(phi, inner_batch, rng=rng, state=state,
+                         indices=indices)
+        return outer_loss(theta, phi, outer_batch)
+
+    return loss_and_grads(outer_obj, hparams)
+
+
+def build_hypergrad_step(cfg: ModelConfig, k: int = 8,
+                         rho: float = 1e-2) -> Callable:
+    """``hypergrad_step(params, hparams, inner_batch, outer_batch, rng=None,
+    indices=None)``: the Nyström-IHVP hypergradient of the clean batch's
+    loss with respect to the per-domain loss weights, at the trained
+    ``params`` as the implicit solution (``NystromIHVP(k, rho,
+    column_chunk=2)``), then ``h − 1e-2·g``. ``rng`` (a CPU
+    ``torch.Generator``) draws the sketch's columns, or ``indices=``
+    injects a draw."""
+    check_ported(cfg)
+    solver = NystromIHVP(k=k, rho=rho, column_chunk=2)
+    inner_loss, outer_loss = domain_losses(cfg)
+
+    def hypergrad_step(params, hparams, inner_batch, outer_batch, rng=None,
+                       indices=None):
+        device = tree_leaves(params)[0].device
+        _, hg = lm_hypergrad(solver, inner_loss, outer_loss, params, hparams,
+                             to_device(inner_batch, device),
+                             to_device(outer_batch, device), rng=rng,
+                             indices=indices)
+        return tree_map(lambda h, g: h - 1e-2 * g, hparams, hg)
+
+    return hypergrad_step
 
 
 def serve_params(params):

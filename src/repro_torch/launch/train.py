@@ -1,9 +1,12 @@
-"""The problem routes of the training CLI: registered problems through
-``solve()``, influence problems through ``influence()`` or the serving
-tier, and the multi-level engine's graphs through ``Engine.solve``.
+"""The training CLI of the port: the bilevel LM trainer, and the problem
+routes (registered problems through ``solve()``, influence problems through
+``influence()`` or the serving tier, the multi-level engine's graphs
+through ``Engine.solve``).
 
-The counterpart of ``repro/launch/train.py``'s ``--problem`` routes:
+The counterpart of ``repro/launch/train.py`` on one card:
 
+  PYTHONPATH=src python -m repro_torch.launch.train --arch yi_9b --reduced \\
+      --steps 6 --outer-every 3 --batch 4 --seq 32
   PYTHONPATH=src python -m repro_torch.launch.train --problem reweighting \\
       --steps 5
   PYTHONPATH=src python -m repro_torch.launch.train --problem influence \\
@@ -11,19 +14,237 @@ The counterpart of ``repro/launch/train.py``'s ``--problem`` routes:
   PYTHONPATH=src python -m repro_torch.launch.train --problem distill_hpo \\
       --steps 3 --log-every 1
 
+Without ``--problem`` it trains a transformer with §5.4's per-domain data
+reweighting (:func:`train_lm`): AdamW inner steps on the weighted token CE,
+and every ``--outer-every`` steps a Nyström hypergradient of a clean
+batch's loss with respect to the domain logits, through the implicit map
+at the warm-started parameters. ``--ckpt-dir`` checkpoints and resumes.
+One card has no mesh: ``--production-mesh`` is refused (ROADMAP item 12).
+
 ``--serve`` stands up the serving tier (:mod:`repro_torch.serve`) and
 answers ``--queries`` queries twice, cold (the first flush builds the
 sketch into the store) and warm (every flush hits the store: zero build
 HVPs), printing each pass's latency and cache statistics. Runs on the card
-unless ``--device cpu``. Not ported: the LM training pipeline (no
-``--problem``; ROADMAP item 12): it exits with a message.
+unless ``--device cpu``. The backend is the reference's default
+(``tree``); the kernels serve through ``HypergradConfig(backend='cuda')``.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import time
+from typing import Any, Callable
+
+import torch
 
 from repro_torch.core.hypergrad import config_from_cli
 from repro_torch.core.tree_util import tree_map
+
+
+# ------------------------------------------------------------- the LM route
+@dataclasses.dataclass
+class LMRun:
+    """What :func:`train_lm` ends with: the final parameters, optimizer
+    state, hyperparameters and their optimizer's state; the inner loss of
+    every step run (``losses``, host floats) and its seconds
+    (``step_s``); and one record per outer step (``outer``): the loop index
+    ``i``, the outer value before the update (``val``), the hypergradient
+    (``hypergrad``), the domain logits after the update (``logits``), the
+    noisy-domain weight, and the seconds of the sketch refresh
+    (``build_s``: the k HVP columns and ``prepare``) and of the
+    hypergradient (``grad_s``: the apply and the mixed term)."""
+    params: Any
+    opt_state: Any
+    hparams: dict
+    outer_state: Any
+    losses: list
+    step_s: list
+    outer: list
+
+
+def train_lm(cfg, hg_cfg, *, steps: int, batch: int, seq: int,
+             outer_every: int, ckpt_dir: str | None = None,
+             ckpt_every: int = 100, log_every: int = 10, device=None,
+             params=None, indices: Callable[[int], dict] | None = None
+             ) -> LMRun:
+    """The bilevel LM trainer (the reference's loop without its mesh).
+
+    Inner steps: ``make_optimizer(cfg)`` on the domain-weighted token CE of
+    ``TokenStream`` batches (step-indexed, prefetched on a host thread),
+    warm-started across outer steps. After every ``outer_every``-th step i:
+    a clean outer batch (``stream.batch(10_000_000 + i, ...,
+    clean_only=True)``), the sketch refreshed by ``SketchPolicy`` at the
+    last inner batch, the outer value and its hypergradient through
+    ``implicit_root`` (the value taken before the update), and
+    ``adam(1e-2)`` on ``domain_logits``. ``ckpt_dir``: save every
+    ``ckpt_every`` steps and at the end (unless that step was just saved:
+    the reference's loop saves it twice, and the second rename fails),
+    and resume from the latest save.
+
+    ``device``: the card unless ``'cpu'``. ``params``: initial parameters
+    (default: ``init`` from ``torch.Generator().manual_seed(0)`` on the
+    device). The sketch's column draw at step i comes from
+    ``torch.Generator().manual_seed(i)``, or ``indices(i)`` when given (the
+    parity tests pass the reference's draws)."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core import SketchPolicy
+    from repro_torch.data import Prefetcher, ShardedLoader, TokenStream
+    from repro_torch.device import resolve_device
+    from repro_torch.launch.steps import (N_DOMAINS, domain_losses,
+                                          lm_hypergrad, loss_and_grads,
+                                          make_optimizer, to_device)
+    from repro_torch.models import build_model
+    from repro_torch.optim import adam
+
+    dev = resolve_device(device)
+
+    def sync():
+        if dev.type == 'cuda':
+            torch.cuda.synchronize()
+
+    if params is None:
+        params = build_model(cfg, device=dev).init(
+            torch.Generator(device=dev).manual_seed(0))
+    inner_loss, outer_loss = domain_losses(cfg)
+    optimizer = make_optimizer(cfg)
+    opt_state = optimizer.init(params)
+    hparams = {'domain_logits': torch.zeros((N_DOMAINS,), device=dev)}
+    outer_opt = adam(1e-2)
+    outer_state = outer_opt.init(hparams)
+
+    ckpt = CheckpointManager(ckpt_dir) if ckpt_dir else None
+    start_step = 0
+    if ckpt and ckpt.latest_step() is not None:
+        tree, manifest = ckpt.restore_latest(
+            {'params': params, 'opt': opt_state, 'h': hparams,
+             'houter': outer_state})
+        params, opt_state = tree['params'], tree['opt']
+        hparams, outer_state = tree['h'], tree['houter']
+        start_step = manifest['step']
+        print(f'[train] resumed from step {start_step}')
+
+    solver = hg_cfg.build()
+    if getattr(type(solver), 'amortizable', False):
+        policy = SketchPolicy(solver=solver, inner_loss=inner_loss,
+                              refresh_every=hg_cfg.sketch_refresh_every)
+    elif hg_cfg.sketch_refresh_every > 1:
+        raise TypeError(
+            f'--sketch-refresh-every={hg_cfg.sketch_refresh_every} needs an '
+            f'amortizable solver; {type(solver).__name__} prepares a '
+            'step-local state with nothing to reuse across outer steps')
+    else:
+        policy = None
+
+    def inner_step(params, opt_state, hparams, step, b):
+        loss, grads = loss_and_grads(inner_loss, params, hparams, b)
+        params, opt_state = optimizer.apply(grads, opt_state, params, step)
+        return params, opt_state, loss
+
+    def outer_step(params, hparams, outer_state, i, inner_b, outer_b, rng,
+                   draw, sketch_state):
+        sync()
+        t0 = time.perf_counter()
+        if policy is not None:
+            sketch_state, _ = policy.refresh(sketch_state, params, hparams,
+                                             inner_b, rng, indices=draw)
+        sync()
+        t1 = time.perf_counter()
+        val, hg = lm_hypergrad(
+            solver, inner_loss, outer_loss, params, hparams, inner_b,
+            outer_b, state=None if policy is None else sketch_state.sketch,
+            rng=rng, indices=draw)
+        sync()
+        t2 = time.perf_counter()
+        hparams, outer_state = outer_opt.apply(hg, outer_state, hparams, i)
+        return (hparams, outer_state, val, hg, sketch_state,
+                {'build_s': t1 - t0, 'grad_s': t2 - t1})
+
+    stream = TokenStream(vocab_size=cfg.vocab_size, seq_len=seq)
+    noisy_ids = torch.tensor(stream.noisy_domains, device=dev)
+    losses, step_s, outer = [], [], []
+    saved = start_step if ckpt else None   # the step last saved
+    sketch_state = None
+    loss = None
+    t_start = time.time()
+    with Prefetcher(ShardedLoader(lambda s: stream.batch(s, batch),
+                                  start_step=start_step), depth=2) as loader:
+        for i in range(start_step, steps):
+            b = to_device(next(loader), dev)
+            sync()
+            t0 = time.perf_counter()
+            params, opt_state, loss = inner_step(params, opt_state, hparams,
+                                                 i, b)
+            losses.append(float(loss))
+            step_s.append(time.perf_counter() - t0)
+            if log_every and (i + 1) % log_every == 0:
+                rate = (i + 1 - start_step) / (time.time() - t_start)
+                print(f'[train] step {i+1} loss={float(loss):.4f} '
+                      f'({rate:.2f} steps/s)', flush=True)
+            if (i + 1) % outer_every == 0:
+                outer_b = to_device(stream.batch(10_000_000 + i, batch,
+                                                 clean_only=True), dev)
+                if policy is not None and (sketch_state is None
+                                           or policy.due(sketch_state)):
+                    # a stale sketch goes before the build of the next one
+                    sketch_state = policy.init_state()
+                hparams, outer_state, val, hg, sketch_state, secs = \
+                    outer_step(params, hparams, outer_state, i, b, outer_b,
+                               torch.Generator().manual_seed(i),
+                               None if indices is None else indices(i),
+                               sketch_state)
+                w = torch.softmax(hparams['domain_logits'], dim=-1)
+                noisy = float(w[noisy_ids].sum())
+                outer.append(dict(i=i, val=float(val),
+                                  hypergrad=hg['domain_logits'].detach(),
+                                  logits=hparams['domain_logits'].detach(),
+                                  noisy_weight=noisy, **secs))
+                print(f'[outer] step {i+1} val(pre-update)={float(val):.4f} '
+                      f'noisy-domain weight={noisy:.3f} '
+                      f'(uniform={len(stream.noisy_domains) / stream.n_domains:.3f})',
+                      flush=True)
+            if ckpt and (i + 1) % ckpt_every == 0:
+                ckpt.save(i + 1, {'params': params, 'opt': opt_state,
+                                  'h': hparams, 'houter': outer_state})
+                saved = i + 1
+    if ckpt:
+        if saved != steps:      # the step's directory exists otherwise
+            ckpt.save(steps, {'params': params, 'opt': opt_state,
+                              'h': hparams, 'houter': outer_state})
+        ckpt.wait()
+    final = 'none' if loss is None else f'{float(loss):.4f}'
+    print(f'[train] done: {steps} steps, final loss {final}')
+    return LMRun(params=params, opt_state=opt_state, hparams=hparams,
+                 outer_state=outer_state, losses=losses, step_s=step_s,
+                 outer=outer)
+
+
+def _run_lm(args):
+    """No ``--problem``: the bilevel LM trainer on ``--arch``."""
+    if args.production_mesh:
+        raise SystemExit(
+            '--production-mesh needs a device mesh, and the port runs on one '
+            'card: the distributed work is ROADMAP item 12, not ported')
+    from repro_torch.configs import get_config
+    from repro_torch.device import resolve_device
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    dev = resolve_device(args.device)
+    print(f'[train] arch={cfg.name} params~{cfg.param_count()/1e6:.1f}M '
+          f'device={dev}')
+    # registry-driven flag forwarding: explicitly passed flags the solver
+    # does not consume are refused, never silently dropped
+    hg_cfg = config_from_cli(
+        args.solver,
+        flags={'k': args.k, 'rho': args.rho,
+               'sketch_refresh_every': args.sketch_refresh_every},
+        defaults={'k': 8, 'rho': 1e-2},
+        column_chunk=4)
+    return train_lm(cfg, hg_cfg, steps=args.steps, batch=args.batch,
+                    seq=args.seq, outer_every=args.outer_every,
+                    ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
+                    log_every=args.log_every, device=dev)
+
 
 def _run_graph(args):
     """``--problem <graph-name>``: a multi-level GRAPHS entry (trilevel
@@ -150,18 +371,26 @@ def _serve_problem(problem, hg_cfg, args):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(
-        description='Run a registered problem of the port (repro_torch).')
-    ap.add_argument('--arch', default=None,
-                    help='the LM training pipeline: ROADMAP item 12, not '
-                         'ported')
+        description='Train a transformer with bilevel data reweighting, or '
+                    'run a registered problem, on the port (repro_torch).')
+    ap.add_argument('--arch', default='yi_9b',
+                    help='the LM trainer\'s architecture (repro_torch.configs: '
+                         'yi_9b | qwen2_7b)')
+    ap.add_argument('--reduced', action='store_true',
+                    help='tiny same-family config (CPU smoke / CI)')
+    ap.add_argument('--steps', type=int, default=200)
+    ap.add_argument('--batch', type=int, default=8)
+    ap.add_argument('--seq', type=int, default=128)
+    ap.add_argument('--outer-every', type=int, default=50,
+                    help='inner steps between Nyström hypergradient updates')
     ap.add_argument('--problem', default=None,
                     help='a registered problem (repro_torch.core PROBLEMS, '
                          'e.g. reweighting | distillation | logreg_wd | '
                          'influence) through solve()/influence(), or a '
                          'multi-level graph (repro_torch.engine GRAPHS: '
-                         'distill_hpo | reweight_maml) through Engine.solve; '
-                         '--steps then counts outer (resp. training) steps. '
-                         'The LM pipeline (no --problem) is not ported')
+                         'distill_hpo | reweight_maml) through Engine.solve, '
+                         'instead of the LM trainer; --steps then counts '
+                         'outer (resp. training) steps')
     ap.add_argument('--solver', default='nystrom')
     ap.add_argument('--k', type=int, default=None,
                     help='sketch rank / iterations (default 8)')
@@ -171,7 +400,6 @@ def main(argv=None):
                     help='outer steps between sketch rebuilds (default 1 = '
                          'fresh every outer step; N>1 reuses the sketch for '
                          'N-1 steps, saving k HVPs each)')
-    ap.add_argument('--steps', type=int, default=200)
     ap.add_argument('--queries', type=int, default=8,
                     help='influence problems: query-block width m')
     ap.add_argument('--top-k', type=int, default=10,
@@ -182,15 +410,16 @@ def main(argv=None):
                          'and answer --queries queries cold then warm, '
                          'printing latency/cache stats, instead of one '
                          'influence() call')
+    ap.add_argument('--ckpt-dir', default=None)
+    ap.add_argument('--ckpt-every', type=int, default=100)
+    ap.add_argument('--production-mesh', action='store_true',
+                    help='refused: one card has no mesh (ROADMAP item 12)')
     ap.add_argument('--log-every', type=int, default=10)
     ap.add_argument('--device', default=None,
                     help="where to run: the CUDA card unless 'cpu'")
     args = ap.parse_args(argv)
     if args.problem is None:
-        raise SystemExit(
-            'the LM training pipeline (--arch) is ROADMAP item 12, which the '
-            'port does not have yet; pass --problem to run a registered '
-            'problem')
+        return _run_lm(args)
     return _run_problem(args)
 
 

@@ -3,7 +3,8 @@
 ``build_model(cfg, device=None)`` returns a :class:`Model` whose ``init``
 draws random parameters on the model's device (the card unless the caller
 asks for ``device='cpu'``) and whose ``forward`` runs where the parameters
-lie. Decode and the training loss are not ported yet.
+lie (``transformer.train_loss`` is the training loss). Decode is not
+ported yet.
 """
 from __future__ import annotations
 

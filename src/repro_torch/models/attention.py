@@ -38,8 +38,8 @@ def init_attention(cfg: ModelConfig, generator: torch.Generator,
          'wo': dense_init(generator, (H * hd, d), dtype)}
     if cfg.qkv_bias:
         for name, n in (('bq', H), ('bk', KV), ('bv', KV)):
-            p[name] = torch.zeros((n * hd,), dtype=dtype,
-                                  device=generator.device)
+            p[name] = torch.zeros((n * hd,), dtype=dtype, device=(
+                'meta' if generator is None else generator.device))
     return p
 
 

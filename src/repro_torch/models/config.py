@@ -6,9 +6,10 @@ to the reference's. The port runs the dense family so far
 (``repro_torch/models/transformer.py``); the fields of the other families
 are carried so that configs stay equal and later slices can use them.
 
-``fsdp``, ``seq_shard``, ``remat`` and ``scan_layers`` do nothing in the
-port yet: it runs on one card, keeps one weight dict per layer and does no
-training.
+``fsdp`` and ``seq_shard`` do nothing in the port yet: it runs on one
+card. ``remat`` (with ``scan_layers``, as in the reference) checkpoints
+each block in a training pass; the port keeps one weight dict per block
+whatever ``scan_layers`` says.
 """
 from __future__ import annotations
 

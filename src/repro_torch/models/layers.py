@@ -28,10 +28,13 @@ def cdtype(cfg: ModelConfig) -> torch.dtype:
     return _DTYPES[cfg.compute_dtype]
 
 
-def dense_init(generator: torch.Generator, shape, dtype: torch.dtype,
+def dense_init(generator: torch.Generator | None, shape, dtype: torch.dtype,
                scale: float | None = None) -> torch.Tensor:
     """Truncated-normal fan-in init (±3σ), drawn in f32 on the generator's
-    device and cast to ``dtype`` at once."""
+    device and cast to ``dtype`` at once. ``generator=None``: an unfilled
+    ``meta`` tensor (shapes only)."""
+    if generator is None:
+        return torch.empty(shape, dtype=dtype, device='meta')
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     std = scale if scale is not None else fan_in ** -0.5
     w = torch.empty(shape, dtype=torch.float32, device=generator.device)
@@ -122,3 +125,21 @@ def unembed(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         pad = torch.arange(cfg.padded_vocab, device=x.device) >= cfg.vocab_size
         logits = logits.masked_fill(pad, torch.finfo(logits.dtype).min)
     return logits
+
+
+# ----------------------------------------------------------------- loss
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: torch.Tensor | None = None,
+                  z_loss: float = 0.0) -> torch.Tensor:
+    """Token-mean CE in f32 with an optional z-loss (``z_loss`` · lse², the
+    logit-norm stabilizer); with ``mask``, the mean over its weight
+    (at least 1)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    loss = lse - ll
+    if z_loss:
+        loss = loss + z_loss * lse ** 2
+    if mask is not None:
+        return (loss * mask).sum() / torch.clamp(mask.sum(), min=1)
+    return loss.mean()

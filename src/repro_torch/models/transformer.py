@@ -7,16 +7,26 @@ with the reference's names; ``blocks`` is a list with one dict per block of
 the reference's tree without ``scan_layers``' stacking. Depth is a Python
 loop.
 
+``train_loss`` is the reference's masked next-token CE, weighted by
+example: the bilevel inner objective of §5.4's data reweighting.
+``cfg.remat`` (with ``scan_layers``, the reference's condition) runs each
+block under ``torch.utils.checkpoint`` in a plain autograd pass; inside
+``torch.func`` transforms (the HVP columns, the mixed term), which refuse
+checkpoint's saved-tensor hooks, the blocks run plainly. Remat moves
+memory, not values.
+
 Only the dense family runs so far: attention mixers with dense SwiGLU
 FFNs, token inputs and plain RoPE. MoE, Mamba, RWKV, encoder-decoder and
 M-RoPE configs raise ``NotImplementedError`` (``ROADMAP.md`` queue 1 item
-12), as do decode and the training loss.
+12), as does decode.
 """
 from __future__ import annotations
 
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
@@ -51,9 +61,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     near its bf16 size plus one f32 weight."""
     check_ported(cfg)
     dev = resolve_device(device)
-    if generator.device.type != dev.type:
-        raise ValueError(f'generator on {generator.device}, parameters on '
-                         f'{dev}')
+    gen_dev = 'meta' if generator is None else generator.device.type
+    if gen_dev != dev.type:      # no generator: abstract_params, on meta
+        raise ValueError(f'generator on {gen_dev}, parameters on {dev}')
     dtype = pdtype(cfg)
     params: dict[str, Any] = {'embed': init_embedding(cfg, generator, dtype)}
     if not cfg.tie_embeddings:
@@ -69,6 +79,12 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     return params
 
 
+def abstract_params(cfg: ModelConfig) -> dict:
+    """The parameter tree as unfilled ``meta`` tensors: shapes, dtypes and
+    leaf order, no storage (the reference's ``jax.eval_shape(init)``)."""
+    return init_params(cfg, None, device='meta')
+
+
 # ------------------------------------------------------------------- forward
 def _apply_slot(cfg: ModelConfig, sp: dict, x: torch.Tensor,
                 rope: tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
@@ -78,6 +94,31 @@ def _apply_slot(cfg: ModelConfig, sp: dict, x: torch.Tensor,
     x = x + attn.multihead_attention(sp['mixer'], h, cfg, rope=rope)
     h = rmsnorm(sp['ln2'], x, cfg.norm_eps, cfg.use_pallas)
     return x + mlp(sp['ffn'], h, cfg)
+
+
+def _apply_block(cfg: ModelConfig, block: dict, x: torch.Tensor,
+                 rope: tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+    for i in range(cfg.block_period):
+        x = _apply_slot(cfg, block[f'slot{i}'], x, rope)
+    return x
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """remat='dots': keep the outputs of plain matmuls (the reference's
+    ``dots_with_no_batch_dims_saveable``), recompute the rest."""
+    del ctx, args, kwargs
+    return (CheckpointPolicy.MUST_SAVE if op is torch.ops.aten.mm.default
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_active(cfg: ModelConfig) -> bool:
+    """Blocks run under activation checkpointing: ``cfg.remat`` with
+    ``scan_layers`` (the reference remats the scanned body only), in an
+    autograd pass that records a graph, outside ``torch.func``'s
+    transforms."""
+    return (cfg.remat != 'none' and cfg.scan_layers
+            and torch.is_grad_enabled()
+            and torch._C._functorch.peek_interpreter_stack() is None)
 
 
 def forward(cfg: ModelConfig, params: dict, inputs: torch.Tensor,
@@ -91,10 +132,54 @@ def forward(cfg: ModelConfig, params: dict, inputs: torch.Tensor,
         positions = torch.arange(S, dtype=torch.int32,
                                  device=x.device).expand(B, S)
     rope = rope_tables(positions.to(x.device), cfg.head_dim, cfg.rope_theta)
+    remat = _remat_active(cfg)
     for block in params['blocks']:
-        for i in range(cfg.block_period):
-            x = _apply_slot(cfg, block[f'slot{i}'], x, rope)
+        if not remat:
+            x = _apply_block(cfg, block, x, rope)
+        elif cfg.remat == 'dots':
+            x = checkpoint(_apply_block, cfg, block, x, rope,
+                           use_reentrant=False,
+                           context_fn=lambda: (
+                               create_selective_checkpoint_contexts(
+                                   _save_dots)))
+        else:
+            x = checkpoint(_apply_block, cfg, block, x, rope,
+                           use_reentrant=False)
     x = rmsnorm(params['final_norm'], x, cfg.norm_eps)
     table = params['embed'] if cfg.tie_embeddings else params['unembed']
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return unembed(table, x, cfg), aux
+
+
+# ------------------------------------------------------------------- losses
+def train_loss(cfg: ModelConfig, params: dict, batch: dict,
+               example_weights: torch.Tensor | None = None) -> torch.Tensor:
+    """Next-token CE, the bilevel inner objective f.
+
+    ``batch``: ``inputs`` and ``labels`` (B, S) ints, optional ``mask``
+    (B, S) and ``positions``. ``example_weights``: optional (B,) loss
+    weights per example, where the outer parameters of data reweighting
+    (§5.4) enter. The reference's formula, op for op: the logits stay in
+    the compute dtype, the log-sum-exp and the label's logit (a masked max,
+    as the reference picks it) are reduced in f32, and the loss is
+    Σ tok·w / max(Σ w, 1e-6) plus the dense family's zero aux term."""
+    logits, aux = forward(cfg, params, batch['inputs'],
+                          positions=batch.get('positions'))
+    labels = batch['labels'].to(logits.device)
+    mask = batch.get('mask')
+    V = logits.shape[-1]
+    is_label = (torch.arange(V, device=logits.device)
+                == labels[..., None].long())
+    m = torch.amax(logits, dim=-1).float()                       # (B, S)
+    sumexp = torch.sum(torch.exp(logits.float() - m[..., None]), dim=-1)
+    lse = m + torch.log(sumexp)
+    ll = torch.amax(torch.where(is_label, logits,
+                                torch.finfo(logits.dtype).min),
+                    dim=-1).float()
+    tok_loss = lse - ll                                          # (B, S)
+    mask = (torch.ones_like(tok_loss) if mask is None
+            else mask.to(tok_loss.device))
+    if example_weights is not None:
+        mask = mask * example_weights[:, None]
+    loss = (tok_loss * mask).sum() / torch.clamp(mask.sum(), min=1e-6)
+    return loss + aux

@@ -1,5 +1,12 @@
-from repro_torch.optim.optimizers import (AdamState, Optimizer, adam, chain,
-                                          clip_by_global_norm, momentum, sgd)
+from repro_torch.optim.optimizers import (AdafactorState, AdamState,
+                                          Optimizer, adafactor, adam, adamw,
+                                          chain, clip_by_global_norm,
+                                          cosine_schedule, momentum,
+                                          scale_by_schedule, sgd,
+                                          stacked_blocks,
+                                          warmup_cosine_schedule)
 
-__all__ = ['AdamState', 'Optimizer', 'adam', 'chain', 'clip_by_global_norm',
-           'momentum', 'sgd']
+__all__ = ['AdafactorState', 'AdamState', 'Optimizer', 'adafactor', 'adam',
+           'adamw', 'chain', 'clip_by_global_norm', 'cosine_schedule',
+           'momentum', 'scale_by_schedule', 'sgd', 'stacked_blocks',
+           'warmup_cosine_schedule']

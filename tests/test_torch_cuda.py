@@ -34,6 +34,11 @@ The ninth slice's gates (``chip_smoke.py`` phase 17): second derivatives
 through ``implicit_root`` and the engine's two registered graphs, the
 kernels against ``backend='flat'`` at 1e-4 relative, with kernels A, B
 and C each launched on the way.
+
+The tenth slice's lean sketch build on the card: at p ≈ 2²⁰ the fused
+buffer (written chunk by chunk) and B bitwise equal to the old path's, and
+the row-blocked ``mul_right`` bitwise the unblocked product at the real
+block size (``cv`` within 1e-6, as on the CPU).
 """
 import ctypes
 import math
@@ -852,3 +857,70 @@ def test_engine_graph_through_the_kernels_matches_flat(cuda, name):
     assert _launched_a_b_c(_lib.LAUNCHES), _lib.LAUNCHES
     for a, b in zip(losses['cuda'], losses['flat']):
         assert math.isfinite(a) and abs(a - b) <= 1e-4 * abs(b)
+
+
+def _wide_mlp(device):
+    """An MLP with p = 1,049,087 ≈ 2²⁰ parameters on ``device``, and an
+    HVP of its loss."""
+    from repro_torch.core import make_hvp
+    g = torch.Generator().manual_seed(0)
+    params = {'l1': {'w': torch.randn(512, 1024, generator=g) * 0.05,
+                     'b': torch.zeros(1024)},
+              'l2': {'w': torch.randn(1024, 511, generator=g) * 0.05}}
+    x = torch.randn(64, 512, generator=g)
+    y = torch.randn(64, 511, generator=g)
+    params = {n: {k: v.to(device) for k, v in d.items()}
+              for n, d in params.items()}
+
+    def loss(p, batch):
+        xb, yb = batch
+        h = torch.tanh(xb @ p['l1']['w'] + p['l1']['b'])
+        return ((h @ p['l2']['w'] - yb) ** 2).mean()
+
+    return params, make_hvp(loss, params, (x.to(device), y.to(device)))
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('chunk', [3, None])
+def test_lean_build_is_bitwise_the_old_path_on_the_card(cuda, dtype, chunk):
+    from test_torch_lm_build import _old_columns, _old_mul_right, _old_operand
+
+    from repro_torch.core import PyTreeIndexer
+    from repro_torch.core.solvers import _EIG_REL_TOL
+    params, hvp = _wide_mlp(cuda)
+    indexer = PyTreeIndexer(params)
+    assert abs(indexer.total - 2 ** 20) < 2 ** 12
+    k = 8
+    idx = indexer.sample_indices(torch.Generator().manual_seed(1), k)
+    be = CudaBackend(sketch_dtype=dtype)
+    sketch = NystromIHVP(k=k, column_chunk=chunk, backend=be).prepare(
+        hvp, indexer, None, indices=idx)
+    C_tree = _old_columns(hvp, indexer, idx, chunk)
+    C_old = _old_operand(be, C_tree)
+    assert sketch.C.device.type == cuda.type
+    assert torch.equal(sketch.C, C_old)
+    H_KK = indexer.gather(C_tree, idx)
+    H_KK = 0.5 * (H_KK + H_KK.T)
+    assert torch.equal(sketch.H_KK, H_KK)
+    lam, U = torch.linalg.eigh(H_KK)
+    tol = _EIG_REL_TOL * (torch.max(torch.abs(lam)) + 1e-30) * k
+    inv_sqrt = torch.where(lam > tol, 1.0 / torch.sqrt(torch.maximum(lam,
+                                                                     tol)),
+                           torch.zeros_like(lam))
+    assert torch.equal(sketch.B,
+                       _old_mul_right(be, C_old, U * inv_sqrt[None, :]))
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_row_blocked_mul_right_is_the_unblocked_product(cuda, dtype):
+    from repro_torch.core import backend as backend_mod
+    from repro_torch.core.backend import _mm
+    p, k = backend_mod.ROW_BLOCK + 4099, 8
+    C = _randn((p, k), dtype, cuda, 3)
+    M = _randn((k, k), torch.float32, cuda, 4)
+    w = _randn((k,), torch.float32, cuda, 5)
+    be = CudaBackend(sketch_dtype=dtype)
+    assert torch.equal(be.mul_right(C, M), _mm(C, M).to(dtype))
+    whole = _mm(C, w)
+    torch.testing.assert_close(be.cv(C, w), whole, rtol=1e-6,
+                               atol=1e-6 * float(whole.abs().max()))

@@ -48,7 +48,7 @@ def test_oneshot_influence_and_solve_routes(capsys):
 
 
 @pytest.mark.parametrize('argv,item', [
-    (['--arch', 'yi_9b'], 'item 12'),
+    (['--arch', 'yi_9b', '--production-mesh'], 'item 12'),
 ])
 def test_routes_not_ported_exit_with_their_item(argv, item):
     with pytest.raises(SystemExit, match=item):

@@ -1,6 +1,6 @@
 """The port stands alone: every module of ``repro_torch`` (the serving
-tier, checkpoints, the multi-level engine and the training CLI included)
-imports with ``jax`` and
+tier, checkpoints, the multi-level engine, the data loader, the LM steps
+and the training CLI's LM route included) imports with ``jax`` and
 ``repro`` blocked, and its entry points refuse to drop to the CPU on their
 own."""
 import os
@@ -56,6 +56,10 @@ from repro_torch.engine import (GRAPHS, Engine, EngineConfig, distill_hpo,
                                 engine_edge_bills, engine_hypergrad,
                                 get_graph, reweight_maml)
 assert sorted(GRAPHS) == ['distill_hpo', 'reweight_maml']
+from repro_torch.data import Prefetcher, ShardedLoader, TokenStream
+from repro_torch.launch.steps import (N_DOMAINS, build_hypergrad_step,
+                                      build_train_step, make_optimizer)
+from repro_torch.launch.train import train_lm
 problem = build_logreg_weight_decay(D=5, n=8, device='cpu')
 if not torch.cuda.is_available():
     w = {'w': torch.zeros(5)}
@@ -85,6 +89,11 @@ if not torch.cuda.is_available():
             ('get_graph', lambda: get_graph('reweight_maml')),
             ('launch.train graph', lambda: train_main(
                 ['--problem', 'reweight_maml', '--steps', '1'])),
+            ('train_lm', lambda: train_lm(
+                get_config('yi_9b').reduced(), HypergradConfig(k=2),
+                steps=1, batch=2, seq=4, outer_every=1)),
+            ('launch.train lm', lambda: train_main(
+                ['--arch', 'yi_9b', '--reduced', '--steps', '1'])),
             ('hypergrad_at', lambda: hypergrad_at(
                 problem, HypergradConfig(k=2, backend='cuda'), w,
                 {'wd': torch.ones(5)}, problem.data.train_batch(0, 4),
