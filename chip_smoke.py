@@ -243,6 +243,45 @@ The bilevel LM trainer (the tenth slice), ``launch.train.train_lm``:
     the f64 apply on kernel A's own gram, and the eigenvalues of BᵀB
     against ρ; gram on ``atb_tc``, ctv and the vector apply launched.
 
+The decode path and the MoE family (the eleventh slice), random bf16
+weights from a seed, the plain PyTorch decode (no kernel, as in the
+reference; kernels A–E must launch 0 times in every decode run):
+
+19. Yi-9B at full width and depth. (a) Decode against ``forward`` (the
+    plain path) on B = 4 prompts of T = 32 tokens fed one at a time from an
+    empty cache (``max_len`` 64), relative L2 of the logits at every
+    position: with f32 compute (the bf16 weights widened) at full depth
+    ≤ 1e-4, in bf16 at depth ``PARITY_LAYERS`` ≤ 2e-2 (phase 10's gate
+    and depth), and in bf16 at full depth printed, ungated, beside the
+    forward's own gap between one row alone and in the batch: at 48
+    layers that gap is as large as decode's (bf16 roundings that change
+    with the GEMMs' shapes, grown through the depth). (b) Serving:
+    B = 32 sequences in an 8192-entry cache (25.8 GB; cut from
+    ``decode_32k``'s 128 × 32768, 412 GB), a 16-token prompt then 64
+    greedy tokens through ``build_serve_step``: ms per step (median after
+    ``DECODE_WARM``), tokens/s, peak memory, and one profiled step's
+    device time by family (decode attention, GEMMs, elementwise, rest),
+    kernel count and idle share.
+20. The MoE family at full width. (a) Phi-3.5-MoE, depth 16 (cut from 32:
+    83.7 GB), ``use_pallas=True``: 3 requests of 4 × 4096 tokens after a
+    warm-up, each launching kernel D 32 times and E 16 times, all on
+    ``flash_fwd_tc``: ms per prefill, tokens/s, peak memory, host syncs
+    of one prefill (sync debug mode), one profiled prefill by family
+    (expert GEMMs, other GEMMs, router GEMMs, routing and combine, E, D,
+    elementwise, rest) and its idle share; then the kernel path against
+    the plain path at depth 4 (phase 10's gates, f32 ≤ 1e-4 and bf16
+    ≤ 2e-2) over the sequences whose last token routed alike on both
+    paths, with the count of tokens whose routing flipped. (b) Phi decode:
+    (a)'s consistency (B = 4, T = 32) and serving at B = 32 with a
+    4096-entry cache (8.6 GB). (c) One Llama-4 Maverick block
+    (``n_layers=2``: a dense layer, then 128 experts top-1 with the shared
+    expert, 37.1 GB): one prefill of 1 × 4096 tokens through D and E after
+    a warm-up, then 16 decode steps at B = 4 against ``forward``, and the
+    peak memory. In the MoE comparisons a token whose experts differ
+    between the two runs in some layer (a routing flip at a near-tie) is
+    left out with the tokens after it, and the flips are counted; at
+    least B tokens must be compared.
+
 The line before the last is the kernels' JSON record (seven rows, kernel
 E's the tensor-core variant at the prefill's own call; rows 1–5 also
 carry their p = 2²⁴ f32 and bf16 times under ``p24`` and the p = 2²⁰
@@ -255,7 +294,8 @@ record under ``alg1_p24``, rows 1–5 the launches of phases 13–15 under
 ``influence_launches``, phase 16's by pass under ``serve_launches``, and
 phase 17's under ``engine_launches``: (a), each graph of (b), and (c) per
 timed step; phase 18's under ``lm_launches``: (a)'s cuda run and (b)'s
-training run);
+training run; rows 6–7 phase 20's prefills under ``moe_launches``, and
+every row phases 19–20's decode runs under ``decode_launches``, all 0);
 the last
 line is ``{"ok": true, "device": {...}}``; standard error ends with the
 seconds each phase took and the whole run's. Without a CUDA device, or
@@ -2226,6 +2266,505 @@ def run_lm_full(torch, dev, smi: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 19-20. The model zoo's decode path and the MoE family
+# ---------------------------------------------------------------------------
+DECODE_B, DECODE_SMAX, DECODE_PROMPT, DECODE_NEW = 32, 8192, 16, 64
+CONSIST_B, CONSIST_T, CONSIST_MAX = 4, 32, 64
+PHI_DEPTH, PHI_SMAX = 16, 4096
+MAVERICK_LAYERS, MAVERICK_S, MAVERICK_STEPS = 2, 4096, 16
+DECODE_WARM = 4       # decode steps left out of the median
+GEMM_KEYS = ('gemm', 'nvjet', 'xmma', 'cutlass', 'gemv')
+
+
+def _sum(*counts: dict) -> dict:
+    """Launch counts added key by key."""
+    return {n: sum(c.get(n, 0) for c in counts)
+            for n in {n for c in counts for n in c}}
+
+
+@contextlib.contextmanager
+def _ranges(torch, *targets):
+    """While the block runs, each call of ``module.attr`` runs under a
+    ``torch.profiler`` range ``label``: targets are (module, attr, label)."""
+    saved = [(module, attr, getattr(module, attr))
+             for module, attr, _ in targets]
+    for (module, attr, label), (_, _, fn) in zip(targets, saved):
+        def ranged(*args, _fn=fn, _label=label, **kwargs):
+            with torch.profiler.record_function(_label):
+                return _fn(*args, **kwargs)
+        setattr(module, attr, ranged)
+    try:
+        yield
+    finally:
+        for module, attr, fn in saved:
+            setattr(module, attr, fn)
+
+
+def _model_ranges(torch):
+    """Profiler ranges around the decode attention's core and the MoE
+    layer's parts, for :func:`_family`."""
+    from repro_torch.models import attention, moe
+    return _ranges(torch, (attention, '_decode_core', 'decode.attention'),
+                   (moe, '_moe_local', 'moe.layer'),
+                   (moe, '_grouped', 'moe.experts'))
+
+
+def _family(name: str, ops: set) -> str:
+    """The family of a kernel, from its name and the names of the op that
+    launched it and that op's enclosing ops and ranges."""
+    gemm = any(key in name for key in GEMM_KEYS)
+    if 'flash_fwd' in name:
+        return 'flash (kernel E)'
+    if 'rmsnorm_rows' in name:
+        return 'RMSNorm (kernel D)'
+    if 'moe.experts' in ops:
+        return 'expert GEMMs'
+    if 'moe.layer' in ops:
+        return ('router and shared-expert GEMMs' if gemm else
+                'routing and combine (softmax, top-k, argsort, gathers, '
+                'counts, act*g, gates)')
+    if 'decode.attention' in ops:
+        return 'decode attention (q.k, mask, softmax, p.v)'
+    if gemm:
+        return 'GEMMs (attention projections, dense FFN, unembedding)'
+    return 'elementwise' if 'elementwise' in name else 'rest'
+
+
+def _by_family(torch, fn, label: str, step_ms: float):
+    """``fn`` once under ``torch.profiler`` with :func:`_model_ranges`:
+    device time by :func:`_family`, the kernel count and the device's idle
+    share against the unprofiled ``step_ms``. Kernels D and E are found by
+    name, the others through the op that launched them and its
+    ancestors."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with _model_ranges(torch), profile(activities=[
+            ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and not getattr(e, 'is_user_annotation', False)]
+    if not kernels:
+        print(f'{label}: the profiler recorded no device events; device '
+              'time not measured', flush=True)
+        return
+    split: dict = {}
+    for k in kernels:       # D and E launch from ctypes, under no aten op
+        fam = _family(k.name.lower(), set())
+        if fam in ('flash (kernel E)', 'RMSNorm (kernel D)'):
+            split[fam] = split.get(fam, 0.0) + k.time_range.elapsed_us() / 1e3
+    for e in events:
+        if e.device_type != DeviceType.CPU or not e.kernels:
+            continue
+        ops, parent = set(), e
+        while parent is not None:
+            ops.add(parent.name)
+            parent = parent.cpu_parent
+        for k in e.kernels:
+            fam = _family(k.name.lower(), ops)
+            if fam not in ('flash (kernel E)', 'RMSNorm (kernel D)'):
+                split[fam] = split.get(fam, 0.0) + k.duration / 1e3
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    left = busy - sum(split.values())
+    if left > 1e-3 * busy:
+        split['not attributed to an op'] = left
+    for fam, ms in sorted(split.items(), key=lambda kv: -kv[1]):
+        print(f'{label}: {fam:<58} {ms:10.3f} ms device '
+              f'({100 * ms / busy:5.1f}%)', flush=True)
+    print(f'{label}: {len(kernels)} kernels, {busy:.3f} ms of device time; '
+          f'unprofiled {step_ms:.3f} ms: device idle '
+          f'{100 * (1 - busy / step_ms):.1f}%', flush=True)
+
+
+@contextlib.contextmanager
+def _routes(torch, log: list):
+    """While the block runs, each MoE layer's routing goes to ``log`` on
+    the host: (experts chosen, sorted (N, k); the margin between the k-th
+    and the (k+1)-th router probability (N,))."""
+    from repro_torch.models import moe
+    route = moe.route
+
+    def logged(params, xt, cfg):
+        out = route(params, xt, cfg)
+        top = torch.topk(out[0], cfg.top_k + 1, dim=-1).values
+        log.append((torch.sort(out[2], dim=-1).values.cpu(),
+                    (top[:, -2] - top[:, -1]).cpu()))
+        return out
+
+    moe.route = logged
+    try:
+        yield log
+    finally:
+        moe.route = route
+
+
+def _flips(torch, want: list, got: list, B: int, S: int):
+    """(B, S) bool: the token chose other experts in some MoE layer in
+    ``got`` than in ``want`` (logs of :func:`_routes`; ``got`` may hold one
+    entry a layer for each of S decode steps), and the margins in ``want``
+    at those flips."""
+    L = len(want)
+    flipped = torch.zeros((B, S), dtype=torch.bool)
+    margins = []
+    for layer, (experts, margin) in enumerate(want):
+        experts, margin = experts.view(B, S, -1), margin.view(B, S)
+        if len(got) == L:
+            other = got[layer][0].view(B, S, -1)
+        else:
+            other = torch.stack([got[t * L + layer][0].view(B, -1)
+                                 for t in range(S)], dim=1)
+        flip = (other != experts).any(-1)
+        flipped |= flip
+        margins += margin[flip].tolist()
+    return flipped, margins
+
+
+def _decode_vs_forward(torch, cfg, params, B: int, T: int, max_len: int):
+    """B prompts of T random tokens fed one at a time through
+    ``build_serve_step`` from an empty cache, and ``forward`` (the plain
+    path) on the same tokens. Returns the worst relative L2 of the logits
+    at a position over the sequences with no routing flip at or before it
+    (a flip changes its token's output and, through attention, the tokens
+    after it), the tokens compared, the flips and their margins, the
+    launches during decode, and the forward's own worst gap at a position
+    between its first row run alone and in the batch of B."""
+    from repro_torch.kernels import _lib
+    from repro_torch.launch.steps import build_serve_step
+    from repro_torch.models import transformer
+    plain = dataclasses.replace(cfg, use_pallas=False)
+    tokens = torch.randint(0, cfg.vocab_size, (B, T),
+                           generator=torch.Generator().manual_seed(11))
+    dev = params['final_norm']['scale'].device
+    fwd_log, dec_log = [], []
+    V = cfg.vocab_size       # past it the pad logits (finfo.min) overflow L2
+    with torch.inference_mode():
+        with _routes(torch, fwd_log):
+            want, _ = transformer.forward(plain, params, tokens.to(dev))
+        alone, _ = transformer.forward(plain, params, tokens[:1].to(dev))
+    want, alone = want[..., :V], alone[..., :V]
+    floor = max(_rel_l2(alone[0, t], want[0, t]) for t in range(T))
+    step = build_serve_step(plain)
+    cache = transformer.init_cache(plain, B, max_len)
+    _lib.reset_launches()
+    got = []
+    with _routes(torch, dec_log):
+        for t in range(T):
+            logits, cache = step(params, tokens[:, t:t + 1], cache)
+            got.append(logits)
+    torch.cuda.synchronize()
+    launches = dict(_lib.LAUNCHES)
+    if any(launches.values()) or int(cache['pos']) != T:
+        raise AssertionError(f'decode: pos {int(cache["pos"])}, launches '
+                             f'{launches}')
+    got = torch.cat(got, 1)[..., :V]
+    flipped, margins = (_flips(torch, fwd_log, dec_log, B, T) if fwd_log
+                        else (torch.zeros((B, T), dtype=torch.bool), []))
+    keep = ~torch.cumsum(flipped.int(), dim=1).bool()
+    worst, compared = 0.0, 0
+    for t in range(T):
+        rows = keep[:, t].nonzero().flatten().to(dev)
+        if len(rows):
+            err = _rel_l2(got[rows, t], want[rows, t])
+            if not math.isfinite(err):
+                raise AssertionError(f'decode vs forward at {t}: {err}')
+            worst = max(worst, err)
+            compared += len(rows)
+    return worst, compared, int(flipped.sum()), margins, launches, floor
+
+
+def _consistency(torch, cfg, params, label: str, B: int, T: int,
+                 max_len: int, smi: str) -> dict:
+    """Decode against ``forward`` (:func:`_decode_vs_forward`), three ways:
+    f32 compute (the bf16 weights widened) at the model's depth, gated at
+    1e-4 at every position, where a fault of the decode path cannot hide
+    under rounding; bf16 at depth ``PARITY_LAYERS`` (or the model's, if
+    less), gated at 2e-2, phase 10's bf16 gate and depth; and bf16 at the
+    model's depth, printed beside the forward's own gap between a row run
+    alone and in the batch, ungated: at Yi-9B's 48 layers that gap is as
+    large as decode's (bf16 roundings that differ with the GEMMs' shapes,
+    grown over the depth). At least B tokens must be compared. Returns
+    the launches (kernels A–E must not launch)."""
+    depth = min(cfg.n_layers, PARITY_LAYERS)
+    cut = dict(params, blocks=params['blocks'][:depth // cfg.block_period])
+    runs = [('f32 compute', dataclasses.replace(cfg, compute_dtype='float32'),
+             params, 1e-4),
+            ('bf16', dataclasses.replace(cfg, n_layers=depth), cut, 2e-2)]
+    if depth < cfg.n_layers:
+        runs.append(('bf16', cfg, params, None))
+    launches = {}
+    for tag, c, prm, tol in runs:
+        worst, compared, flips, margins, runs_launches, floor = \
+            _decode_vs_forward(torch, c, prm, B, T, max_len)
+        launches = _sum(launches, runs_launches)
+        if tol is not None and (compared < B or not worst <= tol):
+            raise AssertionError(
+                f'{label} decode vs forward, {tag}, depth {c.n_layers}: '
+                f'worst rel L2 {worst:.3e} (tol {tol}) over {compared} '
+                'tokens')
+        gate = 'ungated' if tol is None else f'<= {tol}'
+        note = (f'; {flips} routing flips (margins '
+                f'{", ".join(f"{m:.2e}" for m in margins[:8])}), '
+                f'{B * T - compared} of {B * T} tokens left out'
+                if c.n_experts else '')
+        print(f'{label} decode vs forward (plain path), {tag}, depth '
+              f'{c.n_layers}: B={B} T={T}, worst rel L2 at a position '
+              f'{worst:.3e} ({gate}) over {compared} tokens{note}; the '
+              f"forward's own gap, one row alone vs in the batch: "
+              f'{floor:.3e}; no kernel launched ({smi})', flush=True)
+    return launches
+
+
+def _serve_decode(torch, cfg, params, label: str, B: int, smax: int,
+                  prompt: int, new: int, smi: str) -> dict:
+    """Serving: a ``prompt``-token prompt fed through ``build_serve_step``,
+    then ``new`` greedy tokens, B sequences in an ``smax``-entry cache. ms
+    per step (median after ``DECODE_WARM``), tokens/s, peak memory, one
+    profiled step by family. Kernels A–E must not launch. Returns the
+    launches."""
+    from repro_torch.kernels import _lib
+    from repro_torch.launch.steps import build_serve_step
+    from repro_torch.models import transformer
+    dev = params['final_norm']['scale'].device
+    step = build_serve_step(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cache = transformer.init_cache(cfg, B, smax)
+    kv_gb = sum(x.numel() * x.element_size()
+                for slot in cache['slots'].values()
+                for x in slot.values()) / 1e9
+    prompts = torch.randint(0, cfg.vocab_size, (B, prompt),
+                            generator=torch.Generator().manual_seed(12))
+    prompts = prompts.to(dev)
+    _lib.reset_launches()
+    secs, out = [], []
+    for t in range(prompt + new):
+        tok = prompts[:, t:t + 1] if t < prompt else out[-1]
+        t0 = time.perf_counter()
+        logits, cache = step(params, tok, cache)
+        nxt = logits.argmax(-1)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        if t >= prompt - 1:
+            out.append(nxt)
+    launches = dict(_lib.LAUNCHES)
+    if any(launches.values()):
+        raise AssertionError(f'{label} decode launched kernels: {launches}')
+    if int(cache['pos']) != prompt + new or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError(f'{label} decode: pos {int(cache["pos"])}, '
+                             'logits not finite')
+    ms = sorted(secs[DECODE_WARM:])[len(secs[DECODE_WARM:]) // 2] * 1e3
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f'{label} decode serving: B={B}, Smax={smax} ({kv_gb:.2f} GB KV '
+          f'cache), {prompt} prompt + {new} greedy tokens: {ms:.3f} ms per '
+          f'step (median of {len(secs) - DECODE_WARM}, first '
+          f'{secs[0] * 1e3:.3f} ms, min {min(secs) * 1e3:.3f}, max '
+          f'{max(secs[DECODE_WARM:]) * 1e3:.3f}), {B / ms * 1e3:.1f} tokens/s, '
+          f'peak memory {peak:.2f} GB; no kernel launched; tokens of '
+          f'sequence 0 {torch.cat(out, 1)[0, :12].tolist()} ({smi})',
+          flush=True)
+    _by_family(torch, lambda: step(params, out[-1], cache),
+               f'{label} decode trace', ms)
+    return launches
+
+
+def _model_params(torch, cfg, seed: int):
+    """Random bf16 serving weights for ``cfg`` on the card from a seeded
+    generator, drawn weight by weight (expert by expert) in f32."""
+    from repro_torch.core import tree_leaves
+    from repro_torch.launch.steps import serve_params
+    from repro_torch.models import build_model
+    t0 = time.perf_counter()
+    params = serve_params(build_model(dataclasses.replace(
+        cfg, param_dtype='bfloat16')).init(
+            torch.Generator('cuda').manual_seed(seed)))
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in tree_leaves(params))
+    print(f'{cfg.name}: {cfg.n_layers} layers d={cfg.d_model} '
+          f'H={cfg.n_heads}/{cfg.n_kv_heads} d_ff={cfg.d_ff} '
+          f'experts={cfg.n_experts} top-{cfg.top_k} vocab={cfg.vocab_size}: '
+          f'{n / 1e9:.3f} B bf16 parameters '
+          f'({torch.cuda.memory_allocated() / 1e9:.2f} GB allocated) drawn in '
+          f'{time.perf_counter() - t0:.1f} s', flush=True)
+    return params
+
+
+def run_decode_yi(torch, dev, smi: str) -> dict:
+    """Phase 19: Yi-9B decode at full width and depth, bf16: consistency
+    with ``forward``, then serving at B = 32 with an 8192-entry cache.
+    Returns the decode launches (all 0)."""
+    from repro_torch.configs import get_config
+    del dev
+    cfg = get_config('yi_9b')
+    params = _model_params(torch, cfg, 0)     # phase 8's weights
+    launches = _consistency(torch, cfg, params, 'yi-9b', CONSIST_B,
+                            CONSIST_T, CONSIST_MAX, smi)
+    launches = _sum(launches, _serve_decode(
+        torch, cfg, params, 'yi-9b', DECODE_B, DECODE_SMAX, DECODE_PROMPT,
+        DECODE_NEW, smi))
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _moe_parity(torch, cfg, label: str) -> None:
+    """Phase 20 (a): the kernel path against the plain path at full width,
+    depth ``PARITY_LAYERS``, B = ``PARITY_B``, S = ``PARITY_S``, on the
+    last position's logits: f32 ≤ 1e-4, bf16 serving ≤ 2e-2 (phase 10's
+    gates), over the sequences whose last token chose the same experts on
+    both paths in every MoE layer; the routing flips anywhere in the
+    sequences are counted."""
+    from repro_torch.kernels import _lib
+    from repro_torch.launch.steps import build_prefill_step, serve_params
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(cfg, n_layers=PARITY_LAYERS,
+                              compute_dtype='float32', param_dtype='float32')
+    params = build_model(cfg).init(torch.Generator('cuda').manual_seed(2))
+    batch = {'inputs': torch.randint(
+        0, cfg.vocab_size, (PARITY_B, PARITY_S),
+        generator=torch.Generator().manual_seed(3))}
+    for tag, dtype, tol in (('f32', 'float32', 1e-4),
+                            ('bf16 serving', 'bfloat16', 2e-2)):
+        prm = params if dtype == 'float32' else serve_params(params)
+        c = dataclasses.replace(cfg, compute_dtype=dtype)
+        logs = ([], [])
+        _lib.reset_launches()
+        with _routes(torch, logs[0]):
+            kern = build_prefill_step(dataclasses.replace(
+                c, use_pallas=True))(prm, batch)
+        counts = (_lib.LAUNCHES['rmsnorm'], _lib.LAUNCHES['flash_attention'],
+                  _lib.LAUNCHES['flash_attention_tc'])
+        with _routes(torch, logs[1]):
+            plain = build_prefill_step(dataclasses.replace(
+                c, use_pallas=False))(prm, batch)
+        flipped, margins = _flips(torch, logs[1], logs[0], PARITY_B,
+                                  PARITY_S)
+        rows = (~flipped[:, -1]).nonzero().flatten().to(kern.device)
+        V = cfg.vocab_size   # past it the pad logits (finfo.min) overflow L2
+        err = (_rel_l2(kern[rows, :V], plain[rows, :V]) if len(rows)
+               else math.nan)
+        tc = PARITY_LAYERS if dtype == 'bfloat16' else 0
+        if not err <= tol or counts != (2 * PARITY_LAYERS, PARITY_LAYERS,
+                                        tc):
+            raise AssertionError(f'{label} parity {tag}: rel L2 {err:.3e} '
+                                 f'(tol {tol}) over {len(rows)} sequences, '
+                                 f'launches {counts}')
+        print(f'{label} parity {tag}: full width, depth cut to '
+              f'{PARITY_LAYERS}, B={PARITY_B} S={PARITY_S}: kernel path vs '
+              f'plain path rel L2 {err:.3e} (<= {tol}) over {len(rows)} of '
+              f'{PARITY_B} last positions, launches {counts}; routing flips '
+              f'between the paths: {int(flipped.sum())} tokens of '
+              f'{PARITY_B * PARITY_S} (margins '
+              f'{", ".join(f"{m:.2e}" for m in margins[:8])})', flush=True)
+        del prm, kern, plain
+    del params
+    torch.cuda.empty_cache()
+
+
+def _moe_prefill(torch, cfg, params, label: str, B: int, S: int,
+                 requests: int, smi: str, trace: bool) -> dict:
+    """``requests`` prefills of B × S random tokens through
+    ``build_prefill_step`` after a warm-up, each launching kernel D twice
+    and kernel E once a layer, every E on the tensor cores. Prints ms per
+    prefill, tokens/s, peak memory and the host syncs of one prefill; with
+    ``trace``, one profiled prefill by family. Returns the launches of one
+    prefill."""
+    import warnings
+    from repro_torch.kernels import _lib
+    from repro_torch.launch.steps import build_prefill_step
+    step = build_prefill_step(cfg)
+    gen = torch.Generator().manual_seed(1)
+    batches = [{'inputs': torch.randint(0, cfg.vocab_size, (B, S),
+                                        generator=gen)}
+               for _ in range(requests + 1)]
+    t0 = time.perf_counter()
+    step(params, batches[0])
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    want = {'rmsnorm': 2 * cfg.n_layers, 'flash_attention': cfg.n_layers,
+            'flash_attention_tc': cfg.n_layers}
+    secs = []
+    for i, batch in enumerate(batches[1:]):
+        _lib.reset_launches()
+        t0 = time.perf_counter()
+        logits = step(params, batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        per = {k: _lib.LAUNCHES[k] for k in want}
+        if tuple(logits.shape) != (B, cfg.padded_vocab) or not bool(
+                torch.isfinite(logits).all()) or per != want:
+            raise AssertionError(f'{label} prefill {i}: logits '
+                                 f'{tuple(logits.shape)}, launches {per}, '
+                                 f'want {want}')
+    launches = dict(_lib.LAUNCHES)
+    ms = sum(secs) / len(secs) * 1e3
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter('always')
+        torch.cuda.set_sync_debug_mode('warn')
+        try:
+            step(params, batches[1])
+        finally:
+            torch.cuda.set_sync_debug_mode('default')
+    syncs = sum('synchroniz' in str(w.message) for w in caught)
+    moe_layers = sum(f == 'moe' for _, f in cfg.layer_kinds()) * cfg.n_blocks
+    print(f'{label} prefill: {requests} requests of {B} x {S} tokens: '
+          f'{", ".join(f"{s * 1e3:.3f}" for s in secs)} ms (warm-up '
+          f'{warm_s * 1e3:.3f} ms), {ms:.3f} ms per prefill, '
+          f'{B * S / ms * 1e3:.0f} tokens/s, peak memory '
+          f'{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, launches per '
+          f'prefill {launches}; host syncs in one prefill (sync debug mode) '
+          f'{syncs}, MoE layers {moe_layers} ({smi})', flush=True)
+    if trace:
+        _by_family(torch, lambda: step(params, batches[1]),
+                   f'{label} prefill trace', ms)
+    return launches
+
+
+def run_moe(torch, dev, smi: str) -> dict:
+    """Phase 20: Phi-3.5-MoE at full width, depth ``PHI_DEPTH``: (a) the
+    prefill through kernels D and E, then the kernel path against the
+    plain path at depth ``PARITY_LAYERS``; (b) decode, consistency and
+    serving; (c) one Llama-4 Maverick block: a prefill, then decode
+    consistency. Returns {'moe': prefill launches, 'decode': launches by
+    run}."""
+    from repro_torch.configs import get_config
+    del dev
+    phi = dataclasses.replace(get_config('phi35_moe_42b_a66b'),
+                              n_layers=PHI_DEPTH, use_pallas=True)
+    params = _model_params(torch, phi, 0)
+    out = {'moe': {'phi35_moe': _moe_prefill(
+        torch, phi, params, 'phi-3.5-moe', PREFILL_B, PREFILL_S, N_REQUESTS,
+        smi, trace=True)}, 'decode': {}}
+    dec = _consistency(torch, phi, params, 'phi-3.5-moe', CONSIST_B,
+                       CONSIST_T, CONSIST_MAX, smi)
+    out['decode']['phi35_moe'] = _sum(dec, _serve_decode(
+        torch, phi, params, 'phi-3.5-moe', DECODE_B, PHI_SMAX, DECODE_PROMPT,
+        DECODE_NEW, smi))
+    del params
+    torch.cuda.empty_cache()
+    _moe_parity(torch, phi, 'phi-3.5-moe')
+
+    mav = dataclasses.replace(get_config('llama4_maverick_400b_a17b'),
+                              n_layers=MAVERICK_LAYERS, use_pallas=True)
+    torch.cuda.reset_peak_memory_stats()
+    params = _model_params(torch, mav, 0)
+    out['moe']['maverick'] = _moe_prefill(
+        torch, mav, params, 'llama4-maverick block', 1, MAVERICK_S, 1, smi,
+        trace=False)
+    out['decode']['maverick'] = _consistency(
+        torch, mav, params, 'llama4-maverick block', CONSIST_B,
+        MAVERICK_STEPS, MAVERICK_STEPS, smi)
+    print(f'llama4-maverick block: peak memory '
+          f'{torch.cuda.max_memory_allocated() / 1e9:.2f} GB ({smi})',
+          flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
 PHASE_STARTS: list[tuple[str, float]] = []   # (phase, perf_counter)
 
 
@@ -2416,6 +2955,16 @@ def main() -> None:
     lm_launches = {'reduced': run_lm_reduced(torch, dev)}
     torch.cuda.empty_cache()
     lm_launches['full_width'] = run_lm_full(torch, dev, smi)
+    torch.cuda.empty_cache()
+
+    # 19. Yi-9B decode at full width and depth ------------------------------
+    _phase('19')
+    decode_launches = {'yi_9b': run_decode_yi(torch, dev, smi)}
+
+    # 20. the MoE family: Phi-3.5-MoE and one Llama-4 Maverick block --------
+    _phase('20')
+    moe_runs = run_moe(torch, dev, smi)
+    decode_launches.update(moe_runs['decode'])
 
     # records -----------------------------------------------------------------
     _phase('records')
@@ -2454,6 +3003,13 @@ def main() -> None:
             rec['lm_launches'] = {
                 label: runs.get(kname, 0)
                 for label, runs in lm_launches.items()}
+        if kname in ('rmsnorm', 'flash_attention'):   # phase 20's prefills
+            key = 'flash_attention_tc' if kname == 'flash_attention' else kname
+            rec['moe_launches'] = {
+                label: runs[key] for label, runs in moe_runs['moe'].items()}
+        rec['decode_launches'] = {
+            label: runs.get(kname, 0)
+            for label, runs in decode_launches.items()}
         if kname in large['float32']:   # rows 1-5 at p = 2^24 and 2^20
             for key, runs in (('p24', large), ('p20', f1)):
                 rec[key] = {dt: _p24(recs[kname])

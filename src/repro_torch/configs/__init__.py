@@ -1,7 +1,8 @@
 """Architecture registry: ``get_config(arch_id)`` and the shape suites.
 
 The port's copy of ``repro/configs/__init__.py`` for the architectures the
-port runs so far: the dense GQA transformers. ``get_config`` on any other
+port runs so far: the dense GQA transformers and the MoE family (attention
+with routed experts). ``get_config`` on any other
 architecture of the reference raises a ``KeyError`` that points to
 ``ROADMAP.md``.
 """
@@ -19,7 +20,8 @@ ARCHS = [
     'jamba_v01_52b', 'rwkv6_1b6',
 ]
 #: the ones ported so far
-PORTED = ['yi_9b', 'qwen2_7b']
+PORTED = ['yi_9b', 'qwen2_7b', 'llama3_405b', 'mistral_large_123b',
+          'phi35_moe_42b_a66b', 'llama4_maverick_400b_a17b']
 
 # canonical external ids (hyphenated) → module names
 ALIASES = {a.replace('_', '-'): a for a in ARCHS}

@@ -5,8 +5,10 @@ The reference's parameter trees reach here as numpy (in the tests:
 lists, tuples of arrays, including the structured index dicts
 ``{'leaf', 'dims'}`` of ``PyTreeIndexer`` — into tensors on a device;
 ``to_numpy`` turns a port tree back. Leaf order is JAX's on both sides.
-``model_params_from_jax`` carries a transformer's parameters across, and
-``model_indices_from_jax`` a structured column draw over them.
+``model_params_from_jax`` carries a transformer's parameters across (MoE
+layers' router, stacked experts and shared expert too),
+``model_indices_from_jax`` a structured column draw over them, and
+``cache_from_jax`` / ``cache_to_numpy`` a decode cache either way.
 """
 from __future__ import annotations
 
@@ -35,6 +37,16 @@ def to_torch(tree: PyTree, device: Any = 'cpu') -> PyTree:
     """Arrays → tensors on ``device`` (copied; dtypes kept, bf16 bit for
     bit)."""
     return tree_map(lambda x: _array_to_torch(x, device), tree)
+
+
+def _tensor_to_bits(x: torch.Tensor) -> np.ndarray:
+    """A tensor → numpy on the host; bf16 as numpy's ``bfloat16``
+    (the ``ml_dtypes`` package), bit for bit."""
+    x = x.detach().cpu()
+    if x.dtype == torch.bfloat16:
+        import ml_dtypes
+        return x.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return x.numpy()
 
 
 def to_numpy(tree: PyTree) -> PyTree:
@@ -112,3 +124,17 @@ def model_indices_from_jax(indices: dict, cfg, device: Any = 'cpu') -> dict:
         out_leaf[j] = port_leaf[path]
         out_dims[j, :len(coords)] = coords
     return indices_to_torch({'leaf': out_leaf, 'dims': out_dims}, device)
+
+
+def cache_from_jax(cache: PyTree, device: Any = 'cpu') -> dict:
+    """The reference's decode cache (``{'pos', 'slots': {'slot{i}':
+    {'k', 'v'}}}``, numpy leaves) → the port's, on ``device``: the same
+    layout, bf16 leaves bit for bit."""
+    return to_torch(cache, device)
+
+
+def cache_to_numpy(cache: dict) -> dict:
+    """The port's decode cache → numpy leaves in its own dtypes, bf16 as
+    numpy's ``bfloat16`` bit for bit, so that ``cache_from_jax`` (or the
+    reference) takes it back unchanged."""
+    return tree_map(_tensor_to_bits, cache)

@@ -75,26 +75,30 @@ def _is_namedtuple(x) -> bool:
     return isinstance(x, tuple) and hasattr(x, '_fields')
 
 
+def _flatten(x, leaves: list) -> TreeDef:
+    if x is None:
+        return TreeDef('none', None, ())
+    if isinstance(x, dict):
+        keys = tuple(sorted(x))
+        return TreeDef('dict', keys,
+                       tuple(_flatten(x[k], leaves) for k in keys))
+    if _is_namedtuple(x):
+        return TreeDef('namedtuple', type(x),
+                       tuple(_flatten(v, leaves) for v in x))
+    if isinstance(x, (list, tuple)):
+        kind = 'list' if isinstance(x, list) else 'tuple'
+        return TreeDef(kind, None, tuple(_flatten(v, leaves) for v in x))
+    leaves.append(x)
+    return TreeDef('leaf', None, ())
+
+
 def tree_flatten(tree: PyTree) -> tuple[list, TreeDef]:
-    """(leaves in JAX order, structure)."""
+    """(leaves in JAX order, structure). The walk is a module-level
+    function: a nested one that calls itself sits in a reference cycle with
+    its closure, which would hold the leaves until the garbage collector
+    runs (tens of GB at a model's full width)."""
     leaves: list = []
-
-    def go(x):
-        if x is None:
-            return TreeDef('none', None, ())
-        if isinstance(x, dict):
-            keys = tuple(sorted(x))
-            return TreeDef('dict', keys, tuple(go(x[k]) for k in keys))
-        if _is_namedtuple(x):
-            return TreeDef('namedtuple', type(x), tuple(go(v) for v in x))
-        if isinstance(x, (list, tuple)):
-            kind = 'list' if isinstance(x, list) else 'tuple'
-            return TreeDef(kind, None, tuple(go(v) for v in x))
-        leaves.append(x)
-        return TreeDef('leaf', None, ())
-
-    treedef = go(tree)
-    return leaves, treedef
+    return leaves, _flatten(tree, leaves)
 
 
 def tree_flatten_with_path(tree: PyTree) -> tuple[list, TreeDef]:
@@ -107,30 +111,32 @@ def tree_flatten_with_path(tree: PyTree) -> tuple[list, TreeDef]:
     :func:`tree_flatten`, which every eager step calls, so that one builds
     no paths."""
     pairs: list = []
+    return pairs, _flatten_with_path(tree, (), pairs)
 
-    def go(x, path):
-        if x is None:
-            return TreeDef('none', None, ())
-        if isinstance(x, dict):
-            keys = tuple(sorted(x))
-            return TreeDef('dict', keys, tuple(go(x[k], path + (str(k),))
-                                               for k in keys))
-        if _is_namedtuple(x):
-            return TreeDef('namedtuple', type(x), tuple(
-                go(v, path + ('.' + f,)) for f, v in zip(x._fields, x)))
-        if isinstance(x, (list, tuple)):
-            kind = 'list' if isinstance(x, list) else 'tuple'
-            return TreeDef(kind, None, tuple(go(v, path + (str(i),))
-                                             for i, v in enumerate(x)))
-        if dataclasses.is_dataclass(x) and not isinstance(x, type):
-            names = tuple(f.name for f in dataclasses.fields(x))
-            return TreeDef('dataclass', (type(x), names), tuple(
-                go(getattr(x, n), path + ('.' + n,)) for n in names))
-        pairs.append((path, x))
-        return TreeDef('leaf', None, ())
 
-    treedef = go(tree, ())
-    return pairs, treedef
+def _flatten_with_path(x, path: tuple, pairs: list) -> TreeDef:
+    if x is None:
+        return TreeDef('none', None, ())
+    if isinstance(x, dict):
+        keys = tuple(sorted(x))
+        return TreeDef('dict', keys, tuple(
+            _flatten_with_path(x[k], path + (str(k),), pairs) for k in keys))
+    if _is_namedtuple(x):
+        return TreeDef('namedtuple', type(x), tuple(
+            _flatten_with_path(v, path + ('.' + f,), pairs)
+            for f, v in zip(x._fields, x)))
+    if isinstance(x, (list, tuple)):
+        kind = 'list' if isinstance(x, list) else 'tuple'
+        return TreeDef(kind, None, tuple(
+            _flatten_with_path(v, path + (str(i),), pairs)
+            for i, v in enumerate(x)))
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        names = tuple(f.name for f in dataclasses.fields(x))
+        return TreeDef('dataclass', (type(x), names), tuple(
+            _flatten_with_path(getattr(x, n), path + ('.' + n,), pairs)
+            for n in names))
+    pairs.append((path, x))
+    return TreeDef('leaf', None, ())
 
 
 def tree_leaves(tree: PyTree) -> list:

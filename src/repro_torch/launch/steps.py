@@ -4,12 +4,15 @@ specs: the port of ``repro/launch/steps.py``.
   train_step(params, opt_state, step, batch)
       → params, opt_state, step + 1, {'loss', 'grad_norm'}
   prefill_step(params, batch) → logits of the last position (B, V_padded)
+  serve_step(params, tokens, cache) → logits (B, 1, V_padded), cache
   hypergrad_step(params, hparams, inner_batch, outer_batch, rng)
       → hparams after one Nyström hypergradient step (§5.4 at LM scale)
 
 ``serve_params`` casts the floating parameters to bf16, as the reference's
 serving load does (``_param_sds(serve=True)``). Batches are trees of
-tensors; a step moves them to its parameters' device.
+tensors; a step moves them to its parameters' device. ``build_step`` picks
+one of the four by kind. The training steps refuse MoE configs
+(``check_trainable``); prefill and decode serve them.
 """
 from __future__ import annotations
 
@@ -21,7 +24,8 @@ from repro_torch.core import NystromIHVP, implicit_root
 from repro_torch.core.tree_util import tree_flatten, tree_leaves, tree_map
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import check_ported, forward, train_loss
+from repro_torch.models.transformer import (check_ported, check_trainable,
+                                            decode_step, forward, train_loss)
 from repro_torch.optim import (adafactor, adamw, chain, clip_by_global_norm,
                                stacked_blocks)
 
@@ -65,7 +69,7 @@ def build_train_step(cfg: ModelConfig, optimizer=None,
     microbatches' gradients in f32 from zeros before dividing, as the
     reference's scan does; the loss is their mean. Default: 4 for the
     scanned production path above 300B parameters, else 1."""
-    check_ported(cfg)
+    check_trainable(cfg)
     optimizer = optimizer or make_optimizer(cfg)
     if microbatches is None:
         microbatches = 4 if (cfg.param_count() > 3e11
@@ -143,7 +147,7 @@ def build_hypergrad_step(cfg: ModelConfig, k: int = 8,
     column_chunk=2)``), then ``h − 1e-2·g``. ``rng`` (a CPU
     ``torch.Generator``) draws the sketch's columns, or ``indices=``
     injects a draw."""
-    check_ported(cfg)
+    check_trainable(cfg)
     solver = NystromIHVP(k=k, rho=rho, column_chunk=2)
     inner_loss, outer_loss = domain_losses(cfg)
 
@@ -180,3 +184,32 @@ def build_prefill_step(cfg: ModelConfig, device=None) -> Callable:
             return logits[:, -1, :].clone()
 
     return prefill_step
+
+
+def build_serve_step(cfg: ModelConfig, device=None) -> Callable:
+    """``serve_step(params, tokens, cache)``: one :func:`decode_step` of
+    (B, 1) tokens, moved to the step's device (the card unless
+    ``device='cpu'``), under ``torch.inference_mode()``; returns
+    (logits (B, 1, V_padded), cache). The cache comes from
+    ``init_cache`` and is consumed: its k and v are written in place."""
+    check_ported(cfg)
+    device = resolve_device(device)
+
+    def serve_step(params: dict, tokens: torch.Tensor, cache: dict):
+        with torch.inference_mode():
+            return decode_step(cfg, params, tokens.to(device), cache)
+
+    return serve_step
+
+
+def build_step(cfg: ModelConfig, kind: str, **kwargs) -> Callable:
+    """The step of ``kind``: ``'train'`` (:func:`build_train_step`),
+    ``'prefill'`` (:func:`build_prefill_step`), ``'decode'``
+    (:func:`build_serve_step`) or ``'hypergrad'``
+    (:func:`build_hypergrad_step`), with ``kwargs`` passed on."""
+    builders = {'train': build_train_step, 'prefill': build_prefill_step,
+                'decode': build_serve_step,
+                'hypergrad': build_hypergrad_step}
+    if kind not in builders:
+        raise ValueError(f'unknown step kind {kind!r}')
+    return builders[kind](cfg, **kwargs)

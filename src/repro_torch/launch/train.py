@@ -85,7 +85,8 @@ def train_lm(cfg, hg_cfg, *, steps: int, batch: int, seq: int,
     (default: ``init`` from ``torch.Generator().manual_seed(0)`` on the
     device). The sketch's column draw at step i comes from
     ``torch.Generator().manual_seed(i)``, or ``indices(i)`` when given (the
-    parity tests pass the reference's draws)."""
+    parity tests pass the reference's draws). A MoE config raises
+    ``NotImplementedError`` first (``check_trainable``)."""
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.core import SketchPolicy
     from repro_torch.data import Prefetcher, ShardedLoader, TokenStream
@@ -94,8 +95,10 @@ def train_lm(cfg, hg_cfg, *, steps: int, batch: int, seq: int,
                                           lm_hypergrad, loss_and_grads,
                                           make_optimizer, to_device)
     from repro_torch.models import build_model
+    from repro_torch.models.transformer import check_trainable
     from repro_torch.optim import adam
 
+    check_trainable(cfg)
     dev = resolve_device(device)
 
     def sync():

@@ -1,10 +1,12 @@
-"""The model zoo, ported family by family: the dense GQA transformer so far.
+"""The model zoo, ported family by family: the dense GQA transformers and
+the MoE family so far.
 
 ``build_model(cfg, device=None)`` returns a :class:`Model` whose ``init``
 draws random parameters on the model's device (the card unless the caller
 asks for ``device='cpu'``) and whose ``forward`` runs where the parameters
-lie (``transformer.train_loss`` is the training loss). Decode is not
-ported yet.
+lie (``transformer.train_loss`` is the training loss, dense family only).
+``init_cache`` makes a zeroed decode cache on the model's device and
+``decode_step`` feeds it one token per sequence.
 """
 from __future__ import annotations
 
@@ -26,14 +28,23 @@ class Model:
     cfg: ModelConfig
     device: torch.device
     forward: Callable
+    decode_step: Callable
 
     def init(self, generator: torch.Generator) -> dict:
         """Random parameters in ``cfg.param_dtype`` from a seeded
         ``torch.Generator`` on the model's device."""
         return transformer.init_params(self.cfg, generator, self.device)
 
+    def init_cache(self, batch: int, max_len: int,
+                   dtype: torch.dtype | None = None) -> dict:
+        """A zeroed decode cache for ``batch`` sequences of up to
+        ``max_len`` tokens on the model's device."""
+        return transformer.init_cache(self.cfg, batch, max_len, dtype,
+                                      self.device)
+
 
 def build_model(cfg: ModelConfig, device=None) -> Model:
     transformer.check_ported(cfg)
     return Model(cfg=cfg, device=resolve_device(device),
-                 forward=functools.partial(transformer.forward, cfg))
+                 forward=functools.partial(transformer.forward, cfg),
+                 decode_step=functools.partial(transformer.decode_step, cfg))

@@ -1,5 +1,6 @@
-"""GQA attention for training-shaped and prefill passes: the port of
-``repro/models/attention.py``'s ``multihead_attention`` on one card.
+"""GQA attention for training-shaped, prefill and decode passes: the port
+of ``repro/models/attention.py``'s ``multihead_attention``,
+``decode_attention`` and ``init_kv_cache`` on one card.
 
 Three regimes, one math, dispatched as in the reference:
 
@@ -12,8 +13,16 @@ Three regimes, one math, dispatched as in the reference:
 
 Kernel E reads the KV heads in place (query head h reads KV head
 h // group); the two plain paths repeat them to the query-head count first,
-as the reference does. Decode and cross-attention are not ported yet
-(``ROADMAP.md`` queue 1 item 12).
+as the reference does.
+
+Decode (:func:`decode_attention`) is one query against a KV cache of
+``Smax`` entries, all of them read every step (the mask keeps the first
+``pos + 1``), as in the reference. It writes the new key and value into the
+cache in place at the 0-d device tensor ``pos``, never reading it on the
+host, and contracts q viewed as (B, KV, group, hd) with each KV head of the
+cache where it lies, one matmul per KV head, instead of repeating the
+cache's heads: the products are the reference's, only their summation
+order may differ. Cross-attention is not ported yet (``ROADMAP.md``).
 """
 from __future__ import annotations
 
@@ -22,7 +31,8 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import expand_kv
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import apply_rope, cdtype, dense_init
+from repro_torch.models.layers import (apply_rope, cdtype, dense_init,
+                                       rope_tables)
 
 NEG_INF = -1e30
 
@@ -137,3 +147,54 @@ def multihead_attention(params, x: torch.Tensor, cfg: ModelConfig, *,
         else:
             out = _full_attention(q, k, v, causal, scale)
     return out.reshape(B, S, -1) @ params['wo'].to(cdtype(cfg))
+
+
+# ------------------------------------------------------------------ decoding
+def init_kv_cache(cfg: ModelConfig, n_layers: int, batch: int, max_len: int,
+                  dtype: torch.dtype = torch.bfloat16, device=None) -> dict:
+    """Zeroed cache ``{'k', 'v'}`` (layers, B, Smax, KV, hd) and a 0-d int32
+    ``pos``, on ``device`` (the reference's layout; the caller resolves the
+    device)."""
+    shape = (n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return {'k': torch.zeros(shape, dtype=dtype, device=device),
+            'v': torch.zeros(shape, dtype=dtype, device=device),
+            'pos': torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def decode_attention(params, x: torch.Tensor, cache_k: torch.Tensor,
+                     cache_v: torch.Tensor, pos: torch.Tensor,
+                     cfg: ModelConfig, rope=None):
+    """One decode token. x: (B, 1, d); cache_k/v: (B, Smax, KV, hd), written
+    in place at ``pos`` (a 0-d device tensor; past the end the write lands
+    on the last entry, as ``dynamic_update_slice`` clamps); ``rope``: the
+    (cos, sin) tables at ``pos`` (made here when not given). Returns
+    (out (B, 1, d), cache_k, cache_v)."""
+    B, Smax = x.shape[0], cache_k.shape[1]
+    if rope is None:
+        rope = rope_tables(pos.to(torch.int32).expand(B, 1), cfg.head_dim,
+                           cfg.rope_theta)
+    q, k_new, v_new = _project_qkv(params, x, cfg, rope)
+    at = torch.clamp(pos.long(), max=Smax - 1).reshape(1)
+    cache_k.index_copy_(1, at, k_new.to(cache_k.dtype))
+    cache_v.index_copy_(1, at, v_new.to(cache_v.dtype))
+    out = _decode_core(q, cache_k.to(q.dtype), cache_v.to(q.dtype), pos, cfg)
+    return (out.reshape(B, 1, -1) @ params['wo'].to(cdtype(cfg)),
+            cache_k, cache_v)
+
+
+def _decode_core(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
+                 pos: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """q (B, 1, H, hd) against every entry of kc/vc (B, Smax, KV, hd), the
+    ones past ``pos`` masked: the scores in the compute dtype, then f32
+    times the scale, the f32 softmax cast back, and P·V. Returns
+    (B, KV, group, hd), query head h = KV head · group + g."""
+    B, Smax, KV = q.shape[0], kc.shape[1], cfg.n_kv_heads
+    qg = q.view(B, KV, cfg.n_heads // KV, cfg.head_dim)      # (B, KV, g, hd)
+    # (B, KV, g, Smax): each KV head's keys read where they lie
+    logits = torch.stack([qg[:, j] @ kc[:, :, j].transpose(1, 2)
+                          for j in range(KV)], dim=1).float()
+    logits = logits * cfg.head_dim ** -0.5
+    valid = torch.arange(Smax, device=q.device) <= pos
+    logits = logits.masked_fill(~valid, NEG_INF)
+    w = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.stack([w[:, j] @ vc[:, :, j] for j in range(KV)], dim=1)

@@ -9,6 +9,8 @@ of ``init`` asks for another dtype.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -67,12 +69,22 @@ def rope_frequencies(head_dim: int, theta: float) -> torch.Tensor:
     return torch.from_numpy(np.float32(1.0) / powers)
 
 
+@functools.lru_cache(maxsize=None)
+def _frequencies_on(head_dim: int, theta: float,
+                    device: torch.device) -> torch.Tensor:
+    """:func:`rope_frequencies` copied to ``device`` once: a copy from the
+    host each step would wait for the card's queue to drain. A plain
+    tensor even when first asked for under ``inference_mode``."""
+    with torch.inference_mode(False):
+        return rope_frequencies(head_dim, theta).to(device)
+
+
 def rope_tables(positions: torch.Tensor, head_dim: int,
                 theta: float) -> tuple[torch.Tensor, torch.Tensor]:
     """cos and sin of the rotation angles for positions (B, S) int, each
     (B, S, 1, hd/2) in f32. A forward takes them once and every layer's q
     and k share them."""
-    freqs = rope_frequencies(head_dim, theta).to(positions.device)
+    freqs = _frequencies_on(head_dim, theta, positions.device)
     angles = positions[..., None].float() * freqs           # (B, S, hd/2)
     return torch.cos(angles)[:, :, None, :], torch.sin(angles)[:, :, None, :]
 

@@ -39,6 +39,13 @@ The tenth slice's lean sketch build on the card: at p ≈ 2²⁰ the fused
 buffer (written chunk by chunk) and B bitwise equal to the old path's, and
 the row-blocked ``mul_right`` bitwise the unblocked product at the real
 block size (``cv`` within 1e-6, as on the CPU).
+
+The eleventh slice at ``reduced()`` size: ``forward`` (MoE layers
+included) and ``build_serve_step``'s decode on the card against the port
+on the CPU in f32 (relative L2 1e-5, no kernel launched in decode), and a
+MoE prefill's launches of kernels D (twice a layer) and E (once a layer,
+on the tensor cores in bf16), with the f32 kernel path against the plain
+path at 1e-4.
 """
 import ctypes
 import math
@@ -924,3 +931,76 @@ def test_row_blocked_mul_right_is_the_unblocked_product(cuda, dtype):
     whole = _mm(C, w)
     torch.testing.assert_close(be.cv(C, w), whole, rtol=1e-6,
                                atol=1e-6 * float(whole.abs().max()))
+
+
+def _cpu_and_card_models(cfg, cuda):
+    """A seeded init on the CPU and the same parameters on the card."""
+    from repro_torch.core.tree_util import tree_map
+    from repro_torch.models import build_model
+    params = build_model(cfg, device='cpu').init(
+        torch.Generator().manual_seed(0))
+    return params, tree_map(lambda t: t.to(cuda), params)
+
+
+@pytest.mark.parametrize('arch', ['yi_9b', 'phi35_moe_42b_a66b',
+                                  'llama4_maverick_400b_a17b'])
+def test_decode_and_moe_forward_on_the_card_match_the_cpu(cuda, arch):
+    """The eleventh slice at ``reduced()`` size in f32: ``forward`` (MoE
+    layers included) and 8 ``build_serve_step`` tokens on the card against
+    the port on the CPU, relative L2 ≤ 1e-5, aux within 1e-6; decode
+    launches no kernel, as in the reference."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import build_serve_step
+    from repro_torch.models import build_model
+    cfg = get_config(arch).reduced()
+    params, gparams = _cpu_and_card_models(cfg, cuda)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 8),
+                           generator=torch.Generator().manual_seed(1))
+    want, want_aux = build_model(cfg, device='cpu').forward(params, tokens)
+    got, aux = build_model(cfg, device=cuda).forward(gparams, tokens.to(cuda))
+    assert float((got.cpu() - want).norm() / want.norm()) <= 1e-5
+    assert abs(float(aux) - float(want_aux)) <= 1e-6
+    outs = {}
+    for dev, prm in (('cpu', params), (cuda, gparams)):
+        step = build_serve_step(cfg, device=dev)
+        cache = build_model(cfg, device=dev).init_cache(2, 8)
+        _lib.reset_launches()
+        logits = []
+        for t in range(8):
+            out, cache = step(prm, tokens[:, t:t + 1], cache)
+            logits.append(out.cpu())
+        assert set(_lib.LAUNCHES.values()) == {0}
+        assert cache['pos'].device.type == torch.device(dev).type
+        outs[str(dev)] = torch.cat(logits, 1)
+    want = outs['cpu']
+    assert float((outs['cuda'] - want).norm() / want.norm()) <= 1e-5
+
+
+@pytest.mark.parametrize('arch', ['phi35_moe_42b_a66b',
+                                  'llama4_maverick_400b_a17b'])
+def test_moe_prefill_launches_kernels_d_and_e(cuda, arch):
+    """A MoE prefill at ``reduced(head_dim=64)`` with ``use_pallas``, S = 64
+    past ``attn_chunk``: kernel D twice and kernel E once a layer. In f32
+    (E's CUDA-core variant) the kernel path is held to the plain path at
+    1e-4 relative L2 (``chip_smoke.py`` phase 10's gate); in bf16 every E
+    launch is on the tensor cores."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import build_prefill_step
+    cfg = get_config(arch).reduced(head_dim=64, use_pallas=True)
+    _, gparams = _cpu_and_card_models(cfg, cuda)
+    batch = {'inputs': torch.randint(0, cfg.vocab_size, (2, 64),
+                                     generator=torch.Generator().manual_seed(2))}
+    L = cfg.n_layers
+    for dtype, tc in (('float32', 0), ('bfloat16', L)):
+        c = dataclasses.replace(cfg, compute_dtype=dtype)
+        _lib.reset_launches()
+        kern = build_prefill_step(c, device=cuda)(gparams, batch)
+        torch.cuda.synchronize()
+        assert (_lib.LAUNCHES['rmsnorm'], _lib.LAUNCHES['flash_attention'],
+                _lib.LAUNCHES['flash_attention_tc']) == (2 * L, L, tc)
+        assert torch.isfinite(kern).all()
+        if dtype == 'float32':
+            plain = build_prefill_step(dataclasses.replace(
+                c, use_pallas=False), device=cuda)(gparams, batch)
+            assert float((kern - plain).norm() / plain.norm()) <= 1e-4

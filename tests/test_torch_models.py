@@ -35,6 +35,9 @@ from repro_torch.models import build_model
 from repro_torch.models import layers as tlayers
 
 ARCHS = ['yi_9b', 'qwen2_7b']
+#: every arch ``get_config`` returns: the dense ones and the MoE family
+CONFIG_ARCHS = ARCHS + ['llama3_405b', 'mistral_large_123b',
+                        'phi35_moe_42b_a66b', 'llama4_maverick_400b_a17b']
 
 
 def _rel_l2(got, want) -> float:
@@ -52,7 +55,7 @@ def _reduced(arch, **kw):
             get_config(arch).reduced(**kw))
 
 
-@pytest.mark.parametrize('arch', ARCHS)
+@pytest.mark.parametrize('arch', CONFIG_ARCHS)
 def test_configs_equal_the_reference(arch):
     jcfg, tcfg = jax_get_config(arch), get_config(arch)
     assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
@@ -66,7 +69,7 @@ def test_configs_equal_the_reference(arch):
 
 def test_unported_archs_point_to_the_roadmap():
     with pytest.raises(KeyError, match='ROADMAP'):
-        get_config('phi35_moe_42b_a66b')
+        get_config('jamba_v01_52b')
     with pytest.raises(KeyError, match='unknown'):
         get_config('gpt5')
     assert [s.name for s in SHAPES] == ['train_4k', 'prefill_32k',
@@ -83,8 +86,8 @@ def test_init_checks_the_generators_device():
 
 
 def test_non_dense_configs_raise_naming_the_roadmap():
-    cfg = dataclasses.replace(get_config('yi_9b').reduced(), n_experts=4,
-                              top_k=2)
+    cfg = dataclasses.replace(get_config('yi_9b').reduced(),
+                              ssm_kind='mamba', attn_every=2)
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         build_model(cfg, device='cpu')
 

@@ -1,6 +1,6 @@
 """The port stands alone: every module of ``repro_torch`` (the serving
-tier, checkpoints, the multi-level engine, the data loader, the LM steps
-and the training CLI's LM route included) imports with ``jax`` and
+tier, checkpoints, the multi-level engine, the data loader, the LM steps,
+the training CLI's LM route, the MoE layer and the decode path included) imports with ``jax`` and
 ``repro`` blocked, and its entry points refuse to drop to the CPU on their
 own."""
 import os
@@ -43,9 +43,10 @@ from repro_torch.data import EpisodeSource, FewShotSampler
 from repro_torch.tasks import build_imaml, build_influence
 assert isinstance(build_imaml(width=2, image_size=4, device='cpu').data,
                   EpisodeSource)
-from repro_torch.launch.steps import build_prefill_step
+from repro_torch.launch.steps import (build_prefill_step, build_serve_step,
+                                      build_step)
 from repro_torch.models import build_model
-from repro_torch.models.transformer import init_params
+from repro_torch.models.transformer import init_cache, init_params
 from repro_torch.tasks import build_logreg_weight_decay
 from repro_torch.checkpoint import (CheckpointManager, params_digest, restore,
                                     save)
@@ -67,6 +68,12 @@ if not torch.cuda.is_available():
             ('build_prefill_step',
              lambda: build_prefill_step(get_config('yi_9b').reduced())),
             ('build_model', lambda: build_model(get_config('qwen2_7b'))),
+            ('build_serve_step', lambda: build_serve_step(
+                get_config('phi35_moe_42b_a66b').reduced())),
+            ("build_step('decode')", lambda: build_step(
+                get_config('yi_9b').reduced(), 'decode')),
+            ('init_cache', lambda: init_cache(
+                get_config('llama4_maverick_400b_a17b').reduced(), 2, 4)),
             ('init_params', lambda: init_params(
                 get_config('yi_9b').reduced(), torch.Generator())),
             ('solve', lambda: solve(problem, HypergradConfig(k=2,

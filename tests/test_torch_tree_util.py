@@ -221,3 +221,27 @@ def test_large_p_draw_of_the_reference_is_taken_as_injected():
     idx = PyTreeIndexer(_huge()).sample_indices(None, 8, indices=draw)
     np.testing.assert_array_equal(idx['leaf'].numpy(), draw['leaf'])
     np.testing.assert_array_equal(idx['dims'].numpy(), draw['dims'])
+
+
+@pytest.mark.parametrize('with_path', [False, True])
+def test_flatten_leaves_no_reference_cycle(with_path):
+    """A flattened tree's leaves die with their last reference, without
+    the garbage collector: a walk that held them in a cycle kept a
+    model's full-width parameters alive until the next collection."""
+    import gc
+    import weakref
+    from repro_torch.core.tree_util import tree_flatten_with_path
+    leaf = torch.zeros(3)
+    ref = weakref.ref(leaf)
+    tree = {'a': [leaf, (torch.ones(2),)], 'b': None}
+    flatten = tree_flatten_with_path if with_path else tree_flatten
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        out, treedef = flatten(tree)
+        assert len(out) == 2 and treedef is not None
+        del leaf, tree, out, treedef
+        assert ref() is None
+    finally:
+        if enabled:
+            gc.enable()
