@@ -282,6 +282,46 @@ reference; kernels A–E must launch 0 times in every decode run):
     left out with the tokens after it, and the flips are counted; at
     least B tokens must be compared.
 
+The model zoo's last four families (the twelfth slice), random bf16
+weights from a seed, ``use_pallas=True`` on the prefills; kernels A–E must
+launch 0 times in every decode run:
+
+21. (a) Qwen2-VL-7B at full depth (28 layers, M-RoPE, embedding inputs):
+    3 prefills of 4 × 4096 seeded bf16 embeddings with an image's (t, h,
+    w) ids after a warm-up, each launching D 56 and E 28 times, all on
+    ``flash_fwd_tc`` (a GQA group of 7, hd 128); decode against
+    ``forward`` (B = 4, T = 32, as phase 19 (a)); serving at B = 32 in a
+    4096-entry cache, fed seeded embeddings a step. (b)
+    SeamlessM4T-large-v2 at full depth (24 encoder + 24 decoder layers,
+    hd 64): 3 prefills of 4 × 4096 tokens against 4 × 4096 encoder
+    frames, each launching D 96 and E 48 times (24 non-causal in the
+    encoder, 24 causal in the decoder, tallied by mask; cross-attention is
+    plain, as in the reference); decode against ``forward`` through
+    decode's table (its decode unembeds through ``embed``, its forward
+    through ``unembed``) with 64 encoder frames; serving at B = 32 in a
+    4096-entry cache against 4096 frames, encoded and written by
+    ``fill_cross_cache`` first; the kernel path against the plain path at
+    4 + 4 layers. (c) Jamba-v0.1 at depth 8 (one period: 7 Mamba layers,
+    1 attention layer, 4 MoE FFNs of 16 experts top-2; cut from 32, whose
+    51.5 B bf16 parameters are 103 GB): 3 prefills of 2 × 4096 tokens (B
+    cut from 4: the scan's f32 decay and drive are 4.3 GB each at B = 2),
+    D 16 and E 1 each; its decode against ``forward`` with bf16 gated at
+    its one period; serving at B = 32, Smax = 4096; the kernel path
+    against the plain path at one period on the bf16 weights widened
+    (f32) and as they are. (d) RWKV-6 1.6B at full depth (24 layers): one
+    prefill of 4 × 4096 tokens after a warm-up (cut from 3: a prefill is
+    ~491k launches of the time loop), D and E 0 (RWKV's norms are plain
+    in the reference); decode against ``forward``; serving at B = 32.
+    Jamba and RWKV-6 then decode at ``long_500k``'s Smax = 524,288 with
+    B = 1 (4 prompt + 12 tokens). Each prefill and decode run prints ms,
+    tokens/s, peak memory and one profiled run's device time by family
+    (GEMMs, the time loops, cross-attention, decode attention, E, D,
+    elementwise, MoE), kernel count and idle share; the recurrent
+    prefills are profiled at S = 1024 (Jamba) and 256 (RWKV-6) against an
+    unprofiled prefill of that size, since the profiler records each of
+    the time loop's launches. The MoE gates leave out routing flips as
+    phase 20 does.
+
 The line before the last is the kernels' JSON record (seven rows, kernel
 E's the tensor-core variant at the prefill's own call; rows 1–5 also
 carry their p = 2²⁴ f32 and bf16 times under ``p24`` and the p = 2²⁰
@@ -294,14 +334,16 @@ record under ``alg1_p24``, rows 1–5 the launches of phases 13–15 under
 ``influence_launches``, phase 16's by pass under ``serve_launches``, and
 phase 17's under ``engine_launches``: (a), each graph of (b), and (c) per
 timed step; phase 18's under ``lm_launches``: (a)'s cuda run and (b)'s
-training run; rows 6–7 phase 20's prefills under ``moe_launches``, and
-every row phases 19–20's decode runs under ``decode_launches``, all 0);
+training run; rows 6–7 phase 20's prefills under ``moe_launches`` and
+phase 21's (one prefill each) under ``family_launches``, and every row
+phases 19–21's decode runs under ``decode_launches``, all 0);
 the last
 line is ``{"ok": true, "device": {...}}``; standard error ends with the
 seconds each phase took and the whole run's. Without a CUDA device, or
 without the repository beside it, the script exits non-zero and prints no
 result.
 """
+import collections
 import contextlib
 import dataclasses
 import json
@@ -2267,7 +2309,8 @@ def run_lm_full(torch, dev, smi: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# 19-20. The model zoo's decode path and the MoE family
+# 19-21. The model zoo's decode path, the MoE family, and the last four
+# families (Mamba/Jamba, RWKV-6, encoder-decoder, M-RoPE)
 # ---------------------------------------------------------------------------
 DECODE_B, DECODE_SMAX, DECODE_PROMPT, DECODE_NEW = 32, 8192, 16, 64
 CONSIST_B, CONSIST_T, CONSIST_MAX = 4, 32, 64
@@ -2275,6 +2318,15 @@ PHI_DEPTH, PHI_SMAX = 16, 4096
 MAVERICK_LAYERS, MAVERICK_S, MAVERICK_STEPS = 2, 4096, 16
 DECODE_WARM = 4       # decode steps left out of the median
 GEMM_KEYS = ('gemm', 'nvjet', 'xmma', 'cutlass', 'gemv')
+FAMILY_SMAX = 4096    # phase 21's decode cache, and Seamless's cross_len
+JAMBA_DEPTH = 8       # one period: 7 Mamba + 1 attention, 4 MoE FFNs
+JAMBA_B = 2           # its prefill's batch: decay, drive 4.3 GB each
+RWKV_REQUESTS = 1     # its prefill is 491k launches of the time loop
+LONG_SMAX, LONG_PROMPT, LONG_NEW = 524288, 4, 12     # long_500k, B = 1
+#: the recurrent prefills are profiled at this S (the time loop's
+#: launches grow with S; the profiler records each)
+TRACE_S = {'jamba': 1024, 'rwkv': 256}
+CONSIST_ENC = 64      # encoder frames of Seamless's decode-vs-forward
 
 
 def _sum(*counts: dict) -> dict:
@@ -2302,12 +2354,15 @@ def _ranges(torch, *targets):
 
 
 def _model_ranges(torch):
-    """Profiler ranges around the decode attention's core and the MoE
-    layer's parts, for :func:`_family`."""
-    from repro_torch.models import attention, moe
+    """Profiler ranges around the decode attention's core, the MoE
+    layer's parts, the recurrent time loops and cross-attention, for
+    :func:`_family`."""
+    from repro_torch.models import attention, moe, rwkv, ssm
     return _ranges(torch, (attention, '_decode_core', 'decode.attention'),
+                   (attention, 'cross_attention', 'cross.attention'),
                    (moe, '_moe_local', 'moe.layer'),
-                   (moe, '_grouped', 'moe.experts'))
+                   (moe, '_grouped', 'moe.experts'),
+                   (ssm, '_scan', 'scan.loop'), (rwkv, '_wkv', 'scan.loop'))
 
 
 def _family(name: str, ops: set) -> str:
@@ -2318,6 +2373,10 @@ def _family(name: str, ops: set) -> str:
         return 'flash (kernel E)'
     if 'rmsnorm_rows' in name:
         return 'RMSNorm (kernel D)'
+    if 'scan.loop' in ops:
+        return 'time loops (Mamba scan, RWKV wkv steps)'
+    if 'cross.attention' in ops:
+        return 'cross-attention (plain: q/o GEMMs, chunked softmax)'
     if 'moe.experts' in ops:
         return 'expert GEMMs'
     if 'moe.layer' in ops:
@@ -2331,12 +2390,23 @@ def _family(name: str, ops: set) -> str:
     return 'elementwise' if 'elementwise' in name else 'rest'
 
 
+def _depth(e) -> int:
+    """How many ops enclose the profiler event ``e``."""
+    n, parent = 0, e.cpu_parent
+    while parent is not None:
+        n, parent = n + 1, parent.cpu_parent
+    return n
+
+
 def _by_family(torch, fn, label: str, step_ms: float):
     """``fn`` once under ``torch.profiler`` with :func:`_model_ranges`:
     device time by :func:`_family`, the kernel count and the device's idle
-    share against the unprofiled ``step_ms``. Kernels D and E are found by
-    name, the others through the op that launched them and its
-    ancestors."""
+    share against the unprofiled ``step_ms``. A kernel's family comes from
+    its name and from the op that launched it with that op's enclosing ops
+    and ranges; each kernel of the device trace counts once, claimed by the
+    innermost op that lists it (an outer op, or an op's legacy total of
+    device time, may list it again). Kernels no op claims, D and E among
+    them (launched from ctypes), go by name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with _model_ranges(torch), profile(activities=[
@@ -2350,26 +2420,27 @@ def _by_family(torch, fn, label: str, step_ms: float):
         print(f'{label}: the profiler recorded no device events; device '
               'time not measured', flush=True)
         return
+    unclaimed = collections.Counter(
+        (k.name, k.time_range.elapsed_us()) for k in kernels)
     split: dict = {}
-    for k in kernels:       # D and E launch from ctypes, under no aten op
-        fam = _family(k.name.lower(), set())
-        if fam in ('flash (kernel E)', 'RMSNorm (kernel D)'):
-            split[fam] = split.get(fam, 0.0) + k.time_range.elapsed_us() / 1e3
-    for e in events:
-        if e.device_type != DeviceType.CPU or not e.kernels:
-            continue
+
+    def add(fam, us):
+        split[fam] = split.get(fam, 0.0) + us / 1e3
+
+    launchers = [e for e in events
+                 if e.device_type == DeviceType.CPU and e.kernels]
+    for e in sorted(launchers, key=_depth, reverse=True):
         ops, parent = set(), e
         while parent is not None:
             ops.add(parent.name)
             parent = parent.cpu_parent
         for k in e.kernels:
-            fam = _family(k.name.lower(), ops)
-            if fam not in ('flash (kernel E)', 'RMSNorm (kernel D)'):
-                split[fam] = split.get(fam, 0.0) + k.duration / 1e3
-    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
-    left = busy - sum(split.values())
-    if left > 1e-3 * busy:
-        split['not attributed to an op'] = left
+            if unclaimed[(k.name, k.duration)] > 0:
+                unclaimed[(k.name, k.duration)] -= 1
+                add(_family(k.name.lower(), ops), k.duration)
+    for (name, us), n in unclaimed.items():
+        add(_family(name.lower(), set()), n * us)
+    busy = sum(split.values())
     for fam, ms in sorted(split.items(), key=lambda kv: -kv[1]):
         print(f'{label}: {fam:<58} {ms:10.3f} ms device '
               f'({100 * ms / busy:5.1f}%)', flush=True)
@@ -2400,6 +2471,26 @@ def _routes(torch, log: list):
         moe.route = route
 
 
+@contextlib.contextmanager
+def _causal_tally(counts: dict):
+    """While the block runs, each call of kernel E's wrapper adds one to
+    ``counts['causal']`` or ``counts['non-causal']`` (which self-attention
+    it served); the launches themselves are the wrapper's to count."""
+    from repro_torch.kernels import ops
+    flash = ops.flash_attention
+
+    def tallied(*args, causal=True, **kwargs):
+        key = 'causal' if causal else 'non-causal'
+        counts[key] = counts.get(key, 0) + 1
+        return flash(*args, causal=causal, **kwargs)
+
+    ops.flash_attention = tallied
+    try:
+        yield counts
+    finally:
+        ops.flash_attention = flash
+
+
 def _flips(torch, want: list, got: list, B: int, S: int):
     """(B, S) bool: the token chose other experts in some MoE layer in
     ``got`` than in ``want`` (logs of :func:`_routes`; ``got`` may hold one
@@ -2421,37 +2512,139 @@ def _flips(torch, want: list, got: list, B: int, S: int):
     return flipped, margins
 
 
+def _vision_ids(torch, B: int, S: int):
+    """(B, 3, S) int32 (t, h, w) ids as Qwen2-VL lays out an image among
+    text: 64 text tokens, a patch grid of 64 columns and up to 48 rows
+    (one t, its own h and w), then text again (at least 64 tokens), each
+    run starting where the last one's largest id ended; at S = 4096 a
+    48 × 64 grid (runs and grid shrink to S / 4 at short S)."""
+    ids = torch.zeros((B, 3, S), dtype=torch.int32)
+    text = cols = min(64, S // 4)
+    rows = min(48, (S - 2 * text) // cols)
+    grid = rows * cols
+    ids[:, :, :text] = torch.arange(text, dtype=torch.int32)
+    ids[:, 0, text:text + grid] = text
+    ids[:, 1, text:text + grid] = text + torch.arange(
+        rows, dtype=torch.int32).repeat_interleave(cols)
+    ids[:, 2, text:text + grid] = text + torch.arange(
+        cols, dtype=torch.int32).repeat(rows)
+    after = S - text - grid
+    ids[:, :, text + grid:] = text + max(rows, cols) + torch.arange(
+        after, dtype=torch.int32)
+    return ids
+
+
+def _batch(torch, cfg, B: int, S: int, seed: int, enc_len: int = 0,
+           vision: bool = False) -> dict:
+    """A serving batch for ``cfg``: (B, S) random tokens on the host, or
+    (B, S, d) bf16 embeddings drawn on the card where the arch takes
+    embeddings; with ``vision`` (M-RoPE) non-degenerate (t, h, w) ids;
+    with ``enc_len`` an encoder-decoder's (B, enc_len, d) bf16 frames."""
+    if cfg.embed_inputs or cfg.is_encdec:
+        batch = {'inputs': torch.randint(
+            0, cfg.vocab_size, (B, S),
+            generator=torch.Generator().manual_seed(seed))}
+    else:
+        batch = {'inputs': torch.randn(
+            (B, S, cfg.d_model), dtype=torch.bfloat16, device='cuda',
+            generator=torch.Generator('cuda').manual_seed(seed))}
+    if vision and cfg.mrope:
+        batch['positions'] = _vision_ids(torch, B, S)
+    if enc_len and cfg.is_encdec:
+        batch['enc_inputs'] = torch.randn(
+            (B, enc_len, cfg.d_model), dtype=torch.bfloat16, device='cuda',
+            generator=torch.Generator('cuda').manual_seed(seed + 1))
+    return batch
+
+
+def _attention_calls(cfg, S: int, T: int = 0) -> dict:
+    """Kernel E's calls in one prefill of ``cfg`` (with ``use_pallas``)
+    over S positions (and T encoder frames) by mask, as
+    :func:`_causal_tally` counts them: a causal call for every decoder
+    self-attention past ``attn_chunk``, a non-causal one for every encoder
+    layer past it; masks with no call left out."""
+    attn = sum(m == 'attn' for m, _ in cfg.layer_kinds()) * cfg.n_blocks
+    calls = {'causal': attn if S > cfg.attn_chunk else 0,
+             'non-causal': (cfg.n_enc_layers if cfg.is_encdec
+                            and T > cfg.attn_chunk else 0)}
+    return {k: n for k, n in calls.items() if n}
+
+
+def _kernel_counts(cfg, S: int, T: int = 0) -> dict:
+    """The launches of kernels D and E that one prefill of ``cfg`` (with
+    ``use_pallas``) over S positions (and T encoder frames) makes, as the
+    reference's ``use_pallas`` places them: D on ln1 and ln2 of every
+    non-RWKV slot and encoder layer, E on every self-attention past
+    ``attn_chunk`` (:func:`_attention_calls`), on the tensor cores in bf16
+    at hd 64 or 128."""
+    d = 2 * sum(m != 'rwkv' for m, _ in cfg.layer_kinds()) * cfg.n_blocks
+    if cfg.is_encdec:
+        d += 2 * cfg.n_enc_layers
+    e = sum(_attention_calls(cfg, S, T).values())
+    tc = e if (cfg.compute_dtype == 'bfloat16'
+               and cfg.head_dim in (64, 128)) else 0
+    return {'rmsnorm': d, 'flash_attention': e, 'flash_attention_tc': tc}
+
+
+def _decode_params(cfg, params: dict) -> dict:
+    """``params`` whose ``forward`` unembeds through the table decode uses:
+    an encoder-decoder's decode reads ``embed`` (the reference's choice),
+    its forward ``unembed``."""
+    return dict(params, unembed=params['embed']) if cfg.is_encdec else params
+
+
+def _filled_cache(torch, cfg, params, B: int, max_len: int,
+                  enc_inputs=None) -> dict:
+    """An empty decode cache; an encoder-decoder's cross cache filled from
+    ``encode(enc_inputs)``."""
+    from repro_torch.models import transformer
+    cache = transformer.init_cache(cfg, B, max_len)
+    if cfg.is_encdec:
+        with torch.inference_mode():
+            cache = transformer.fill_cross_cache(
+                cfg, params, cache,
+                transformer.encode(cfg, params, enc_inputs))
+    return cache
+
+
 def _decode_vs_forward(torch, cfg, params, B: int, T: int, max_len: int):
-    """B prompts of T random tokens fed one at a time through
-    ``build_serve_step`` from an empty cache, and ``forward`` (the plain
-    path) on the same tokens. Returns the worst relative L2 of the logits
-    at a position over the sequences with no routing flip at or before it
-    (a flip changes its token's output and, through attention, the tokens
-    after it), the tokens compared, the flips and their margins, the
-    launches during decode, and the forward's own worst gap at a position
-    between its first row run alone and in the batch of B."""
+    """B prompts of T random inputs (tokens, or embeddings where the arch
+    takes them; an encoder-decoder's against ``CONSIST_ENC`` frames) fed
+    one at a time through ``build_serve_step`` from an empty cache, and
+    ``forward`` (the plain path, text positions) on the same inputs, an
+    encoder-decoder's through decode's table. Returns the worst relative
+    L2 of the logits at a position over the sequences with no routing
+    flip at or before it (a flip changes its token's output and, through
+    attention or the recurrent state, the tokens after it), the tokens
+    compared, the flips and their margins, the launches during decode,
+    and the forward's own worst gap at a position between its first row
+    run alone and in the batch of B."""
     from repro_torch.kernels import _lib
     from repro_torch.launch.steps import build_serve_step
     from repro_torch.models import transformer
     plain = dataclasses.replace(cfg, use_pallas=False)
-    tokens = torch.randint(0, cfg.vocab_size, (B, T),
-                           generator=torch.Generator().manual_seed(11))
+    batch = _batch(torch, plain, B, T, 11, enc_len=CONSIST_ENC)
+    inputs, enc = batch['inputs'], batch.get('enc_inputs')
+    fwd_params = _decode_params(plain, params)
     dev = params['final_norm']['scale'].device
     fwd_log, dec_log = [], []
     V = cfg.vocab_size       # past it the pad logits (finfo.min) overflow L2
     with torch.inference_mode():
         with _routes(torch, fwd_log):
-            want, _ = transformer.forward(plain, params, tokens.to(dev))
-        alone, _ = transformer.forward(plain, params, tokens[:1].to(dev))
+            want, _ = transformer.forward(plain, fwd_params, inputs.to(dev),
+                                          enc_inputs=enc)
+        alone, _ = transformer.forward(
+            plain, fwd_params, inputs[:1].to(dev),
+            enc_inputs=None if enc is None else enc[:1])
     want, alone = want[..., :V], alone[..., :V]
     floor = max(_rel_l2(alone[0, t], want[0, t]) for t in range(T))
     step = build_serve_step(plain)
-    cache = transformer.init_cache(plain, B, max_len)
+    cache = _filled_cache(torch, plain, params, B, max_len, enc)
     _lib.reset_launches()
     got = []
     with _routes(torch, dec_log):
         for t in range(T):
-            logits, cache = step(params, tokens[:, t:t + 1], cache)
+            logits, cache = step(params, inputs[:, t:t + 1], cache)
             got.append(logits)
     torch.cuda.synchronize()
     launches = dict(_lib.LAUNCHES)
@@ -2474,23 +2667,43 @@ def _decode_vs_forward(torch, cfg, params, B: int, T: int, max_len: int):
     return worst, compared, int(flipped.sum()), margins, launches, floor
 
 
+def _cut(cfg, params: dict, depth: int):
+    """``cfg`` and ``params`` cut to ``depth`` decoder layers (and as many
+    encoder layers, at most)."""
+    enc = min(cfg.n_enc_layers, depth)
+    prm = dict(params, blocks=params['blocks'][:depth // cfg.block_period])
+    if cfg.is_encdec:
+        prm['enc_blocks'] = params['enc_blocks'][:enc]
+    return dataclasses.replace(cfg, n_layers=depth, n_enc_layers=enc), prm
+
+
 def _consistency(torch, cfg, params, label: str, B: int, T: int,
                  max_len: int, smi: str) -> dict:
     """Decode against ``forward`` (:func:`_decode_vs_forward`), three ways:
     f32 compute (the bf16 weights widened) at the model's depth, gated at
     1e-4 at every position, where a fault of the decode path cannot hide
-    under rounding; bf16 at depth ``PARITY_LAYERS`` (or the model's, if
-    less), gated at 2e-2, phase 10's bf16 gate and depth; and bf16 at the
-    model's depth, printed beside the forward's own gap between a row run
-    alone and in the batch, ungated: at Yi-9B's 48 layers that gap is as
-    large as decode's (bf16 roundings that differ with the GEMMs' shapes,
-    grown over the depth). At least B tokens must be compared. Returns
-    the launches (kernels A–E must not launch)."""
-    depth = min(cfg.n_layers, PARITY_LAYERS)
-    cut = dict(params, blocks=params['blocks'][:depth // cfg.block_period])
-    runs = [('f32 compute', dataclasses.replace(cfg, compute_dtype='float32'),
-             params, 1e-4),
-            ('bf16', dataclasses.replace(cfg, n_layers=depth), cut, 2e-2)]
+    under rounding; bf16 at depth ``PARITY_LAYERS`` (a whole number of
+    blocks, at least one; the model's depth if less), gated at 2e-2, phase
+    10's bf16 gate and depth; and bf16 at the model's depth, printed beside
+    the forward's own gap between a row run alone and in the batch,
+    ungated: at Yi-9B's 48 layers that gap is as large as decode's (bf16
+    roundings that differ with the GEMMs' shapes, grown over the depth).
+    RWKV-6 is gated in f32 at the cut depth and printed at its own: where
+    a head's t = 0 output nearly cancels, its group norm scales f32
+    rounding up to full size and the layers after it amplify it, the
+    reference's model too (``tests/test_torch_rwkv.py::
+    test_f32_decode_leaves_the_forward_with_depth_in_the_reference_too``).
+    At least B tokens must be compared. Returns the launches (kernels A–E
+    must not launch)."""
+    period = cfg.block_period
+    depth = min(cfg.n_layers, max(period, PARITY_LAYERS // period * period))
+    f32 = dataclasses.replace(cfg, compute_dtype='float32')
+    if any(m == 'rwkv' for m, _ in cfg.layer_kinds()):
+        runs = [('f32 compute', *_cut(f32, params, depth), 1e-4),
+                ('f32 compute', f32, params, None)]
+    else:
+        runs = [('f32 compute', f32, params, 1e-4)]
+    runs.append(('bf16', *_cut(cfg, params, depth), 2e-2))
     if depth < cfg.n_layers:
         runs.append(('bf16', cfg, params, None))
     launches = {}
@@ -2518,31 +2731,41 @@ def _consistency(torch, cfg, params, label: str, B: int, T: int,
 
 def _serve_decode(torch, cfg, params, label: str, B: int, smax: int,
                   prompt: int, new: int, smi: str) -> dict:
-    """Serving: a ``prompt``-token prompt fed through ``build_serve_step``,
-    then ``new`` greedy tokens, B sequences in an ``smax``-entry cache. ms
-    per step (median after ``DECODE_WARM``), tokens/s, peak memory, one
-    profiled step by family. Kernels A–E must not launch. Returns the
-    launches."""
+    """Serving: a ``prompt``-input prompt fed through ``build_serve_step``,
+    then ``new`` more, B sequences in an ``smax``-entry cache: greedy
+    tokens, or for an arch that takes embeddings seeded (B, 1, d) bf16
+    embeddings a step (a greedy token cannot feed it); an encoder-decoder
+    decodes against ``smax`` encoded frames (encoded and written by
+    ``fill_cross_cache`` before the first step). ms per step (median after
+    ``DECODE_WARM``), tokens/s, peak memory, one profiled step by family.
+    Kernels A–E must not launch. Returns the launches."""
     from repro_torch.kernels import _lib
     from repro_torch.launch.steps import build_serve_step
-    from repro_torch.models import transformer
     dev = params['final_norm']['scale'].device
     step = build_serve_step(cfg)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    cache = transformer.init_cache(cfg, B, smax)
-    kv_gb = sum(x.numel() * x.element_size()
-                for slot in cache['slots'].values()
-                for x in slot.values()) / 1e9
-    prompts = torch.randint(0, cfg.vocab_size, (B, prompt),
-                            generator=torch.Generator().manual_seed(12))
-    prompts = prompts.to(dev)
+    batch = _batch(torch, cfg, B, prompt + new, 12, enc_len=smax)
+    t0 = time.perf_counter()
+    cache = _filled_cache(torch, cfg, params, B, smax,
+                          batch.get('enc_inputs'))
+    torch.cuda.synchronize()
+    fill = (f'; encode and fill_cross_cache {time.perf_counter() - t0:.3f} s'
+            if cfg.is_encdec else '')
+    batch.pop('enc_inputs', None)
+    state_gb = sum(x.numel() * x.element_size()
+                   for part in ('slots', 'cross')
+                   for slot in cache.get(part, {}).values()
+                   for x in (slot.values() if isinstance(slot, dict)
+                             else [slot])) / 1e9
+    inputs = batch['inputs'].to(dev)
+    greedy = cfg.embed_inputs or cfg.is_encdec
     _lib.reset_launches()
     secs, out = [], []
     for t in range(prompt + new):
-        tok = prompts[:, t:t + 1] if t < prompt else out[-1]
+        x = (inputs[:, t:t + 1] if t < prompt or not greedy else out[-1])
         t0 = time.perf_counter()
-        logits, cache = step(params, tok, cache)
+        logits, cache = step(params, x, cache)
         nxt = logits.argmax(-1)
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
@@ -2557,15 +2780,18 @@ def _serve_decode(torch, cfg, params, label: str, B: int, smax: int,
                              'logits not finite')
     ms = sorted(secs[DECODE_WARM:])[len(secs[DECODE_WARM:]) // 2] * 1e3
     peak = torch.cuda.max_memory_allocated() / 1e9
-    print(f'{label} decode serving: B={B}, Smax={smax} ({kv_gb:.2f} GB KV '
-          f'cache), {prompt} prompt + {new} greedy tokens: {ms:.3f} ms per '
-          f'step (median of {len(secs) - DECODE_WARM}, first '
+    feed = ('greedy tokens' if greedy else
+            'seeded bf16 embeddings (the arch takes embeddings)')
+    print(f'{label} decode serving: B={B}, Smax={smax} ({state_gb:.2f} GB '
+          f'cache), {prompt} prompt + {new} {feed}: {ms:.3f} ms per step '
+          f'(median of {len(secs) - DECODE_WARM}, first '
           f'{secs[0] * 1e3:.3f} ms, min {min(secs) * 1e3:.3f}, max '
           f'{max(secs[DECODE_WARM:]) * 1e3:.3f}), {B / ms * 1e3:.1f} tokens/s, '
-          f'peak memory {peak:.2f} GB; no kernel launched; tokens of '
+          f'peak memory {peak:.2f} GB{fill}; no kernel launched; argmax of '
           f'sequence 0 {torch.cat(out, 1)[0, :12].tolist()} ({smi})',
           flush=True)
-    _by_family(torch, lambda: step(params, out[-1], cache),
+    x = out[-1] if greedy else inputs[:, -1:]
+    _by_family(torch, lambda: step(params, x, cache),
                f'{label} decode trace', ms)
     return launches
 
@@ -2582,9 +2808,11 @@ def _model_params(torch, cfg, seed: int):
             torch.Generator('cuda').manual_seed(seed)))
     torch.cuda.synchronize()
     n = sum(t.numel() for t in tree_leaves(params))
-    print(f'{cfg.name}: {cfg.n_layers} layers d={cfg.d_model} '
-          f'H={cfg.n_heads}/{cfg.n_kv_heads} d_ff={cfg.d_ff} '
-          f'experts={cfg.n_experts} top-{cfg.top_k} vocab={cfg.vocab_size}: '
+    enc = f' + {cfg.n_enc_layers} encoder' if cfg.is_encdec else ''
+    print(f'{cfg.name}: {cfg.n_layers}{enc} layers {cfg.layer_kinds()} '
+          f'd={cfg.d_model} H={cfg.n_heads}/{cfg.n_kv_heads} '
+          f'hd={cfg.head_dim} d_ff={cfg.d_ff} experts={cfg.n_experts} '
+          f'top-{cfg.top_k} vocab={cfg.vocab_size}: '
           f'{n / 1e9:.3f} B bf16 parameters '
           f'({torch.cuda.memory_allocated() / 1e9:.2f} GB allocated) drawn in '
           f'{time.perf_counter() - t0:.1f} s', flush=True)
@@ -2609,125 +2837,152 @@ def run_decode_yi(torch, dev, smi: str) -> dict:
     return launches
 
 
-def _moe_parity(torch, cfg, label: str) -> None:
-    """Phase 20 (a): the kernel path against the plain path at full width,
-    depth ``PARITY_LAYERS``, B = ``PARITY_B``, S = ``PARITY_S``, on the
-    last position's logits: f32 ≤ 1e-4, bf16 serving ≤ 2e-2 (phase 10's
-    gates), over the sequences whose last token chose the same experts on
-    both paths in every MoE layer; the routing flips anywhere in the
-    sequences are counted."""
+def _kernel_parity(torch, cfg, label: str, params) -> None:
+    """The kernel path against the plain path at full width on the bf16
+    serving weights ``params``, cut to depth ``PARITY_LAYERS`` (a whole
+    number of blocks, at least one; encoder layers cut alike), B =
+    ``PARITY_B``, S = ``PARITY_S`` (and as many encoder frames; Qwen2-VL's
+    image (t, h, w) ids), on the last position's logits: f32 compute on
+    the widened weights ≤ 1e-4, bf16 ≤ 2e-2 (phase 10's gates), over the
+    sequences whose last token chose the same experts on both paths in
+    every MoE layer; the routing flips anywhere in the sequences are
+    counted. The launches of D and E must be :func:`_kernel_counts`', and
+    E's calls by mask :func:`_attention_calls`'."""
     from repro_torch.kernels import _lib
-    from repro_torch.launch.steps import build_prefill_step, serve_params
-    from repro_torch.models import build_model
-    cfg = dataclasses.replace(cfg, n_layers=PARITY_LAYERS,
-                              compute_dtype='float32', param_dtype='float32')
-    params = build_model(cfg).init(torch.Generator('cuda').manual_seed(2))
-    batch = {'inputs': torch.randint(
-        0, cfg.vocab_size, (PARITY_B, PARITY_S),
-        generator=torch.Generator().manual_seed(3))}
+    from repro_torch.launch.steps import build_prefill_step
+    period = cfg.block_period
+    cfg, params = _cut(cfg, params, min(cfg.n_layers, max(
+        period, PARITY_LAYERS // period * period)))
+    batch = _batch(torch, cfg, PARITY_B, PARITY_S, 3, enc_len=PARITY_S,
+                   vision=True)
     for tag, dtype, tol in (('f32', 'float32', 1e-4),
                             ('bf16 serving', 'bfloat16', 2e-2)):
-        prm = params if dtype == 'float32' else serve_params(params)
         c = dataclasses.replace(cfg, compute_dtype=dtype)
-        logs = ([], [])
+        logs, calls = ([], []), {}
         _lib.reset_launches()
-        with _routes(torch, logs[0]):
+        with _routes(torch, logs[0]), _causal_tally(calls):
             kern = build_prefill_step(dataclasses.replace(
-                c, use_pallas=True))(prm, batch)
-        counts = (_lib.LAUNCHES['rmsnorm'], _lib.LAUNCHES['flash_attention'],
-                  _lib.LAUNCHES['flash_attention_tc'])
+                c, use_pallas=True))(params, batch)
+        counts = {k: _lib.LAUNCHES[k] for k in (
+            'rmsnorm', 'flash_attention', 'flash_attention_tc')}
+        want = _kernel_counts(dataclasses.replace(c, use_pallas=True),
+                              PARITY_S, PARITY_S)
+        want_calls = _attention_calls(c, PARITY_S, PARITY_S)
         with _routes(torch, logs[1]):
             plain = build_prefill_step(dataclasses.replace(
-                c, use_pallas=False))(prm, batch)
-        flipped, margins = _flips(torch, logs[1], logs[0], PARITY_B,
-                                  PARITY_S)
+                c, use_pallas=False))(params, batch)
+        flipped, margins = (_flips(torch, logs[1], logs[0], PARITY_B,
+                                   PARITY_S) if logs[1] else
+                            (torch.zeros((PARITY_B, PARITY_S),
+                                         dtype=torch.bool), []))
         rows = (~flipped[:, -1]).nonzero().flatten().to(kern.device)
         V = cfg.vocab_size   # past it the pad logits (finfo.min) overflow L2
         err = (_rel_l2(kern[rows, :V], plain[rows, :V]) if len(rows)
                else math.nan)
-        tc = PARITY_LAYERS if dtype == 'bfloat16' else 0
-        if not err <= tol or counts != (2 * PARITY_LAYERS, PARITY_LAYERS,
-                                        tc):
+        if not err <= tol or counts != want or calls != want_calls:
             raise AssertionError(f'{label} parity {tag}: rel L2 {err:.3e} '
                                  f'(tol {tol}) over {len(rows)} sequences, '
-                                 f'launches {counts}')
+                                 f'launches {counts}, want {want}; kernel E '
+                                 f'calls by mask {calls}, want {want_calls}')
+        enc = (f' + {c.n_enc_layers} encoder layers over {PARITY_S} frames'
+               if c.is_encdec else '')
         print(f'{label} parity {tag}: full width, depth cut to '
-              f'{PARITY_LAYERS}, B={PARITY_B} S={PARITY_S}: kernel path vs '
-              f'plain path rel L2 {err:.3e} (<= {tol}) over {len(rows)} of '
-              f'{PARITY_B} last positions, launches {counts}; routing flips '
-              f'between the paths: {int(flipped.sum())} tokens of '
-              f'{PARITY_B * PARITY_S} (margins '
-              f'{", ".join(f"{m:.2e}" for m in margins[:8])})', flush=True)
-        del prm, kern, plain
-    del params
+              f'{c.n_layers}{enc}, B={PARITY_B} S={PARITY_S}: kernel path '
+              f'vs plain path rel L2 {err:.3e} (<= {tol}) over {len(rows)} '
+              f'of {PARITY_B} last positions, launches {counts}, kernel E '
+              f'calls by mask {calls}; routing flips between the paths: '
+              f'{int(flipped.sum())} tokens of {PARITY_B * PARITY_S} '
+              f'(margins {", ".join(f"{m:.2e}" for m in margins[:8])})',
+              flush=True)
+        del kern, plain
     torch.cuda.empty_cache()
 
 
-def _moe_prefill(torch, cfg, params, label: str, B: int, S: int,
-                 requests: int, smi: str, trace: bool) -> dict:
-    """``requests`` prefills of B × S random tokens through
-    ``build_prefill_step`` after a warm-up, each launching kernel D twice
-    and kernel E once a layer, every E on the tensor cores. Prints ms per
-    prefill, tokens/s, peak memory and the host syncs of one prefill; with
-    ``trace``, one profiled prefill by family. Returns the launches of one
-    prefill."""
+def _prefill(torch, cfg, params, label: str, B: int, S: int,
+             requests: int, smi: str, trace: bool = True,
+             trace_s: int | None = None) -> dict:
+    """``requests`` prefills of B × S random inputs (an arch's tokens or
+    embeddings; Qwen2-VL's with an image's (t, h, w) ids; an
+    encoder-decoder's with S encoder frames) through
+    ``build_prefill_step`` after a warm-up, each launching kernels D and E
+    exactly as :func:`_kernel_counts` says, E's calls by mask as
+    :func:`_attention_calls` says. Prints ms per prefill, tokens/s, peak memory and the host
+    syncs of one prefill; with ``trace``, one profiled prefill by family.
+    With ``trace_s`` (a recurrent family, whose time loop costs launches in
+    proportion to S) the warm-up, the host-sync count and the profiled
+    prefill run at S = ``trace_s``, against an unprofiled prefill of that
+    size. Returns the launches of one prefill."""
     import warnings
     from repro_torch.kernels import _lib
     from repro_torch.launch.steps import build_prefill_step
     step = build_prefill_step(cfg)
-    gen = torch.Generator().manual_seed(1)
-    batches = [{'inputs': torch.randint(0, cfg.vocab_size, (B, S),
-                                        generator=gen)}
-               for _ in range(requests + 1)]
+    batches = [_batch(torch, cfg, B, S, 1 + i, enc_len=S, vision=True)
+               for i in range(requests + 1)]
+    small = (batches[1] if trace_s is None else
+             _batch(torch, cfg, B, trace_s, 9, enc_len=trace_s))
     t0 = time.perf_counter()
-    step(params, batches[0])
+    step(params, batches[0] if trace_s is None else small)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
-    want = {'rmsnorm': 2 * cfg.n_layers, 'flash_attention': cfg.n_layers,
-            'flash_attention_tc': cfg.n_layers}
-    secs = []
+    want, want_calls = _kernel_counts(cfg, S, S), _attention_calls(cfg, S, S)
+    secs, calls = [], {}
     for i, batch in enumerate(batches[1:]):
         _lib.reset_launches()
+        calls.clear()
         t0 = time.perf_counter()
-        logits = step(params, batch)
+        with _causal_tally(calls):
+            logits = step(params, batch)
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
         per = {k: _lib.LAUNCHES[k] for k in want}
         if tuple(logits.shape) != (B, cfg.padded_vocab) or not bool(
-                torch.isfinite(logits).all()) or per != want:
+                torch.isfinite(logits).all()) or per != want or (
+                    calls != want_calls):
             raise AssertionError(f'{label} prefill {i}: logits '
                                  f'{tuple(logits.shape)}, launches {per}, '
-                                 f'want {want}')
+                                 f'want {want}; kernel E calls by mask '
+                                 f'{calls}, want {want_calls}')
     launches = dict(_lib.LAUNCHES)
     ms = sum(secs) / len(secs) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 1e9
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter('always')
         torch.cuda.set_sync_debug_mode('warn')
         try:
-            step(params, batches[1])
+            step(params, small)
         finally:
             torch.cuda.set_sync_debug_mode('default')
     syncs = sum('synchroniz' in str(w.message) for w in caught)
     moe_layers = sum(f == 'moe' for _, f in cfg.layer_kinds()) * cfg.n_blocks
-    print(f'{label} prefill: {requests} requests of {B} x {S} tokens: '
-          f'{", ".join(f"{s * 1e3:.3f}" for s in secs)} ms (warm-up '
+    enc = (f' (+ {S} encoder frames a prompt)' if cfg.is_encdec else '')
+    at = '' if trace_s is None else f' at S={trace_s}'
+    print(f'{label} prefill: {requests} requests of {B} x {S} inputs{enc}: '
+          f'{", ".join(f"{s * 1e3:.3f}" for s in secs)} ms (warm-up{at} '
           f'{warm_s * 1e3:.3f} ms), {ms:.3f} ms per prefill, '
-          f'{B * S / ms * 1e3:.0f} tokens/s, peak memory '
-          f'{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, launches per '
-          f'prefill {launches}; host syncs in one prefill (sync debug mode) '
-          f'{syncs}, MoE layers {moe_layers} ({smi})', flush=True)
+          f'{B * S / ms * 1e3:.0f} tokens/s, peak memory {peak:.2f} GB, '
+          f'launches per prefill {launches}, kernel E calls by mask {calls}; '
+          f'host syncs in one prefill{at} (sync debug mode) {syncs}, MoE '
+          f'layers {moe_layers} ({smi})', flush=True)
     if trace:
-        _by_family(torch, lambda: step(params, batches[1]),
-                   f'{label} prefill trace', ms)
+        trace_ms = ms
+        if trace_s is not None:
+            t0 = time.perf_counter()
+            step(params, small)
+            torch.cuda.synchronize()
+            trace_ms = (time.perf_counter() - t0) * 1e3
+            print(f'{label} prefill at S={trace_s} for the trace: '
+                  f'{trace_ms:.3f} ms unprofiled', flush=True)
+        _by_family(torch, lambda: step(params, small),
+                   f'{label} prefill trace{at}', trace_ms)
     return launches
 
 
 def run_moe(torch, dev, smi: str) -> dict:
     """Phase 20: Phi-3.5-MoE at full width, depth ``PHI_DEPTH``: (a) the
-    prefill through kernels D and E, then the kernel path against the
-    plain path at depth ``PARITY_LAYERS``; (b) decode, consistency and
-    serving; (c) one Llama-4 Maverick block: a prefill, then decode
+    prefill through kernels D and E; (b) decode, consistency and serving,
+    then the kernel path against the plain path on the same weights at
+    depth ``PARITY_LAYERS``; (c) one Llama-4 Maverick block: a prefill, then decode
     consistency. Returns {'moe': prefill launches, 'decode': launches by
     run}."""
     from repro_torch.configs import get_config
@@ -2735,23 +2990,23 @@ def run_moe(torch, dev, smi: str) -> dict:
     phi = dataclasses.replace(get_config('phi35_moe_42b_a66b'),
                               n_layers=PHI_DEPTH, use_pallas=True)
     params = _model_params(torch, phi, 0)
-    out = {'moe': {'phi35_moe': _moe_prefill(
+    out = {'moe': {'phi35_moe': _prefill(
         torch, phi, params, 'phi-3.5-moe', PREFILL_B, PREFILL_S, N_REQUESTS,
-        smi, trace=True)}, 'decode': {}}
+        smi)}, 'decode': {}}
     dec = _consistency(torch, phi, params, 'phi-3.5-moe', CONSIST_B,
                        CONSIST_T, CONSIST_MAX, smi)
     out['decode']['phi35_moe'] = _sum(dec, _serve_decode(
         torch, phi, params, 'phi-3.5-moe', DECODE_B, PHI_SMAX, DECODE_PROMPT,
         DECODE_NEW, smi))
+    _kernel_parity(torch, phi, 'phi-3.5-moe', params)
     del params
     torch.cuda.empty_cache()
-    _moe_parity(torch, phi, 'phi-3.5-moe')
 
     mav = dataclasses.replace(get_config('llama4_maverick_400b_a17b'),
                               n_layers=MAVERICK_LAYERS, use_pallas=True)
     torch.cuda.reset_peak_memory_stats()
     params = _model_params(torch, mav, 0)
-    out['moe']['maverick'] = _moe_prefill(
+    out['moe']['maverick'] = _prefill(
         torch, mav, params, 'llama4-maverick block', 1, MAVERICK_S, 1, smi,
         trace=False)
     out['decode']['maverick'] = _consistency(
@@ -2762,6 +3017,61 @@ def run_moe(torch, dev, smi: str) -> dict:
           flush=True)
     del params
     torch.cuda.empty_cache()
+    return out
+
+
+def run_families(torch, dev, smi: str) -> dict:
+    """Phase 21: the model zoo's last four families at full width, random
+    bf16 weights, ``use_pallas=True``: (a) Qwen2-VL-7B (M-RoPE, embedding
+    inputs) at full depth; (b) SeamlessM4T-large-v2 (encoder-decoder) at
+    full depth; (c) Jamba-v0.1 at depth ``JAMBA_DEPTH`` (one period) and
+    (d) RWKV-6 1.6B at full depth, then both at ``long_500k``'s Smax with
+    B = 1. Each: prefills through D and E with exact launch counts and one
+    profiled prefill by family, decode against ``forward``, serving decode
+    (no kernel), and for (a)–(c) the kernel path against the plain path.
+    Returns {'prefill': launches of one prefill by family,
+    'decode': launches by run (all 0)}."""
+    from repro_torch.configs import get_config
+    del dev
+    out = {'prefill': {}, 'decode': {}}
+
+    def family(arch, label, B, requests, *, depth=None, trace_s=None,
+               parity=False, long=False):
+        cfg = dataclasses.replace(get_config(arch), use_pallas=True)
+        if depth is not None:
+            cfg = dataclasses.replace(cfg, n_layers=depth)
+        torch.cuda.reset_peak_memory_stats()
+        params = _model_params(torch, cfg, 0)
+        out['prefill'][arch] = _prefill(torch, cfg, params, label, B,
+                                        PREFILL_S, requests, smi,
+                                        trace_s=trace_s)
+        torch.cuda.empty_cache()
+        dec = _consistency(torch, cfg, params, label, CONSIST_B, CONSIST_T,
+                           CONSIST_MAX, smi)
+        out['decode'][arch] = _sum(dec, _serve_decode(
+            torch, cfg, params, label, DECODE_B, FAMILY_SMAX,
+            DECODE_PROMPT, DECODE_NEW, smi))
+        torch.cuda.empty_cache()
+        if long:
+            out['decode'][f'{arch} long_500k'] = _serve_decode(
+                torch, cfg, params, f'{label} long_500k', 1, LONG_SMAX,
+                LONG_PROMPT, LONG_NEW, smi)
+        if parity:
+            _kernel_parity(torch, cfg, label, params)
+        print(f'{label}: peak memory over the family '
+              f'{torch.cuda.max_memory_allocated() / 1e9:.2f} GB ({smi})',
+              flush=True)
+        del params
+        torch.cuda.empty_cache()
+
+    family('qwen2_vl_7b', 'qwen2-vl-7b', PREFILL_B, N_REQUESTS, parity=True)
+    family('seamless_m4t_large_v2', 'seamless-m4t-v2', PREFILL_B,
+           N_REQUESTS, parity=True)
+    family('jamba_v01_52b', 'jamba-v0.1', JAMBA_B, N_REQUESTS,
+           depth=JAMBA_DEPTH, trace_s=TRACE_S['jamba'], parity=True,
+           long=True)
+    family('rwkv6_1b6', 'rwkv-6', PREFILL_B, RWKV_REQUESTS,
+           trace_s=TRACE_S['rwkv'], long=True)
     return out
 
 
@@ -2966,6 +3276,11 @@ def main() -> None:
     moe_runs = run_moe(torch, dev, smi)
     decode_launches.update(moe_runs['decode'])
 
+    # 21. the last four families: Qwen2-VL, Seamless, Jamba, RWKV-6 ---------
+    _phase('21')
+    families = run_families(torch, dev, smi)
+    decode_launches.update(families['decode'])
+
     # records -----------------------------------------------------------------
     _phase('records')
     records = []
@@ -3007,6 +3322,8 @@ def main() -> None:
             key = 'flash_attention_tc' if kname == 'flash_attention' else kname
             rec['moe_launches'] = {
                 label: runs[key] for label, runs in moe_runs['moe'].items()}
+            rec['family_launches'] = {   # phase 21's prefills, one each
+                arch: runs[key] for arch, runs in families['prefill'].items()}
         rec['decode_launches'] = {
             label: runs.get(kname, 0)
             for label, runs in decode_launches.items()}

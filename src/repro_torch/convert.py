@@ -5,10 +5,11 @@ The reference's parameter trees reach here as numpy (in the tests:
 lists, tuples of arrays, including the structured index dicts
 ``{'leaf', 'dims'}`` of ``PyTreeIndexer`` — into tensors on a device;
 ``to_numpy`` turns a port tree back. Leaf order is JAX's on both sides.
-``model_params_from_jax`` carries a transformer's parameters across (MoE
-layers' router, stacked experts and shared expert too),
+``model_params_from_jax`` carries a transformer's parameters across (every
+family's: MoE experts, Mamba and RWKV mixers, an encoder's blocks),
 ``model_indices_from_jax`` a structured column draw over them, and
-``cache_from_jax`` / ``cache_to_numpy`` a decode cache either way.
+``cache_from_jax`` / ``cache_to_numpy`` a decode cache either way (the KV
+cache, Mamba's and RWKV's states, the cross-attention K and V).
 """
 from __future__ import annotations
 
@@ -67,31 +68,43 @@ def indices_to_torch(indices: dict, device: Any = 'cpu') -> dict:
                               device=device) for key in _INT_INDEX_KEYS}
 
 
+def _block_counts(cfg) -> dict:
+    """The stacks of blocks in a transformer's tree and their lengths: the
+    decoder's ``blocks``, and an encoder-decoder's ``enc_blocks`` (one
+    slot a block)."""
+    counts = {'blocks': cfg.n_blocks}
+    if cfg.is_encdec:
+        counts['enc_blocks'] = cfg.n_enc_layers
+    return counts
+
+
 def model_params_from_jax(tree: PyTree, cfg, device: Any = 'cpu') -> dict:
     """The reference's transformer parameters (numpy leaves, as from
     ``jax.tree.map(np.asarray, params)``) → the port's, on ``device``.
-    With ``scan_layers`` the reference stacks ``blocks`` into one dict whose
-    leaves lead with an ``n_blocks`` axis; the port keeps a list of block
-    dicts, so that axis is split. Leaves are matched by name."""
+    With ``scan_layers`` the reference stacks ``blocks`` (and
+    ``enc_blocks``) into one dict whose leaves lead with a block axis; the
+    port keeps a list of block dicts, so that axis is split. Leaves are
+    matched by name."""
     tree = dict(tree)
-    blocks = tree['blocks']
-    if isinstance(blocks, dict):
-        blocks = [tree_map(lambda x, i=i: x[i], blocks)
-                  for i in range(cfg.n_blocks)]
-    tree['blocks'] = list(blocks)
+    for key, n in _block_counts(cfg).items():
+        blocks = tree[key]
+        if isinstance(blocks, dict):
+            blocks = [tree_map(lambda x, i=i: x[i], blocks)
+                      for i in range(n)]
+        tree[key] = list(blocks)
     return to_torch(tree, device)
 
 
 def _stacked_paths(cfg, port_tree: dict) -> list:
     """(path, rank) of each leaf of the reference's transformer tree, in its
-    leaf order: with ``scan_layers`` ``blocks`` is one dict whose leaves
-    lead with an ``n_blocks`` axis (the port's block 0 gives the names and
-    the unstacked shapes)."""
+    leaf order: with ``scan_layers`` ``blocks`` (and ``enc_blocks``) is one
+    dict whose leaves lead with a block axis (the port's block 0 gives the
+    names and the unstacked shapes)."""
     tree = dict(port_tree)
     if cfg.scan_layers:
-        tree['blocks'] = tree_map(
-            lambda x: x.expand((cfg.n_blocks,) + tuple(x.shape)),
-            tree['blocks'][0])
+        for key, n in _block_counts(cfg).items():
+            tree[key] = tree_map(lambda x, n=n: x.expand((n,) + tuple(x.shape)),
+                                 tree[key][0])
     pairs, _ = tree_flatten_with_path(tree)
     return [(path, x.ndim) for path, x in pairs]
 
@@ -102,8 +115,9 @@ def model_indices_from_jax(indices: dict, cfg, device: Any = 'cpu') -> dict:
     coordinates over the port's tree, as int32 tensors on ``device``.
 
     Leaves are matched by path. With ``scan_layers`` a reference leaf under
-    ``blocks`` is stacked, so its first coordinate is the block: it becomes
-    the port's list position, and the remaining coordinates shift down one.
+    ``blocks`` or ``enc_blocks`` is stacked, so its first coordinate is the
+    block: it becomes the port's list position, and the remaining
+    coordinates shift down one.
     Coordinates past a leaf's rank are 0, as the indexers pad them."""
     from repro_torch.models.transformer import abstract_params
     port = abstract_params(cfg)
@@ -118,8 +132,8 @@ def model_indices_from_jax(indices: dict, cfg, device: Any = 'cpu') -> dict:
     for j, (lid, d) in enumerate(zip(leaf, dims)):
         path, rank = ref_paths[lid]
         coords = list(d[:rank])
-        if cfg.scan_layers and path[0] == 'blocks':
-            path = ('blocks', str(coords[0])) + path[1:]
+        if cfg.scan_layers and path[0] in ('blocks', 'enc_blocks'):
+            path = (path[0], str(coords[0])) + path[1:]
             coords = coords[1:]
         out_leaf[j] = port_leaf[path]
         out_dims[j, :len(coords)] = coords
@@ -127,9 +141,10 @@ def model_indices_from_jax(indices: dict, cfg, device: Any = 'cpu') -> dict:
 
 
 def cache_from_jax(cache: PyTree, device: Any = 'cpu') -> dict:
-    """The reference's decode cache (``{'pos', 'slots': {'slot{i}':
-    {'k', 'v'}}}``, numpy leaves) → the port's, on ``device``: the same
-    layout, bf16 leaves bit for bit."""
+    """The reference's decode cache (``{'pos', 'slots': {'slot{i}': {'k',
+    'v'} | {'conv', 'ssm'} | {'tm_prev', 'cm_prev', 'wkv'}}}`` and an
+    encoder-decoder's ``'cross': {'k', 'v'}``, numpy leaves) → the
+    port's, on ``device``: the same layout, bf16 leaves bit for bit."""
     return to_torch(cache, device)
 
 

@@ -4,15 +4,16 @@ specs: the port of ``repro/launch/steps.py``.
   train_step(params, opt_state, step, batch)
       → params, opt_state, step + 1, {'loss', 'grad_norm'}
   prefill_step(params, batch) → logits of the last position (B, V_padded)
-  serve_step(params, tokens, cache) → logits (B, 1, V_padded), cache
+  serve_step(params, inputs, cache) → logits (B, 1, V_padded), cache
   hypergrad_step(params, hparams, inner_batch, outer_batch, rng)
       → hparams after one Nyström hypergradient step (§5.4 at LM scale)
 
 ``serve_params`` casts the floating parameters to bf16, as the reference's
 serving load does (``_param_sds(serve=True)``). Batches are trees of
 tensors; a step moves them to its parameters' device. ``build_step`` picks
-one of the four by kind. The training steps refuse MoE configs
-(``check_trainable``); prefill and decode serve them.
+one of the four by kind. Prefill and decode serve all ten architectures;
+the training steps refuse every family but the dense one
+(``check_trainable``).
 """
 from __future__ import annotations
 
@@ -24,8 +25,8 @@ from repro_torch.core import NystromIHVP, implicit_root
 from repro_torch.core.tree_util import tree_flatten, tree_leaves, tree_map
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import (check_ported, check_trainable,
-                                            decode_step, forward, train_loss)
+from repro_torch.models.transformer import (check_trainable, decode_step,
+                                            forward, train_loss)
 from repro_torch.optim import (adafactor, adamw, chain, clip_by_global_norm,
                                stacked_blocks)
 
@@ -171,33 +172,38 @@ def serve_params(params):
 
 def build_prefill_step(cfg: ModelConfig, device=None) -> Callable:
     """``prefill_step(params, batch)``: ``forward`` over ``batch['inputs']``
-    (B, S) tokens, moved to the step's device (the card unless
-    ``device='cpu'``), under ``torch.inference_mode()``; returns the
-    next-token logits ``logits[:, -1, :]`` as a tensor of its own."""
-    check_ported(cfg)
+    ((B, S) tokens, or (B, S, d) embeddings where ``cfg.embed_inputs`` is
+    off), with ``batch['positions']`` and an encoder-decoder's
+    ``batch['enc_inputs']`` where given, moved to the step's device (the
+    card unless ``device='cpu'``), under ``torch.inference_mode()``;
+    returns the next-token logits ``logits[:, -1, :]`` as a tensor of its
+    own."""
     device = resolve_device(device)
 
     def prefill_step(params: dict, batch: dict) -> torch.Tensor:
         with torch.inference_mode():
-            logits, _ = forward(cfg, params, batch['inputs'].to(device),
-                                positions=batch.get('positions'))
+            batch = to_device(batch, device)
+            logits, _ = forward(cfg, params, batch['inputs'],
+                                positions=batch.get('positions'),
+                                enc_inputs=batch.get('enc_inputs'))
             return logits[:, -1, :].clone()
 
     return prefill_step
 
 
 def build_serve_step(cfg: ModelConfig, device=None) -> Callable:
-    """``serve_step(params, tokens, cache)``: one :func:`decode_step` of
-    (B, 1) tokens, moved to the step's device (the card unless
-    ``device='cpu'``), under ``torch.inference_mode()``; returns
-    (logits (B, 1, V_padded), cache). The cache comes from
-    ``init_cache`` and is consumed: its k and v are written in place."""
-    check_ported(cfg)
+    """``serve_step(params, inputs, cache)``: one :func:`decode_step` of
+    (B, 1) tokens, or (B, 1, d) embeddings where ``cfg.embed_inputs`` is
+    off and there is no encoder, moved to the step's device (the card
+    unless ``device='cpu'``), under ``torch.inference_mode()``; returns
+    (logits (B, 1, V_padded), cache). The cache comes from ``init_cache``
+    (an encoder-decoder's filled by ``fill_cross_cache``) and is consumed:
+    its k, v and recurrent states are written in place."""
     device = resolve_device(device)
 
-    def serve_step(params: dict, tokens: torch.Tensor, cache: dict):
+    def serve_step(params: dict, inputs: torch.Tensor, cache: dict):
         with torch.inference_mode():
-            return decode_step(cfg, params, tokens.to(device), cache)
+            return decode_step(cfg, params, inputs.to(device), cache)
 
     return serve_step
 

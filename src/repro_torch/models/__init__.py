@@ -1,12 +1,16 @@
-"""The model zoo, ported family by family: the dense GQA transformers and
-the MoE family so far.
+"""The model zoo: every family of the reference (dense GQA, MoE, M-RoPE
+vision-language backbones, encoder-decoder, Mamba/attention hybrids and
+RWKV-6).
 
 ``build_model(cfg, device=None)`` returns a :class:`Model` whose ``init``
 draws random parameters on the model's device (the card unless the caller
 asks for ``device='cpu'``) and whose ``forward`` runs where the parameters
 lie (``transformer.train_loss`` is the training loss, dense family only).
 ``init_cache`` makes a zeroed decode cache on the model's device and
-``decode_step`` feeds it one token per sequence.
+``decode_step`` feeds it one token per sequence. An encoder-decoder's
+``encode`` runs the encoder and ``fill_cross_cache`` writes its output's
+K and V into a cache; both are None for the other families, as the
+reference's ``encode`` is.
 """
 from __future__ import annotations
 
@@ -29,6 +33,8 @@ class Model:
     device: torch.device
     forward: Callable
     decode_step: Callable
+    encode: Callable | None = None
+    fill_cross_cache: Callable | None = None
 
     def init(self, generator: torch.Generator) -> dict:
         """Random parameters in ``cfg.param_dtype`` from a seeded
@@ -44,7 +50,11 @@ class Model:
 
 
 def build_model(cfg: ModelConfig, device=None) -> Model:
-    transformer.check_ported(cfg)
+    encdec = cfg.is_encdec
     return Model(cfg=cfg, device=resolve_device(device),
                  forward=functools.partial(transformer.forward, cfg),
-                 decode_step=functools.partial(transformer.decode_step, cfg))
+                 decode_step=functools.partial(transformer.decode_step, cfg),
+                 encode=(functools.partial(transformer.encode, cfg)
+                         if encdec else None),
+                 fill_cross_cache=(functools.partial(
+                     transformer.fill_cross_cache, cfg) if encdec else None))

@@ -22,7 +22,14 @@ cache in place at the 0-d device tensor ``pos``, never reading it on the
 host, and contracts q viewed as (B, KV, group, hd) with each KV head of the
 cache where it lies, one matmul per KV head, instead of repeating the
 cache's heads: the products are the reference's, only their summation
-order may differ. Cross-attention is not ported yet (``ROADMAP.md``).
+order may differ. Under M-RoPE the decode position is ``pos`` on all three
+components, as in the reference.
+
+Cross-attention (:func:`cross_attention_cache`, :func:`cross_attention`)
+is the encoder-decoder's decoder → encoder attention: no mask, no RoPE,
+and plain in the reference (``_chunked_attention`` past ``attn_chunk``,
+``_full_attention`` below it), so plain here too: it never takes kernel
+E.
 """
 from __future__ import annotations
 
@@ -31,22 +38,23 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import expand_kv
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (apply_rope, cdtype, dense_init,
-                                       rope_tables)
+from repro_torch.models.layers import apply_rope, cdtype, dense_init, rope_for
 
 NEG_INF = -1e30
 
 
 # --------------------------------------------------------------------- params
 def init_attention(cfg: ModelConfig, generator: torch.Generator,
-                   dtype: torch.dtype) -> dict:
+                   dtype: torch.dtype, cross: bool = False) -> dict:
+    """wq, wk, wv, wo, and the q/k/v biases where ``cfg.qkv_bias`` and
+    not ``cross`` (a cross-attention has none, as in the reference)."""
     d, hd = cfg.d_model, cfg.head_dim
     H, KV = cfg.n_heads, cfg.n_kv_heads
     p = {'wq': dense_init(generator, (d, H * hd), dtype),
          'wk': dense_init(generator, (d, KV * hd), dtype),
          'wv': dense_init(generator, (d, KV * hd), dtype),
          'wo': dense_init(generator, (H * hd, d), dtype)}
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         for name, n in (('bq', H), ('bk', KV), ('bv', KV)):
             p[name] = torch.zeros((n * hd,), dtype=dtype, device=(
                 'meta' if generator is None else generator.device))
@@ -132,7 +140,7 @@ def multihead_attention(params, x: torch.Tensor, cfg: ModelConfig, *,
                         rope: tuple[torch.Tensor, torch.Tensor],
                         causal: bool = True) -> torch.Tensor:
     """Self-attention of x (B, S, d) → (B, S, d); ``rope`` is the (cos, sin)
-    pair of :func:`~repro_torch.models.layers.rope_tables` at x's
+    pair of :func:`~repro_torch.models.layers.rope_for` at x's
     positions."""
     B, S, _ = x.shape
     q, k, v = _project_qkv(params, x, cfg, rope)
@@ -161,6 +169,16 @@ def init_kv_cache(cfg: ModelConfig, n_layers: int, batch: int, max_len: int,
             'pos': torch.zeros((), dtype=torch.int32, device=device)}
 
 
+def decode_rope(cfg: ModelConfig, pos: torch.Tensor, batch: int):
+    """The (cos, sin) tables at the 0-d device position ``pos`` for
+    ``batch`` sequences; under M-RoPE ``pos`` is every component, as in
+    the reference's decode."""
+    positions = pos.to(torch.int32).expand(batch, 1)
+    if cfg.mrope:
+        positions = positions[:, None, :].expand(batch, 3, 1)
+    return rope_for(cfg, positions)
+
+
 def decode_attention(params, x: torch.Tensor, cache_k: torch.Tensor,
                      cache_v: torch.Tensor, pos: torch.Tensor,
                      cfg: ModelConfig, rope=None):
@@ -171,8 +189,7 @@ def decode_attention(params, x: torch.Tensor, cache_k: torch.Tensor,
     (out (B, 1, d), cache_k, cache_v)."""
     B, Smax = x.shape[0], cache_k.shape[1]
     if rope is None:
-        rope = rope_tables(pos.to(torch.int32).expand(B, 1), cfg.head_dim,
-                           cfg.rope_theta)
+        rope = decode_rope(cfg, pos, B)
     q, k_new, v_new = _project_qkv(params, x, cfg, rope)
     at = torch.clamp(pos.long(), max=Smax - 1).reshape(1)
     cache_k.index_copy_(1, at, k_new.to(cache_k.dtype))
@@ -198,3 +215,33 @@ def _decode_core(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
     logits = logits.masked_fill(~valid, NEG_INF)
     w = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.stack([w[:, j] @ vc[:, :, j] for j in range(KV)], dim=1)
+
+
+# ------------------------------------------------------------ cross-attention
+def cross_attention_cache(params, enc_out: torch.Tensor, cfg: ModelConfig):
+    """The encoder side's K and V, (B, T, KV, hd) each, computed once for a
+    whole decode."""
+    ct = cdtype(cfg)
+    B, T, _ = enc_out.shape
+    k = (enc_out @ params['wk'].to(ct)).view(B, T, cfg.n_kv_heads,
+                                               cfg.head_dim)
+    v = (enc_out @ params['wv'].to(ct)).view(B, T, cfg.n_kv_heads,
+                                               cfg.head_dim)
+    return k, v
+
+
+def cross_attention(params, x: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Decoder → encoder attention of x (B, S, d) over k, v (B, T, KV, hd):
+    no mask, no RoPE; the plain paths, chunked past ``attn_chunk``."""
+    ct = cdtype(cfg)
+    B, S, _ = x.shape
+    q = (x @ params['wq'].to(ct)).view(B, S, cfg.n_heads, cfg.head_dim)
+    kx = expand_kv(k.to(q.dtype), cfg.group_size)
+    vx = expand_kv(v.to(q.dtype), cfg.group_size)
+    scale = cfg.head_dim ** -0.5
+    if S > cfg.attn_chunk or kx.shape[1] > cfg.attn_chunk:
+        out = _chunked_attention(q, kx, vx, False, scale, cfg.attn_chunk)
+    else:
+        out = _full_attention(q, kx, vx, False, scale)
+    return out.reshape(B, S, -1) @ params['wo'].to(ct)

@@ -2,10 +2,9 @@
 
 One dataclass describes every architecture family of the reference, field
 for field, so that a config made here compares equal (``dataclasses.asdict``)
-to the reference's. The port runs the dense and MoE families so far
-(``repro_torch/models/transformer.py``, ``moe.py``); the fields of the
-other families are carried so that configs stay equal and later slices
-can use them.
+to the reference's: dense GQA transformers, MoE, M-RoPE vision-language
+backbones, encoder-decoders, Mamba/attention hybrids and RWKV-6, all of
+which the port serves (``repro_torch/models/``).
 
 ``fsdp`` and ``seq_shard`` do nothing in the port yet: it runs on one
 card. ``remat`` (with ``scan_layers``, as in the reference) checkpoints

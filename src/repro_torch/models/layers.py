@@ -1,5 +1,5 @@
-"""Shared building blocks: dtypes, init, RMSNorm, RoPE, SwiGLU MLP and the
-embeddings. The port of ``repro/models/layers.py`` for the dense path.
+"""Shared building blocks: dtypes, init, RMSNorm, RoPE and M-RoPE, SwiGLU
+MLP and the embeddings. The port of ``repro/models/layers.py``.
 
 Parameters are plain dicts of tensors, in the reference's orientation
 (``w1`` is (d, d_ff), used as ``x @ w1``), so that weights carry across
@@ -87,6 +87,45 @@ def rope_tables(positions: torch.Tensor, head_dim: int,
     freqs = _frequencies_on(head_dim, theta, positions.device)
     angles = positions[..., None].float() * freqs           # (B, S, hd/2)
     return torch.cos(angles)[:, :, None, :], torch.sin(angles)[:, :, None, :]
+
+
+@functools.lru_cache(maxsize=None)
+def _sections_on(sections: tuple[int, ...],
+                 device: torch.device) -> torch.Tensor:
+    """The position component (0 = t, 1 = h, 2 = w) of each of the hd/2
+    frequency slots under M-RoPE's ``sections``, on ``device`` once."""
+    with torch.inference_mode(False):
+        return torch.repeat_interleave(
+            torch.arange(len(sections)), torch.tensor(sections)).to(device)
+
+
+def mrope_tables(positions: torch.Tensor, head_dim: int, theta: float,
+                 sections: tuple[int, int, int]
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Qwen2-VL's multimodal RoPE (the reference's ``apply_mrope``) as the
+    (cos, sin) tables of :func:`rope_tables`: positions (B, 3, S) are the
+    (t, h, w) ids, and the hd/2 frequency slots are split by ``sections``
+    (summing to hd/2), each rotating by its own component. With all three
+    components equal it is plain RoPE, bit for bit."""
+    freqs = _frequencies_on(head_dim, theta, positions.device)
+    sec = _sections_on(tuple(sections), positions.device)
+    comp = positions.transpose(1, 2).float()                  # (B, S, 3)
+    angles = comp.index_select(-1, sec) * freqs              # (B, S, hd/2)
+    return torch.cos(angles)[:, :, None, :], torch.sin(angles)[:, :, None, :]
+
+
+def rope_for(cfg: ModelConfig, positions: torch.Tensor
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The (cos, sin) tables at ``positions`` for ``cfg``: M-RoPE where
+    ``cfg.mrope`` (positions (B, 3, S)), else plain RoPE on (B, S)
+    positions, or on the first component of (B, 3, S) ones, as the
+    reference's ``_project_qkv`` does."""
+    if cfg.mrope:
+        return mrope_tables(positions, cfg.head_dim, cfg.rope_theta,
+                            cfg.mrope_sections)
+    if positions.ndim == 3:
+        positions = positions[:, 0]
+    return rope_tables(positions, cfg.head_dim, cfg.rope_theta)
 
 
 def apply_rope(x: torch.Tensor, rope: tuple[torch.Tensor, torch.Tensor]

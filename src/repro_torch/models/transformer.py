@@ -1,13 +1,25 @@
-"""Decoder-only transformer of the dense and MoE families: the port of
-``repro/models/transformer.py``'s ``init_params``, ``forward``,
-``train_loss``, ``init_cache`` and ``decode_step``.
+"""The model zoo's transformer over every family of the reference: the
+port of ``repro/models/transformer.py``'s ``init_params``, ``forward``,
+``encode``, ``train_loss``, ``init_cache``, ``fill_cross_cache`` and
+``decode_step``.
 
-Parameters are a dict ``{'embed', 'unembed', 'blocks', 'final_norm'}``
-with the reference's names; ``blocks`` is a list with one dict per block of
-``cfg.block_period`` slots (Llama-4 Maverick's block is a dense layer then
-a MoE one), which is the reference's tree without ``scan_layers``'
-stacking. Depth is a Python loop. ``forward`` returns the logits and the
-sum over layers of the MoE router's aux loss (0 without experts).
+Layers are grouped into blocks of ``cfg.block_period`` slots, each slot an
+attention, Mamba (``ssm.py``) or RWKV-6 (``rwkv.py``) mixer with a dense
+SwiGLU or MoE FFN (RWKV's channel mix is its FFN). Parameters are a dict
+with the reference's names: ``blocks`` is a list with one dict per block,
+the reference's tree without ``scan_layers``' stacking; inputs are tokens
+through ``embed`` or, where ``cfg.embed_inputs`` is off, precomputed
+(B, S, d) embeddings (the modality frontend is a stub, as in the
+reference) with only ``unembed``. An encoder-decoder (``n_enc_layers`` >
+0) adds ``enc_blocks`` (period-1 dense attention, non-causal),
+``enc_final_norm``, the decoder's token ``embed``, and cross-attention in
+every decoder slot. Depth is a Python loop. ``forward`` returns the logits
+and the sum over layers of the MoE router's aux loss (0 without experts).
+
+Kernel D takes ``ln1``/``ln2`` of every non-RWKV slot and kernel E the
+self-attention past ``attn_chunk`` when ``cfg.use_pallas``, as in the
+reference; the final norm, ``ln_cross``, RWKV's norms, cross-attention
+and every decode norm stay plain there and here.
 
 ``train_loss`` is the reference's masked next-token CE, weighted by
 example: the bilevel inner objective of §5.4's data reweighting.
@@ -15,18 +27,17 @@ example: the bilevel inner objective of §5.4's data reweighting.
 block under ``torch.utils.checkpoint`` in a plain autograd pass; inside
 ``torch.func`` transforms (the HVP columns, the mixed term), which refuse
 checkpoint's saved-tensor hooks, the blocks run plainly. Remat moves
-memory, not values.
+memory, not values. Only the dense family trains
+(:func:`check_trainable`).
 
 Decode keeps the reference's cache layout: ``{'pos': 0-d int32, 'slots':
-{'slot{i}': {'k', 'v'}}}``, each leaf (n_blocks, B, Smax, KV, hd) in the
-compute dtype, one allocation per slot. ``decode_step`` writes each
-layer's new key and value into it in place and reads ``pos`` only on the
-device.
-
-What runs: attention mixers with dense SwiGLU or MoE FFNs, token inputs and
-plain RoPE (:func:`check_ported`). Mamba, RWKV, encoder-decoder, M-RoPE
-and embedding inputs raise ``NotImplementedError``, and so does training a
-MoE config (:func:`check_trainable`), both naming ``ROADMAP.md``.
+{'slot{i}': state}}`` (and ``'cross': {'k', 'v'}`` for an
+encoder-decoder), each leaf leading with ``n_blocks``, one allocation per
+slot: ``{'k', 'v'}`` (n_blocks, B, Smax, KV, hd) in the compute dtype for
+attention, ``{'conv', 'ssm'}`` for Mamba and ``{'tm_prev', 'cm_prev',
+'wkv'}`` for RWKV in f32. ``decode_step`` writes each layer's new key and
+value, or its new recurrent state, into the cache in place and reads
+``pos`` only on the device.
 """
 from __future__ import annotations
 
@@ -38,18 +49,29 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import rwkv as rwkv_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (cdtype, embed, init_embedding,
                                        init_mlp, init_rmsnorm, mlp, pdtype,
-                                       rmsnorm, rope_tables, unembed)
+                                       rmsnorm, rope_for, rope_tables,
+                                       unembed)
 from repro_torch.models.moe import init_moe, moe_ffn
 
+_ENC_KINDS = [('attn', 'dense')]   # the encoder's one slot a block
 
-def check_ported(cfg: ModelConfig) -> None:
-    """Raise on any part of ``cfg`` that forward, prefill and decode do not
-    run: anything but attention mixers with dense or MoE FFNs over token
-    inputs with plain RoPE."""
-    missing = [kind for kind in cfg.layer_kinds() if kind[0] != 'attn']
+
+def check_trainable(cfg: ModelConfig) -> None:
+    """Raise unless ``cfg`` is of the dense family: attention mixers with
+    dense FFNs over token inputs with plain RoPE, no encoder. Training
+    the others needs backward through the time loops, ``torch.func`` HVP
+    columns over them, and for MoE ``_rdot``'s VJP and data-dependent
+    routing, none of which is ported yet; the port serves them (forward,
+    prefill, decode)."""
+    kinds = cfg.layer_kinds()
+    missing = sorted({mixer for mixer, _ in kinds if mixer != 'attn'})
+    if any(ffn == 'moe' for _, ffn in kinds):
+        missing.append('MoE')
     if cfg.is_encdec:
         missing.append('encoder-decoder')
     if cfg.mrope:
@@ -58,24 +80,39 @@ def check_ported(cfg: ModelConfig) -> None:
         missing.append('embedding inputs')
     if missing:
         raise NotImplementedError(
-            f'{cfg.name}: {sorted(set(map(str, missing)))} not ported yet; '
-            'the port runs attention with dense or MoE FFNs (ROADMAP.md '
-            'queue 1 item 12)')
-
-
-def check_trainable(cfg: ModelConfig) -> None:
-    """:func:`check_ported`, and no MoE FFN: MoE training needs
-    ``_rdot``'s VJP and data-dependent routing under ``torch.func``'s HVP
-    columns, which are not ported yet."""
-    check_ported(cfg)
-    if any(ffn == 'moe' for _, ffn in cfg.layer_kinds()):
-        raise NotImplementedError(
-            f'{cfg.name}: training a MoE config is not ported yet; the port '
+            f'{cfg.name}: training {missing} is not ported yet; the port '
             'serves it (forward, prefill, decode) but trains the dense '
             'family only (ROADMAP.md queue 1 item 12)')
 
 
 # ---------------------------------------------------------------------- init
+def _init_slot(cfg: ModelConfig, generator, dtype: torch.dtype, dev,
+               mixer: str, ffn: str, with_cross: bool) -> dict:
+    p: dict[str, Any] = {'ln1': init_rmsnorm(cfg, dev, dtype),
+                         'ln2': init_rmsnorm(cfg, dev, dtype)}
+    if mixer == 'attn':
+        p['mixer'] = attn.init_attention(cfg, generator, dtype)
+    elif mixer == 'mamba':
+        p['mixer'] = ssm_lib.init_mamba(cfg, generator, dtype)
+    else:                              # rwkv: ln2 feeds its channel mix
+        p['mixer'] = rwkv_lib.init_rwkv_block(cfg, generator, dtype)
+    if mixer != 'rwkv':
+        p['ffn'] = (init_moe(cfg, generator, dtype) if ffn == 'moe'
+                    else init_mlp(cfg, generator, dtype))
+    if with_cross:
+        p['ln_cross'] = init_rmsnorm(cfg, dev, dtype)
+        p['cross'] = attn.init_attention(cfg, generator, dtype, cross=True)
+    return p
+
+
+def _init_blocks(cfg: ModelConfig, generator, dtype: torch.dtype, dev,
+                 n_blocks: int, kinds, with_cross: bool) -> list:
+    return [{f'slot{i}': _init_slot(cfg, generator, dtype, dev, mixer, ffn,
+                                    with_cross)
+             for i, (mixer, ffn) in enumerate(kinds)}
+            for _ in range(n_blocks)]
+
+
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device=None) -> dict:
     """Random parameters in ``cfg.param_dtype`` on ``device`` (the card
@@ -83,24 +120,27 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     which must lie on that device. Each weight is drawn in f32 and cast at
     once, so a bf16 init at full width (``param_dtype='bfloat16'``) peaks
     near its bf16 size plus one f32 weight."""
-    check_ported(cfg)
     dev = resolve_device(device)
     gen_dev = 'meta' if generator is None else generator.device.type
     if gen_dev != dev.type:      # no generator: abstract_params, on meta
         raise ValueError(f'generator on {gen_dev}, parameters on {dev}')
     dtype = pdtype(cfg)
-    params: dict[str, Any] = {'embed': init_embedding(cfg, generator, dtype)}
-    if not cfg.tie_embeddings:
+    params: dict[str, Any] = {}
+    if cfg.embed_inputs:
+        params['embed'] = init_embedding(cfg, generator, dtype)
+        if not cfg.tie_embeddings:
+            params['unembed'] = init_embedding(cfg, generator, dtype)
+    else:       # a stub frontend: inputs arrive as (B, S, d) embeddings
         params['unembed'] = init_embedding(cfg, generator, dtype)
-    params['blocks'] = [
-        {f'slot{i}': {'ln1': init_rmsnorm(cfg, dev, dtype),
-                      'ln2': init_rmsnorm(cfg, dev, dtype),
-                      'mixer': attn.init_attention(cfg, generator, dtype),
-                      'ffn': (init_moe(cfg, generator, dtype) if ffn == 'moe'
-                              else init_mlp(cfg, generator, dtype))}
-         for i, (_, ffn) in enumerate(cfg.layer_kinds())}
-        for _ in range(cfg.n_blocks)]
+    params['blocks'] = _init_blocks(cfg, generator, dtype, dev, cfg.n_blocks,
+                                    cfg.layer_kinds(), cfg.is_encdec)
     params['final_norm'] = init_rmsnorm(cfg, dev, dtype)
+    if cfg.is_encdec:
+        params['enc_blocks'] = _init_blocks(cfg, generator, dtype, dev,
+                                            cfg.n_enc_layers, _ENC_KINDS,
+                                            False)
+        params['enc_final_norm'] = init_rmsnorm(cfg, dev, dtype)
+        params['embed'] = init_embedding(cfg, generator, dtype)  # decoder's
     return params
 
 
@@ -123,24 +163,50 @@ def _add_aux(total, aux):
     return aux if total is None else (total if aux is None else total + aux)
 
 
-def _apply_slot(cfg: ModelConfig, sp: dict, x: torch.Tensor,
-                rope: tuple[torch.Tensor, torch.Tensor], ffn: str):
-    """One pre-norm residual layer: attention, then the FFN (SwiGLU or
-    MoE). Returns (x, aux), aux None for a dense FFN. ln1 and ln2 go
-    through kernel D when ``cfg.use_pallas``."""
+def _apply_slot(cfg: ModelConfig, sp: dict, x: torch.Tensor, rope,
+                mixer: str, ffn: str, causal: bool,
+                enc_out: torch.Tensor | None):
+    """One pre-norm residual layer: the mixer, cross-attention to
+    ``enc_out`` where given, then the FFN. Returns (x, aux), aux None for
+    a dense FFN. An RWKV slot starts from a zero state and drops the state
+    it ends in, as in the reference; its norms are plain."""
+    if mixer == 'rwkv':
+        B = x.shape[0]
+        zeros_prev = torch.zeros((B, cfg.d_model), dtype=x.dtype,
+                                 device=x.device)
+        wkv = rwkv_lib.init_rwkv_state(cfg, B, x.device)['wkv']
+        h, _, _ = rwkv_lib.rwkv_time_mix(
+            sp['mixer'], rmsnorm(sp['ln1'], x, cfg.norm_eps), zeros_prev,
+            wkv, cfg)
+        x = x + h
+        h, _ = rwkv_lib.rwkv_channel_mix(
+            sp['mixer'], rmsnorm(sp['ln2'], x, cfg.norm_eps), zeros_prev,
+            cfg)
+        return x + h, None
     h = rmsnorm(sp['ln1'], x, cfg.norm_eps, cfg.use_pallas)
-    x = x + attn.multihead_attention(sp['mixer'], h, cfg, rope=rope)
+    if mixer == 'attn':
+        h = attn.multihead_attention(sp['mixer'], h, cfg, rope=rope,
+                                     causal=causal)
+    else:
+        h = ssm_lib.mamba_scan(sp['mixer'], h, cfg)
+    x = x + h
+    if enc_out is not None:
+        h = rmsnorm(sp['ln_cross'], x, cfg.norm_eps)
+        x = x + attn.cross_attention(
+            sp['cross'], h,
+            *attn.cross_attention_cache(sp['cross'], enc_out, cfg), cfg)
     h = rmsnorm(sp['ln2'], x, cfg.norm_eps, cfg.use_pallas)
     h, aux = _ffn(cfg, ffn, sp['ffn'], h)
     return x + h, aux
 
 
-def _apply_block(cfg: ModelConfig, block: dict, x: torch.Tensor,
-                 rope: tuple[torch.Tensor, torch.Tensor]):
+def _apply_block(cfg: ModelConfig, block: dict, x: torch.Tensor, rope,
+                 kinds, causal: bool, enc_out: torch.Tensor | None):
     """The block's slots in order: (x, the sum of their aux or None)."""
     aux = None
-    for i, (_, ffn) in enumerate(cfg.layer_kinds()):
-        x, a = _apply_slot(cfg, block[f'slot{i}'], x, rope, ffn)
+    for i, (mixer, ffn) in enumerate(kinds):
+        x, a = _apply_slot(cfg, block[f'slot{i}'], x, rope, mixer, ffn,
+                           causal, enc_out)
         aux = _add_aux(aux, a)
     return x, aux
 
@@ -163,38 +229,85 @@ def _remat_active(cfg: ModelConfig) -> bool:
             and torch._C._functorch.peek_interpreter_stack() is None)
 
 
-def forward(cfg: ModelConfig, params: dict, inputs: torch.Tensor,
-            positions: torch.Tensor | None = None):
-    """inputs: (B, S) int tokens. Returns (logits (B, S, V_padded), aux);
-    aux is the reference's MoE router loss summed over layers, 0 for the
-    dense family."""
-    check_ported(cfg)
-    x = embed(params['embed'], inputs, cfg)
-    B, S = x.shape[0], x.shape[1]
-    if positions is None:
-        positions = torch.arange(S, dtype=torch.int32,
-                                 device=x.device).expand(B, S)
-    rope = rope_tables(positions.to(x.device), cfg.head_dim, cfg.rope_theta)
+def _run_blocks(cfg: ModelConfig, blocks: list, x: torch.Tensor, rope,
+                kinds, causal: bool, enc_out: torch.Tensor | None = None):
+    """Every block in order, under remat where :func:`_remat_active`.
+    Returns (x, the aux summed over layers, 0 without experts)."""
     remat = _remat_active(cfg)
     aux = None
-    for block in params['blocks']:
+    for block in blocks:
+        args = (cfg, block, x, rope, kinds, causal, enc_out)
         if not remat:
-            x, a = _apply_block(cfg, block, x, rope)
+            x, a = _apply_block(*args)
         elif cfg.remat == 'dots':
-            x, a = checkpoint(_apply_block, cfg, block, x, rope,
-                              use_reentrant=False,
+            x, a = checkpoint(_apply_block, *args, use_reentrant=False,
                               context_fn=lambda: (
                                   create_selective_checkpoint_contexts(
                                       _save_dots)))
         else:
-            x, a = checkpoint(_apply_block, cfg, block, x, rope,
-                              use_reentrant=False)
+            x, a = checkpoint(_apply_block, *args, use_reentrant=False)
         aux = _add_aux(aux, a)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
+
+
+def _inputs(cfg: ModelConfig, params: dict, inputs: torch.Tensor,
+            device: torch.device) -> torch.Tensor:
+    """The decoder's input stream on ``device``: token ids through
+    ``embed`` (an encoder-decoder's decoder reads text tokens whatever its
+    frontend), or (B, S, d) embeddings cast to the compute dtype."""
+    if cfg.is_encdec or cfg.embed_inputs:
+        return embed(params['embed'], inputs.to(device), cfg)
+    return inputs.to(device=device, dtype=cdtype(cfg))
+
+
+def forward(cfg: ModelConfig, params: dict, inputs: torch.Tensor,
+            positions: torch.Tensor | None = None,
+            enc_inputs: torch.Tensor | None = None):
+    """inputs: (B, S) int tokens, or (B, S, d) embeddings where
+    ``cfg.embed_inputs`` is off (an encoder-decoder's decoder takes tokens
+    either way). ``positions``: (B, S), or (B, 3, S) (t, h, w) ids under
+    M-RoPE; default 0..S−1 (on all three components under M-RoPE).
+    ``enc_inputs``: the encoder's (B, T, d) frames, which an
+    encoder-decoder needs. Returns (logits (B, S, V_padded), aux); aux is
+    the reference's MoE router loss summed over layers, 0 without
+    experts."""
+    x = _inputs(cfg, params, inputs, params['final_norm']['scale'].device)
+    B, S = x.shape[0], x.shape[1]
+    if positions is None:
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=x.device).expand(B, S)
+        if cfg.mrope:
+            positions = positions[:, None, :].expand(B, 3, S)
+    rope = rope_for(cfg, positions.to(x.device))
+    enc_out = None
+    if cfg.is_encdec:
+        if enc_inputs is None:
+            raise ValueError(f'{cfg.name}: an encoder-decoder needs '
+                             'enc_inputs')
+        enc_out = encode(cfg, params, enc_inputs)
+    x, aux = _run_blocks(cfg, params['blocks'], x, rope, cfg.layer_kinds(),
+                         causal=True, enc_out=enc_out)
     x = rmsnorm(params['final_norm'], x, cfg.norm_eps)
     table = params['embed'] if cfg.tie_embeddings else params['unembed']
     return unembed(table, x, cfg), aux
+
+
+def encode(cfg: ModelConfig, params: dict,
+           enc_inputs: torch.Tensor) -> torch.Tensor:
+    """The encoder stack over precomputed frame or patch embeddings
+    (B, T, d): period-1 dense attention blocks, non-causal, RoPE at
+    0..T−1, then ``enc_final_norm``. Returns (B, T, d) in the compute
+    dtype."""
+    dev = params['enc_final_norm']['scale'].device
+    x = enc_inputs.to(device=dev, dtype=cdtype(cfg))
+    B, T = x.shape[0], x.shape[1]
+    positions = torch.arange(T, dtype=torch.int32, device=dev).expand(B, T)
+    rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    x, _ = _run_blocks(cfg, params['enc_blocks'], x, rope, _ENC_KINDS,
+                       causal=False)
+    return rmsnorm(params['enc_final_norm'], x, cfg.norm_eps)
 
 
 # ------------------------------------------------------------------- losses
@@ -208,8 +321,8 @@ def train_loss(cfg: ModelConfig, params: dict, batch: dict,
     (§5.4) enter. The reference's formula, op for op: the logits stay in
     the compute dtype, the log-sum-exp and the label's logit (a masked max,
     as the reference picks it) are reduced in f32, and the loss is
-    Σ tok·w / max(Σ w, 1e-6) plus the dense family's zero aux term. A MoE
-    config raises (:func:`check_trainable`)."""
+    Σ tok·w / max(Σ w, 1e-6) plus the dense family's zero aux term. A
+    config outside the dense family raises (:func:`check_trainable`)."""
     check_trainable(cfg)
     logits, aux = forward(cfg, params, batch['inputs'],
                           positions=batch.get('positions'))
@@ -237,44 +350,121 @@ def train_loss(cfg: ModelConfig, params: dict, batch: dict,
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype: torch.dtype | None = None, device=None) -> dict:
     """The zeroed decode cache on ``device`` (the card unless the caller
-    passes ``device='cpu'``): ``{'pos': 0-d int32, 'slots': {'slot{i}':
-    {'k', 'v'}}}``, each leaf (n_blocks, B, max_len, KV, hd) in ``dtype``
-    (default the compute dtype), the reference's layout."""
-    check_ported(cfg)
+    passes ``device='cpu'``) in the reference's layout: ``{'pos': 0-d
+    int32, 'slots': {'slot{i}': ...}}`` with attention's k, v (n_blocks,
+    B, max_len, KV, hd) in ``dtype`` (default the compute dtype), Mamba's
+    and RWKV's states in f32, and for an encoder-decoder ``'cross'``'s k,
+    v (n_blocks, B, cross_len, KV, hd) in ``dtype``."""
     dev = resolve_device(device)
     dtype = dtype or cdtype(cfg)
+    nb = cfg.n_blocks
+
+    def stacked(state: dict) -> dict:
+        return {name: torch.zeros((nb,) + tuple(x.shape), dtype=x.dtype,
+                                  device=dev) for name, x in state.items()}
+
     slots = {}
-    for i in range(cfg.block_period):
-        kv = attn.init_kv_cache(cfg, cfg.n_blocks, batch, max_len, dtype, dev)
-        slots[f'slot{i}'] = {'k': kv['k'], 'v': kv['v']}
-    return {'pos': torch.zeros((), dtype=torch.int32, device=dev),
-            'slots': slots}
+    for i, (mixer, _) in enumerate(cfg.layer_kinds()):
+        if mixer == 'attn':
+            kv = attn.init_kv_cache(cfg, nb, batch, max_len, dtype, dev)
+            slots[f'slot{i}'] = {'k': kv['k'], 'v': kv['v']}
+        elif mixer == 'mamba':
+            slots[f'slot{i}'] = stacked(
+                ssm_lib.init_mamba_state(cfg, batch, 'meta'))
+        else:
+            slots[f'slot{i}'] = stacked(
+                rwkv_lib.init_rwkv_state(cfg, batch, 'meta'))
+    cache = {'pos': torch.zeros((), dtype=torch.int32, device=dev),
+             'slots': slots}
+    if cfg.is_encdec:
+        shape = (nb, batch, cfg.cross_len, cfg.n_kv_heads, cfg.head_dim)
+        cache['cross'] = {'k': torch.zeros(shape, dtype=dtype, device=dev),
+                          'v': torch.zeros(shape, dtype=dtype, device=dev)}
+    return cache
+
+
+def fill_cross_cache(cfg: ModelConfig, params: dict, cache: dict,
+                     enc_out: torch.Tensor) -> dict:
+    """Every decoder block's cross-attention K and V of ``enc_out``
+    (B, T, d), written into ``cache['cross']`` in place (a new pair where
+    (B, T) differ from the cache's), in the cache's dtype: the reference's
+    ``scan_layers`` branch, which gives each block its own. Returns the
+    cache."""
+    k_all, v_all = cache['cross']['k'], cache['cross']['v']
+    B, T = enc_out.shape[0], enc_out.shape[1]
+    if tuple(k_all.shape[1:3]) != (B, T):
+        shape = (cfg.n_blocks, B, T) + tuple(k_all.shape[3:])
+        k_all = torch.empty(shape, dtype=k_all.dtype, device=k_all.device)
+        v_all = torch.empty(shape, dtype=v_all.dtype, device=v_all.device)
+    for b, block in enumerate(params['blocks']):
+        k, v = attn.cross_attention_cache(block['slot0']['cross'], enc_out,
+                                          cfg)
+        k_all[b].copy_(k)
+        v_all[b].copy_(v)
+    return dict(cache, cross={'k': k_all, 'v': v_all})
+
+
+def _decode_recurrent(cfg: ModelConfig, sp: dict, sc: dict, b: int,
+                      mixer: str, x: torch.Tensor, h: torch.Tensor):
+    """A Mamba or RWKV slot's decode step on block ``b``'s state, written
+    back in place. Returns x after the mixer (and, for RWKV, its channel
+    mix)."""
+    if mixer == 'mamba':
+        h, st = ssm_lib.mamba_decode(
+            sp['mixer'], h, {'conv': sc['conv'][b], 'ssm': sc['ssm'][b]},
+            cfg)
+        sc['conv'][b].copy_(st['conv'])
+        sc['ssm'][b].copy_(st['ssm'])
+        return x + h
+    h, tm_prev, wkv = rwkv_lib.rwkv_time_mix(
+        sp['mixer'], h, sc['tm_prev'][b].to(h.dtype), sc['wkv'][b], cfg)
+    x = x + h
+    h = rmsnorm(sp['ln2'], x, cfg.norm_eps)
+    h, cm_prev = rwkv_lib.rwkv_channel_mix(
+        sp['mixer'], h, sc['cm_prev'][b].to(h.dtype), cfg)
+    sc['tm_prev'][b].copy_(tm_prev)
+    sc['cm_prev'][b].copy_(cm_prev)
+    sc['wkv'][b].copy_(wkv)
+    return x + h
 
 
 def decode_step(cfg: ModelConfig, params: dict, inputs: torch.Tensor,
                 cache: dict):
-    """One token for every sequence. inputs: (B, 1) int tokens. Returns
-    (logits (B, 1, V_padded), cache) with ``pos + 1``.
+    """One token for every sequence. inputs: (B, 1) int tokens, or (B, 1,
+    d) embeddings where ``cfg.embed_inputs`` is off and there is no
+    encoder. Returns (logits (B, 1, V_padded), cache) with ``pos + 1``.
 
-    The input cache is consumed, as the reference donates it: its k and v
-    leaves are written in place and come back in the returned cache, and
-    ``pos`` stays on the device. RMSNorm takes its plain path, as in the
-    reference's decode; a MoE layer reads its group sizes on the host."""
-    check_ported(cfg)
+    The input cache is consumed, as the reference donates it: its
+    attention k, v and recurrent states are written in place and come back
+    in the returned cache, and ``pos`` stays on the device. Every norm is
+    plain, as in the reference's decode; a MoE layer reads its group sizes
+    on the host. An encoder-decoder attends to ``cache['cross']`` (see
+    :func:`fill_cross_cache`) and unembeds through ``embed``, as the
+    reference's decode does (its ``forward`` uses ``unembed``)."""
     pos = cache['pos']
-    x = embed(params['embed'], inputs.to(pos.device), cfg)
-    B = x.shape[0]
-    rope = rope_tables(pos.to(torch.int32).expand(B, 1), cfg.head_dim,
-                       cfg.rope_theta)
+    x = _inputs(cfg, params, inputs, pos.device)
+    rope = attn.decode_rope(cfg, pos, x.shape[0])
+    cross = cache.get('cross')
     for b, block in enumerate(params['blocks']):
-        for i, (_, ffn) in enumerate(cfg.layer_kinds()):
+        for i, (mixer, ffn) in enumerate(cfg.layer_kinds()):
             sp, sc = block[f'slot{i}'], cache['slots'][f'slot{i}']
             h = rmsnorm(sp['ln1'], x, cfg.norm_eps)
-            h, _, _ = attn.decode_attention(sp['mixer'], h, sc['k'][b],
-                                            sc['v'][b], pos, cfg, rope=rope)
-            x = x + h
+            if mixer == 'attn':
+                h, _, _ = attn.decode_attention(sp['mixer'], h, sc['k'][b],
+                                                sc['v'][b], pos, cfg,
+                                                rope=rope)
+                x = x + h
+            else:
+                x = _decode_recurrent(cfg, sp, sc, b, mixer, x, h)
+                if mixer == 'rwkv':       # its channel mix is its FFN
+                    continue
+            if cross is not None:
+                h = rmsnorm(sp['ln_cross'], x, cfg.norm_eps)
+                x = x + attn.cross_attention(sp['cross'], h, cross['k'][b],
+                                             cross['v'][b], cfg)
             h = rmsnorm(sp['ln2'], x, cfg.norm_eps)
             x = x + _ffn(cfg, ffn, sp['ffn'], h)[0]
     x = rmsnorm(params['final_norm'], x, cfg.norm_eps)
-    table = params['embed'] if cfg.tie_embeddings else params['unembed']
-    return unembed(table, x, cfg), {'pos': pos + 1, 'slots': cache['slots']}
+    table = (params['embed'] if (cfg.tie_embeddings or cfg.is_encdec)
+             else params['unembed'])
+    return unembed(table, x, cfg), dict(cache, pos=pos + 1)

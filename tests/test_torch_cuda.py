@@ -46,6 +46,14 @@ on the CPU in f32 (relative L2 1e-5, no kernel launched in decode), and a
 MoE prefill's launches of kernels D (twice a layer) and E (once a layer,
 on the tensor cores in bf16), with the f32 kernel path against the plain
 path at 1e-4.
+
+The twelfth slice: kernel E at the new families' shapes (SeamlessM4T's
+non-causal encoder at hd 64, Qwen2-VL's GQA group of 7) and kernel D at
+their widths (d = 3584 and 1024), at the gates above; then each new
+family at ``reduced()`` size on the card against the port on the CPU in
+f32 (forward, 8 decode steps, relative L2 1e-5), with kernels D and E
+launched by its prefill as the reference's ``use_pallas`` says and none
+by its decode.
 """
 import ctypes
 import math
@@ -1004,3 +1012,92 @@ def test_moe_prefill_launches_kernels_d_and_e(cuda, arch):
             plain = build_prefill_step(dataclasses.replace(
                 c, use_pallas=False), device=cuda)(gparams, batch)
             assert float((kern - plain).norm() / plain.norm()) <= 1e-4
+
+
+@pytest.mark.parametrize('causal', [False, True])
+def test_flash_at_seamless_shapes(cuda, causal):
+    """SeamlessM4T: 16 heads of 64 (MHA), non-causal in the encoder and
+    causal in the decoder, at S = 1024 (a quarter of its 4096)."""
+    q, k, v = (_randn((1, 1024, 16, 64), torch.bfloat16, cuda, 40 + i)
+               for i in range(3))
+    _flash_checked(q, k, v, causal, tensor_cores=True)
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+def test_flash_at_a_gqa_group_of_7(cuda, dtype):
+    """Qwen2-VL: 28 query heads over 4 KV heads of 128, causal."""
+    q = _randn((1, 512, 28, 128), dtype, cuda, 43)
+    k, v = (_randn((1, 512, 4, 128), dtype, cuda, 44 + i) for i in range(2))
+    _flash_checked(q, k, v, True, tensor_cores=dtype == torch.bfloat16)
+
+
+@pytest.mark.parametrize('d', [3584, 1024])
+@pytest.mark.parametrize('dtype,tol', [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_rmsnorm_at_the_new_families_widths(cuda, d, dtype, tol):
+    """Qwen2-VL's d = 3584 and SeamlessM4T's d = 1024, 4096 rows."""
+    x = _randn((4096, d), dtype, cuda, 46)
+    s = _randn((d,), torch.bfloat16, cuda, 47)
+    _rel_close(ops.rmsnorm(x, s, 1e-6), ref.rmsnorm(x, s, 1e-6), tol)
+
+
+#: the new families' prefill launches at reduced() size, S = 64 > attn_chunk
+#: with use_pallas: kernel D on ln1/ln2 of every non-RWKV slot (and the
+#: encoder's), kernel E on every self-attention (and the encoder's)
+NEW_FAMILIES = {'jamba_v01_52b': (32, 2), 'rwkv6_1b6': (0, 0),
+                'seamless_m4t_large_v2': (8, 4), 'qwen2_vl_7b': (4, 2)}
+
+
+@pytest.mark.parametrize('arch', sorted(NEW_FAMILIES))
+def test_new_families_on_the_card_match_the_cpu(cuda, arch):
+    """f32 at ``reduced(head_dim=64)``: the kernel path's prefill on the
+    card against the port's plain forward on the CPU (1e-4, phase 10's
+    gate) with D and E launched exactly; 8 decode steps on the card
+    against the CPU (1e-5), no kernel launched."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import build_prefill_step, build_serve_step
+    from repro_torch.models import build_model
+    cfg = get_config(arch).reduced(head_dim=64)
+    if cfg.mrope:
+        cfg = dataclasses.replace(cfg, mrope_sections=(8, 12, 12))
+    params, gparams = _cpu_and_card_models(cfg, cuda)
+    rng = np.random.RandomState(3)
+    if cfg.embed_inputs or cfg.is_encdec:
+        inputs = torch.tensor(rng.randint(0, cfg.vocab_size, (2, 64)))
+    else:
+        inputs = torch.tensor(rng.randn(2, 64, cfg.d_model).astype(
+            np.float32))
+    batch = {'inputs': inputs}
+    if cfg.is_encdec:
+        batch['enc_inputs'] = torch.tensor(rng.randn(
+            2, 64, cfg.d_model).astype(np.float32))
+    if cfg.mrope:
+        batch['positions'] = torch.tensor(rng.randint(
+            0, 64, (2, 3, 64)).astype(np.int32))
+    want = build_prefill_step(cfg, device='cpu')(params, batch)
+    _lib.reset_launches()
+    got = build_prefill_step(dataclasses.replace(cfg, use_pallas=True),
+                             device=cuda)(gparams, batch)
+    torch.cuda.synchronize()
+    assert (_lib.LAUNCHES['rmsnorm'], _lib.LAUNCHES['flash_attention']) \
+        == NEW_FAMILIES[arch]
+    assert float((got.cpu() - want).norm() / want.norm()) <= 1e-4
+    outs = {}
+    for dev, prm in (('cpu', params), (cuda, gparams)):
+        model = build_model(cfg, device=dev)
+        cache = model.init_cache(2, 8)
+        if cfg.is_encdec:
+            cache = model.fill_cross_cache(prm, cache, model.encode(
+                prm, batch['enc_inputs'].to(dev)))
+        step = build_serve_step(cfg, device=dev)
+        _lib.reset_launches()
+        logits = []
+        for t in range(8):
+            out, cache = step(prm, inputs[:, t:t + 1], cache)
+            logits.append(out.cpu())
+        assert set(_lib.LAUNCHES.values()) == {0}
+        outs[str(dev)] = torch.cat(logits, 1)[..., :cfg.vocab_size]
+    want = outs['cpu']
+    assert float((outs['cuda'] - want).norm() / want.norm()) <= 1e-5

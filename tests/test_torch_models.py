@@ -26,7 +26,8 @@ from repro.launch.steps import _param_sds
 from repro.models import attention as jattn
 from repro.models import build_model as jax_build_model
 from repro.models import layers as jlayers
-from repro_torch.configs import SHAPES, get_config
+from repro_torch.configs import ALIASES, SHAPES, get_config
+from repro_torch.configs import ARCHS as ALL_ARCHS
 from repro_torch.convert import model_params_from_jax, to_torch
 from repro_torch.kernels import _lib
 from repro_torch.launch.steps import build_prefill_step, serve_params
@@ -35,9 +36,11 @@ from repro_torch.models import build_model
 from repro_torch.models import layers as tlayers
 
 ARCHS = ['yi_9b', 'qwen2_7b']
-#: every arch ``get_config`` returns: the dense ones and the MoE family
+#: every arch ``get_config`` returns: all ten of the reference's
 CONFIG_ARCHS = ARCHS + ['llama3_405b', 'mistral_large_123b',
-                        'phi35_moe_42b_a66b', 'llama4_maverick_400b_a17b']
+                        'phi35_moe_42b_a66b', 'llama4_maverick_400b_a17b',
+                        'jamba_v01_52b', 'rwkv6_1b6', 'seamless_m4t_large_v2',
+                        'qwen2_vl_7b']
 
 
 def _rel_l2(got, want) -> float:
@@ -68,10 +71,15 @@ def test_configs_equal_the_reference(arch):
 
 
 def test_unported_archs_point_to_the_roadmap():
-    with pytest.raises(KeyError, match='ROADMAP'):
-        get_config('jamba_v01_52b')
-    with pytest.raises(KeyError, match='unknown'):
+    """All ten archs are served (by id and by hyphenated alias); only an
+    unknown id raises, naming the known ones."""
+    assert sorted(ALL_ARCHS) == sorted(CONFIG_ARCHS)
+    for arch in ALL_ARCHS:
+        assert get_config(arch) is get_config(arch.replace('_', '-'))
+        build_model(get_config(arch).reduced(), device='cpu')
+    with pytest.raises(KeyError, match='unknown') as err:
         get_config('gpt5')
+    assert all(alias in str(err.value) for alias in ALIASES)
     assert [s.name for s in SHAPES] == ['train_4k', 'prefill_32k',
                                         'decode_32k', 'long_500k']
 
@@ -86,10 +94,25 @@ def test_init_checks_the_generators_device():
 
 
 def test_non_dense_configs_raise_naming_the_roadmap():
+    """Training refuses each family but the dense one, naming what it
+    lacks and ``ROADMAP.md``; serving takes them all."""
+    from repro_torch.models.transformer import check_trainable
+    cases = {'jamba_v01_52b': 'mamba', 'rwkv6_1b6': 'rwkv',
+             'seamless_m4t_large_v2': 'encoder-decoder',
+             'qwen2_vl_7b': 'M-RoPE'}
+    for arch, what in cases.items():
+        with pytest.raises(NotImplementedError, match='ROADMAP') as err:
+            check_trainable(get_config(arch).reduced())
+        assert what in str(err.value)
     cfg = dataclasses.replace(get_config('yi_9b').reduced(),
                               ssm_kind='mamba', attn_every=2)
     with pytest.raises(NotImplementedError, match='ROADMAP'):
-        build_model(cfg, device='cpu')
+        check_trainable(cfg)
+    with pytest.raises(NotImplementedError, match='embedding inputs'):
+        check_trainable(dataclasses.replace(cfg, ssm_kind=None,
+                                            embed_inputs=False))
+    check_trainable(get_config('yi_9b').reduced())
+    build_model(cfg, device='cpu')
 
 
 @pytest.mark.parametrize('theta', [10_000.0, 1_000_000.0])

@@ -1,6 +1,7 @@
 """The port stands alone: every module of ``repro_torch`` (the serving
 tier, checkpoints, the multi-level engine, the data loader, the LM steps,
-the training CLI's LM route, the MoE layer and the decode path included) imports with ``jax`` and
+the training CLI's LM route, the MoE layer, the decode path and the Mamba,
+RWKV-6, encoder-decoder and M-RoPE families included) imports with ``jax`` and
 ``repro`` blocked, and its entry points refuse to drop to the CPU on their
 own."""
 import os
@@ -76,6 +77,15 @@ if not torch.cuda.is_available():
                 get_config('llama4_maverick_400b_a17b').reduced(), 2, 4)),
             ('init_params', lambda: init_params(
                 get_config('yi_9b').reduced(), torch.Generator())),
+            *[(f'{kind} {arch}', lambda arch=arch, builder=builder: builder(
+                get_config(arch).reduced()))
+              for arch in ('jamba_v01_52b', 'rwkv6_1b6',
+                           'seamless_m4t_large_v2', 'qwen2_vl_7b')
+              for kind, builder in (('build_prefill_step',
+                                     build_prefill_step),
+                                    ('build_serve_step', build_serve_step))],
+            ('init_cache seamless', lambda: init_cache(
+                get_config('seamless_m4t_large_v2').reduced(), 2, 4)),
             ('solve', lambda: solve(problem, HypergradConfig(k=2,
                                                              backend='cuda'),
                                     n_outer=1)),

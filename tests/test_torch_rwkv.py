@@ -1,0 +1,272 @@
+"""Parity of the port's RWKV-6 family (``models/rwkv.py``, RWKV-6 1.6B)
+with the reference's.
+
+The module functions (``init_rwkv_block``, ``rwkv_time_mix`` over a
+sequence and over one token, ``rwkv_channel_mix``) on the reference's
+parameters, with inputs, token-shift predecessors and wkv states drawn
+with numpy from a seed; then the model's ``forward`` and bf16
+``decode_step`` at ``reduced()`` size with the reference's parameters
+carried across by ``model_params_from_jax``; and, at d = 512, each
+side's f32 decode against its own forward at 4 and 24 layers, where the
+model's own f32 conditioning shows. ``decode_step`` in f32, its cache and
+``init_cache``'s layout are in ``tests/test_torch_decode.py``.
+
+Tolerances, relative L2: 1e-5 in f32, 2e-2 in bf16.
+"""
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jax_get_config
+from repro.models import build_model as jax_build_model
+from repro.models import rwkv as jrwkv
+from repro_torch.configs import get_config
+from repro_torch.convert import model_params_from_jax, to_torch
+from repro_torch.kernels import _lib
+from repro_torch.models import build_model
+from repro_torch.models import rwkv as trwkv
+
+ARCH = 'rwkv6_1b6'
+DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16}
+TOLS = [('float32', 1e-5), ('bfloat16', 2e-2)]
+
+
+def _rel_l2(got, want) -> float:
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+def _np(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().numpy()
+    return np.asarray(jnp.asarray(x).astype(jnp.float32))
+
+
+def _reduced(**kw):
+    return (jax_get_config(ARCH).reduced(**kw),
+            get_config(ARCH).reduced(**kw))
+
+
+def _block(jcfg):
+    """The reference's block with its zero/constant leaves drawn at random
+    too (bonus, decay bias, mixes, group-norm scale), so that every one of
+    them matters in the comparison."""
+    params = jax.tree.map(np.asarray, jrwkv.init_rwkv_block(
+        jcfg, jax.random.PRNGKey(1)))
+    rng = np.random.RandomState(7)
+    for name in ('mu', 'mu_cm', 'ln_scale'):
+        params[name] = rng.uniform(0.1, 0.9, params[name].shape)
+    params['bonus'] = 0.3 * rng.randn(*params['bonus'].shape)
+    params['w0'] = rng.uniform(-6.0, -1.0, params['w0'].shape)
+    params = {k: np.asarray(v, np.float32) for k, v in params.items()}
+    return jax.tree.map(jnp.asarray, params), to_torch(params)
+
+
+def _carry(jcfg, B: int, seed: int):
+    """x (B, S = 1 or more later), a predecessor (B, d) and a wkv state."""
+    rng = np.random.RandomState(seed)
+    H = jcfg.d_model // 64
+    return (rng.randn(B, jcfg.d_model).astype(np.float32),
+            (0.1 * rng.randn(B, H, 64, 64)).astype(np.float32))
+
+
+def test_init_rwkv_block_has_the_references_leaves():
+    jcfg, tcfg = _reduced()
+    want = jax.eval_shape(functools.partial(jrwkv.init_rwkv_block, jcfg),
+                          jax.random.PRNGKey(0))
+    got = trwkv.init_rwkv_block(tcfg, torch.Generator().manual_seed(0),
+                                torch.float32)
+    meta = trwkv.init_rwkv_block(tcfg, None, torch.bfloat16)
+    assert sorted(got) == sorted(want) == sorted(meta)
+    ref = jax.tree.map(np.asarray, jrwkv.init_rwkv_block(
+        jcfg, jax.random.PRNGKey(0)))
+    for name, sds in want.items():
+        assert tuple(got[name].shape) == sds.shape == tuple(meta[name].shape)
+        assert meta[name].device.type == 'meta'
+        assert meta[name].dtype == torch.bfloat16
+    for name in ('mu', 'w0', 'bonus', 'ln_scale', 'mu_cm'):   # constants
+        np.testing.assert_array_equal(got[name].numpy(), ref[name])
+    state = trwkv.init_rwkv_state(tcfg, 3)
+    want_state = jrwkv.init_rwkv_state(jcfg, 3)
+    assert {k: tuple(v.shape) for k, v in state.items()} == {
+        k: v.shape for k, v in want_state.items()}
+
+
+@pytest.mark.parametrize('heads', [1, 4])
+@pytest.mark.parametrize('S', [64, 1])
+@pytest.mark.parametrize('dtype,tol', TOLS)
+def test_time_mix_matches_the_reference(dtype, tol, S, heads):
+    """Over a sequence (S = 64, a forward's) and one token (S = 1, a
+    decode step's), from a random predecessor and wkv state: the output,
+    the last token and the new state; with ``reduced()``'s one head and
+    with four (d = 256)."""
+    jcfg, tcfg = _reduced(compute_dtype=dtype, d_model=64 * heads)
+    jp, tp = _block(jcfg)
+    prev, state = _carry(jcfg, 2, 3)
+    x = np.random.RandomState(4).randn(2, S, jcfg.d_model).astype(np.float32)
+    want = jrwkv.rwkv_time_mix(jp, jnp.asarray(x).astype(dtype),
+                               jnp.asarray(prev).astype(dtype),
+                               jnp.asarray(state), jcfg)
+    got = trwkv.rwkv_time_mix(tp, torch.tensor(x).to(DTYPES[dtype]),
+                              torch.tensor(prev).to(DTYPES[dtype]),
+                              torch.tensor(state), tcfg)
+    assert got[0].shape == (2, S, jcfg.d_model)
+    assert got[0].dtype == DTYPES[dtype]
+    assert got[2].dtype == torch.float32
+    for g, w in zip(got, want):
+        assert _rel_l2(_np(g), _np(w)) <= tol
+
+
+@pytest.mark.parametrize('dtype,tol', TOLS)
+def test_channel_mix_matches_the_reference(dtype, tol):
+    jcfg, tcfg = _reduced(compute_dtype=dtype)
+    jp, tp = _block(jcfg)
+    prev, _ = _carry(jcfg, 2, 5)
+    x = np.random.RandomState(6).randn(2, 9, jcfg.d_model).astype(np.float32)
+    want = jrwkv.rwkv_channel_mix(jp, jnp.asarray(x).astype(dtype),
+                                  jnp.asarray(prev).astype(dtype), jcfg)
+    got = trwkv.rwkv_channel_mix(tp, torch.tensor(x).to(DTYPES[dtype]),
+                                 torch.tensor(prev).to(DTYPES[dtype]), tcfg)
+    for g, w in zip(got, want):
+        assert _rel_l2(_np(g), _np(w)) <= tol
+
+
+def test_time_mix_one_token_at_a_time_is_the_sequence():
+    """Decode's S = 1 steps, each carrying the last token and the state,
+    give the whole sequence's output and final state."""
+    jcfg, tcfg = _reduced()
+    _, tp = _block(jcfg)
+    prev, state = map(torch.tensor, _carry(jcfg, 2, 8))
+    x = torch.tensor(np.random.RandomState(9).randn(2, 10, 64).astype(
+        np.float32))
+    want, _, want_state = trwkv.rwkv_time_mix(tp, x, prev, state, tcfg)
+    got = []
+    for t in range(10):
+        out, prev, state = trwkv.rwkv_time_mix(tp, x[:, t:t + 1], prev,
+                                               state, tcfg)
+        got.append(out)
+    assert _rel_l2(_np(torch.cat(got, 1)), _np(want)) <= 1e-5
+    assert _rel_l2(_np(state), _np(want_state)) <= 1e-5
+
+
+def _model_params(**kw):
+    jcfg, tcfg = _reduced(**kw)
+    jparams = jax_build_model(jcfg).init(jax.random.PRNGKey(0))
+    return jcfg, tcfg, jparams, model_params_from_jax(
+        jax.tree.map(np.asarray, jparams), tcfg)
+
+
+@pytest.mark.parametrize('use_pallas,d', [(True, 64), (False, 64),
+                                          (True, 256)])
+@pytest.mark.parametrize('dtype,tol', TOLS)
+def test_rwkv_forward_matches_the_reference(dtype, tol, use_pallas, d):
+    """RWKV's norms are plain in the reference whatever ``use_pallas``
+    says, so the model launches no kernel either way; one head
+    (``reduced()``) and four (d = 256)."""
+    jcfg, tcfg, jparams, tparams = _model_params(compute_dtype=dtype,
+                                                 use_pallas=use_pallas,
+                                                 d_model=d)
+    tokens = np.random.RandomState(3).randint(0, jcfg.vocab_size, (2, 64))
+    want, _ = jax_build_model(jcfg).forward(jparams, jnp.asarray(tokens))
+    _lib.reset_launches()
+    got, aux = build_model(tcfg, device='cpu').forward(
+        tparams, torch.tensor(tokens))
+    assert set(_lib.LAUNCHES.values()) == {0} and float(aux) == 0.0
+    assert got.shape == (2, 64, tcfg.padded_vocab)
+    assert got.dtype == DTYPES[dtype]
+    assert _rel_l2(_np(got), _np(want)) <= tol
+
+
+def test_rwkv_bf16_decode_matches_the_reference():
+    """8 tokens from an empty cache, B = 2, the reference's decode under
+    ``jax.jit``; then the carried-back recurrent states."""
+    B, T = 2, 8
+    jcfg, tcfg, jparams, tparams = _model_params(compute_dtype='bfloat16')
+    tokens = np.random.RandomState(4).randint(0, jcfg.vocab_size, (B, T))
+    jmodel = jax_build_model(jcfg)
+    jcache = jmodel.init_cache(B, T)
+    step = jax.jit(jmodel.decode_step)
+    model = build_model(tcfg, device='cpu')
+    cache = model.init_cache(B, T)
+    want, got = [], []
+    for t in range(T):
+        logits, jcache = step(jparams, jnp.asarray(tokens[:, t:t + 1]),
+                              jcache)
+        want.append(_np(logits))
+        logits, cache = model.decode_step(tparams, torch.tensor(
+            tokens[:, t:t + 1]), cache)
+        got.append(_np(logits))
+    assert _rel_l2(np.concatenate(got, 1), np.concatenate(want, 1)) <= 2e-2
+    for name, leaf in cache['slots']['slot0'].items():
+        assert leaf.dtype == torch.float32
+        assert _rel_l2(_np(leaf), _np(jcache['slots']['slot0'][name])) <= 2e-2
+
+
+def test_rwkv_decode_state_does_not_grow_with_the_context():
+    """RWKV's cache is O(1) in the sequence length (why it serves
+    ``long_500k``)."""
+    cfg = get_config(ARCH).reduced()
+    small = build_model(cfg, device='cpu').init_cache(2, 8)
+    large = build_model(cfg, device='cpu').init_cache(2, 1 << 19)
+    for name, slot in small['slots'].items():
+        assert {k: v.shape for k, v in slot.items()} == {
+            k: v.shape for k, v in large['slots'][name].items()}
+
+
+def _own_decode_gap(forward, decode_step, cache, tokens) -> float:
+    """Worst relative L2 at a position between a model's decode of
+    ``tokens`` one at a time from ``cache`` and its own forward."""
+    want = _np(forward(tokens)[0])
+    got = []
+    for t in range(tokens.shape[1]):
+        logits, cache = decode_step(tokens[:, t:t + 1], cache)
+        got.append(_np(logits))
+    got = np.concatenate(got, 1)
+    return max(_rel_l2(got[:, t], want[:, t]) for t in range(want.shape[1]))
+
+
+@pytest.mark.parametrize('layers', [4, 24])
+def test_f32_decode_leaves_the_forward_with_depth_in_the_reference_too(
+        layers):
+    """RWKV-6 in f32 compute on bf16 weights, d = 512 (8 heads), B = 4,
+    T = 32: each side's decode against its own forward. At 4 layers both
+    agree to 1e-5. At 24 the reference's own gap is past 1e-4 (it reads
+    7.9e-3 on the reference's ``PRNGKey(2)`` draw), and the port's, on
+    the same weights, is of the same order. The cause is the model's
+    numerics, not a path of either package: at t = 0 the wkv state is
+    zero, so a head's output is c·v with c = r·(e^bonus ∘ k); where c
+    nearly cancels, the f32 rounding of r and k is a large part of it, the
+    group norm (eps 1e-5) scales the head back up to full size, and every
+    layer after it amplifies the difference. How often a draw holds such a
+    head grows with the heads and layers, so on the card (32 heads, 24
+    layers) RWKV-6's f32 decode-vs-forward gate runs at depth 4, and the
+    full depth is printed beside the forward's own gap between a row run
+    alone and in the batch."""
+    jcfg, tcfg = _reduced(n_layers=layers, d_model=512, d_ff=1792,
+                          param_dtype='bfloat16')
+    jmodel = jax_build_model(jcfg)
+    jparams = jmodel.init(jax.random.PRNGKey(2))
+    tokens = np.random.RandomState(11).randint(0, jcfg.vocab_size, (4, 32))
+    step = jax.jit(jmodel.decode_step)
+    ref = _own_decode_gap(
+        lambda x: jax.jit(jmodel.forward)(jparams, jnp.asarray(x)),
+        lambda x, c: step(jparams, jnp.asarray(x), c),
+        jmodel.init_cache(4, 32), tokens)
+    model = build_model(tcfg, device='cpu')
+    tparams = model_params_from_jax(jax.tree.map(np.asarray, jparams), tcfg)
+    with torch.inference_mode():
+        port = _own_decode_gap(
+            lambda x: model.forward(tparams, torch.tensor(x)),
+            lambda x, c: model.decode_step(tparams, torch.tensor(x), c),
+            model.init_cache(4, 32), tokens)
+    print(f'{layers} layers: decode vs own forward, reference {ref:.3e}, '
+          f'port {port:.3e}')
+    if layers == 4:
+        assert ref <= 1e-5 and port <= 1e-5
+    else:
+        assert ref > 1e-4 and port <= 10 * ref
