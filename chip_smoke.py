@@ -322,6 +322,27 @@ launch 0 times in every decode run:
     the time loop's launches. The MoE gates leave out routing flips as
     phase 20 does.
 
+The solver observatory (the thirteenth slice, ``repro_torch.bench``):
+
+22. (a) ``run_sweep`` over the reference's default sweep: its three toy
+    problems (``DEFAULT_PROBLEM_SPECS``), all four solvers,
+    ``DEFAULT_GRID``, 3 members and the exact oracle at the grid's rho =
+    1e-2 (undamped, distillation's Hessian is singular and
+    ``torch.linalg.solve`` refuses it), Nyström on 'flat' and 'cuda'. Every error finite; each Nyström 'cuda' cell
+    launches kernels A (gram), B and C and agrees with its 'flat' cell on
+    the error mean and max at 1e-4 relative and on ``hvp_count``; at the
+    largest k the stacked hypergradients agree member by member at 1e-4
+    relative L2. (b) ``reweighting`` at its registry defaults (p =
+    26,122) as a population of 3 against the exact oracle at rho = 1e-2
+    (``max_oracle_p`` 30,000): the adaptation's and the oracle's seconds
+    and the build's peak memory, then every cell of all four solvers over
+    k = 5, 10, 20, 50 (Nyström on 'cuda'), each with its error mean and
+    max, ``hvp_count``, best wall time and applies/s; the exact cell
+    within 1e-4 of the oracle, Nyström at k = 50 against 'flat' as in
+    (a), every error finite. (c) The Nyström cell at k = 10 under
+    ``torch.profiler``: its device busy and idle share against the
+    unprofiled cell, its kernels and its launches.
+
 The line before the last is the kernels' JSON record (seven rows, kernel
 E's the tensor-core variant at the prefill's own call; rows 1–5 also
 carry their p = 2²⁴ f32 and bf16 times under ``p24`` and the p = 2²⁰
@@ -335,7 +356,9 @@ record under ``alg1_p24``, rows 1–5 the launches of phases 13–15 under
 phase 17's under ``engine_launches``: (a), each graph of (b), and (c) per
 timed step; phase 18's under ``lm_launches``: (a)'s cuda run and (b)'s
 training run; rows 6–7 phase 20's prefills under ``moe_launches`` and
-phase 21's (one prefill each) under ``family_launches``, and every row
+phase 21's (one prefill each) under ``family_launches``, rows 1, 3 and
+4 phase 22's 'cuda' cells summed by part under ``observatory_launches``,
+and every row
 phases 19–21's decode runs under ``decode_launches``, all 0);
 the last
 line is ``{"ok": true, "device": {...}}``; standard error ends with the
@@ -3075,6 +3098,209 @@ def run_families(torch, dev, smi: str) -> dict:
     return out
 
 
+
+# --------------------------------------------------------------------------
+# Phase 22: the solver observatory (repro_torch.bench)
+# --------------------------------------------------------------------------
+OBS_SOLVERS = ('nystrom', 'cg', 'neumann', 'exact')
+OBS_TASKS = 3
+OBS_MAIN = dict(spec='reweighting', oracle_rho=1e-2, max_oracle_p=30_000,
+                grid={'k': (5, 10, 20, 50), 'rho': (1e-2,)})
+OBS_ABC = ('nystrom_gram', 'woodbury_ctv', 'woodbury_apply')
+
+
+def _count(launches: dict) -> dict:
+    return {n: c for n, c in launches.items() if c}
+
+
+def _obs_line(cell, launches=None) -> str:
+    knobs = ','.join(f'{k}={v}' for k, v in cell.grid.items())
+    out = (f'{cell.solver:<8} {knobs:<16} be={cell.backend:<5} '
+           f'err mean {cell.hypergrad_error:.6e} max {cell.err_max:.6e} '
+           f'hvp_count {cell.hvp_count} wall {cell.wall_seconds:.6f} s '
+           f'applies/s {cell.applies_per_sec:.3f}')
+    if launches is not None:
+        out += f' launches {launches}'
+    return out
+
+
+def _obs_agree(label: str, a, b) -> None:
+    """A Nyström cell on 'cuda' against the same cell on 'flat': errors at
+    1e-4 relative, above an absolute floor of 1e-6 (``compare_docs``'s
+    ``atol_error``) for errors that are f32 roundoff themselves, as the
+    full-rank sketch's are; the same bill; every error finite."""
+    for field in ('hypergrad_error', 'err_max'):
+        x, y = getattr(a, field), getattr(b, field)
+        if not (math.isfinite(x) and abs(x - y) <= 1e-4 * abs(y) + 1e-6):
+            raise AssertionError(f'{label}: {field} cuda {x!r} vs flat {y!r}')
+    if a.hvp_count != b.hvp_count:
+        raise AssertionError(f'{label}: hvp_count {a.hvp_count} vs '
+                             f'{b.hvp_count}')
+
+
+def _obs_members(torch, label: str, got, want) -> float:
+    """Stacked hypergradients, member by member: relative L2 <= 1e-4."""
+    from repro_torch.core import tree_leaves
+    errs = []
+    for t in range(tree_leaves(want)[0].shape[0]):
+        a, b = (torch.cat([x[t].reshape(-1).double()
+                           for x in tree_leaves(h)]) for h in (got, want))
+        errs.append(float((a - b).norm() / b.norm()))
+    if not max(errs) <= 1e-4:
+        raise AssertionError(f'{label}: member hypergradients cuda vs flat '
+                             f'rel L2 {errs}')
+    return max(errs)
+
+
+def run_observatory(torch, dev, smi: str) -> dict:
+    """Phase 22: the solver observatory on the card. (a) ``run_sweep`` over
+    the reference's default sweep (its three toy problems, all four solvers,
+    ``DEFAULT_GRID``, 3 members, Nyström on 'flat' and 'cuda'); (b) the
+    main path's ``reweighting`` (p = 26,122) as a population of 3 against
+    the exact oracle at rho = 1e-2, Nyström on 'cuda' at k = 5..50; (c) one
+    profiled Nyström cell of (b). Returns the launches of kernels A, B and
+    C summed over each part's 'cuda' cells."""
+    from repro_torch.bench import (DEFAULT_GRID, DEFAULT_PROBLEM_SPECS,
+                                   build_population, run_sweep,
+                                   solver_grid_points)
+    from repro_torch.bench.observatory import cell_hypergrads, measure_cell
+    from repro_torch.kernels import _lib
+    print(f'observatory: {smi}', flush=True)
+
+    # (a) the reference's default sweep, through run_sweep --------------
+    per_cell = []
+
+    def progress(msg: str) -> None:
+        if msg.startswith('[observatory]   '):    # a cell just ended
+            per_cell.append(dict(_lib.LAUNCHES))
+            msg += f' launches {_count(per_cell[-1])}'
+        _lib.reset_launches()
+        print(msg, flush=True)
+
+    _lib.reset_launches()
+    t0 = time.perf_counter()
+    # the oracle damped as the grid is (the reference's own tests do so):
+    # undamped, distillation's Hessian (p = 1210 from 10 images) is
+    # singular; torch.linalg.solve refuses it, and the reference's oracle
+    # comes out NaN
+    rho = DEFAULT_GRID['rho'][0]
+    cells = run_sweep(DEFAULT_PROBLEM_SPECS, OBS_SOLVERS, DEFAULT_GRID,
+                      tasks=OBS_TASKS, backends=('flat', 'cuda'),
+                      oracle_rho=rho, progress=progress)
+    print(f'observatory (a): {len(cells)} cells in '
+          f'{time.perf_counter() - t0:.1f} s', flush=True)
+    if len(per_cell) != len(cells):
+        raise AssertionError(f'(a): {len(per_cell)} progress lines for '
+                             f'{len(cells)} cells')
+    sweep_launches = dict.fromkeys(OBS_ABC, 0)
+    by_key = {(c.problem, c.solver, tuple(c.grid.items()), c.backend): c
+              for c in cells}
+    for cell, launches in zip(cells, per_cell):
+        for field in ('hypergrad_error', 'err_max'):
+            if not math.isfinite(getattr(cell, field)):
+                raise AssertionError(f'(a) {_obs_line(cell)}: not finite')
+        if cell.solver != 'nystrom' or cell.backend != 'cuda':
+            continue
+        if not all(launches[n] for n in OBS_ABC):
+            raise AssertionError(f'(a) {_obs_line(cell)}: launches '
+                                 f'{_count(launches)}')
+        for n in OBS_ABC:
+            sweep_launches[n] += launches[n]
+        flat = by_key[(cell.problem, 'nystrom', tuple(cell.grid.items()),
+                       'flat')]
+        _obs_agree(f'(a) {cell.problem} {cell.grid}', cell, flat)
+    k_max = {'k': max(DEFAULT_GRID['k']), 'rho': DEFAULT_GRID['rho'][0]}
+    for spec in DEFAULT_PROBLEM_SPECS:   # rebuilt: the sweep keeps none
+        bundle = build_population(spec, tasks=OBS_TASKS, oracle_rho=rho)
+        hg = {be: cell_hypergrads(bundle, 'nystrom', k_max, backend=be)
+              for be in ('cuda', 'flat')}
+        err = _obs_members(torch, f'(a) {spec} {k_max}', hg['cuda'],
+                           hg['flat'])
+        print(f'observatory (a): {spec} nystrom {k_max} stacked '
+              f'hypergradients cuda vs flat, largest member rel L2 '
+              f'{err:.3e} (<= 1e-4)', flush=True)
+
+    # (b) reweighting at the main path's width --------------------------
+    spec, grid = OBS_MAIN['spec'], OBS_MAIN['grid']
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    bundle = build_population(spec, tasks=OBS_TASKS,
+                              oracle_rho=OBS_MAIN['oracle_rho'],
+                              max_oracle_p=OBS_MAIN['max_oracle_p'])
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if bundle.p != MAIN_P:
+        raise AssertionError(f'(b): p={bundle.p}, expected {MAIN_P}')
+    print(f'observatory (b): {spec} p={bundle.p} population of '
+          f'{bundle.tasks} built: adaptation {bundle.seconds["adapt"]:.3f} '
+          f's, oracle {bundle.seconds["oracle"]:.3f} s (rho '
+          f'{OBS_MAIN["oracle_rho"]}), peak device memory {peak:.2f} GiB '
+          f'| {smi}', flush=True)
+    main_launches = dict.fromkeys(OBS_ABC, 0)
+    main_cells = {}
+    for solver in OBS_SOLVERS:
+        for point in solver_grid_points(solver, grid):
+            backend = 'cuda' if solver == 'nystrom' else 'tree'
+            torch.cuda.reset_peak_memory_stats()
+            _lib.reset_launches()
+            cell = measure_cell(bundle, solver, point, backend=backend)
+            launches = dict(_lib.LAUNCHES)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            main_cells[(solver, point.get('k'))] = cell
+            print(f'observatory (b): {_obs_line(cell, _count(launches))} '
+                  f'peak {peak:.2f} GiB', flush=True)
+            if not (math.isfinite(cell.hypergrad_error)
+                    and math.isfinite(cell.err_max)):
+                raise AssertionError(f'(b) {_obs_line(cell)}: not finite')
+            if solver == 'nystrom':
+                if not all(launches[n] for n in OBS_ABC):
+                    raise AssertionError(f'(b) {_obs_line(cell)}: launches '
+                                         f'{_count(launches)}')
+                for n in OBS_ABC:
+                    main_launches[n] += launches[n]
+    exact = main_cells[('exact', None)]
+    if not exact.err_max <= 1e-4:
+        raise AssertionError(f'(b) exact against the oracle: '
+                             f'{_obs_line(exact)}')
+    top = {'k': max(grid['k']), 'rho': grid['rho'][0]}
+    flat = measure_cell(bundle, 'nystrom', top, backend='flat')
+    print(f'observatory (b): {_obs_line(flat)}', flush=True)
+    _obs_agree(f'(b) nystrom {top}', main_cells[('nystrom', top['k'])], flat)
+    err = _obs_members(torch, f'(b) nystrom {top}',
+                       cell_hypergrads(bundle, 'nystrom', top,
+                                       backend='cuda'),
+                       cell_hypergrads(bundle, 'nystrom', top,
+                                       backend='flat'))
+    print(f'observatory (b): nystrom {top} cuda vs flat: errors within '
+          f'1e-4 relative, stacked hypergradients largest member rel L2 '
+          f'{err:.3e} (<= 1e-4); exact cell err max {exact.err_max:.3e} '
+          f'(<= 1e-4)', flush=True)
+
+    # (c) one profiled cell ---------------------------------------------
+    point = {'k': 10, 'rho': grid['rho'][0]}
+    cell = main_cells[('nystrom', 10)]
+
+    def run():
+        return cell_hypergrads(bundle, 'nystrom', point, backend='cuda')
+    _lib.reset_launches()
+    run()
+    torch.cuda.synchronize()
+    launches = _count(dict(_lib.LAUNCHES))
+    busy = _device_busy(torch, run)
+    if busy is None:
+        print('observatory (c): the profiler recorded no device events; '
+              'device time not measured', flush=True)
+    else:
+        ms, n = busy
+        wall_ms = cell.wall_seconds * 1e3
+        print(f'observatory (c): nystrom {point} cuda, one population call '
+              f'({bundle.tasks} members): {n} kernels, {ms:.3f} ms of device '
+              f'time against the unprofiled best {wall_ms:.3f} ms: device '
+              f'busy {100 * ms / wall_ms:.1f}%, idle '
+              f'{100 * (1 - ms / wall_ms):.1f}%; kernel launches {launches} '
+              f'| {smi}', flush=True)
+    return {'default_sweep': sweep_launches, 'reweighting': main_launches}
+
+
 PHASE_STARTS: list[tuple[str, float]] = []   # (phase, perf_counter)
 
 
@@ -3281,6 +3507,11 @@ def main() -> None:
     families = run_families(torch, dev, smi)
     decode_launches.update(families['decode'])
 
+    # 22. the solver observatory through kernels A-C ----------------------
+    _phase('22')
+    observatory_launches = run_observatory(torch, dev, smi)
+    torch.cuda.empty_cache()
+
     # records -----------------------------------------------------------------
     _phase('records')
     records = []
@@ -3301,6 +3532,10 @@ def main() -> None:
                 cfg: runs[kname] for cfg, runs in distill_launches.items()}
         if kname in ('nystrom_cross', 'woodbury_ctv'):
             rec['alg1_p24'] = alg1
+        if kname in ('nystrom_gram', 'woodbury_ctv', 'woodbury_apply'):
+            rec['observatory_launches'] = {
+                part: runs[kname]
+                for part, runs in observatory_launches.items()}
         if kname in large['float32']:   # rows 1-5: phases 13-15's paths
             rec['imaml_launches_per_meta_step'] = {
                 mode: runs.get(kname, 0)

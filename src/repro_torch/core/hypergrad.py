@@ -4,10 +4,11 @@
 
 The assembly lives in :mod:`repro_torch.core.implicit`: the inner solution
 is an autograd Function whose backward pass is the IHVP plus the mixed-term
-VJP, so Eq. 3 is plain ``torch.autograd.grad``. ``hypergradient`` is the
-imperative entry point on top of it; ``unrolled_hypergradient``, the
-oracle that differentiates through the unrolled inner SGD, checks it on
-tiny problems. ``config_from_cli`` builds a config from command-line flags.
+VJP, so Eq. 3 is plain ``torch.autograd.grad`` or ``torch.func.grad``.
+``hypergradient`` is the imperative entry point on top of it;
+``unrolled_hypergradient``, the oracle that differentiates through the
+unrolled inner SGD, checks it on tiny problems. ``config_from_cli`` builds
+a config from command-line flags.
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ import torch
 
 from torch.func import grad
 
-from repro_torch.core.tree_util import PyTree, tree_flatten, tree_map
+from repro_torch.core.tree_util import PyTree, tree_map
 
 InnerLoss = Callable[..., torch.Tensor]   # f(params, hparams, batch) -> scalar
 OuterLoss = Callable[..., torch.Tensor]   # g(params, hparams, batch) -> scalar
@@ -31,17 +32,20 @@ def hypergradient(inner_loss: InnerLoss, outer_loss: OuterLoss,
     """Approximate dg/dφ at (params, hparams) by implicit differentiation.
 
     Treats ``params`` as the inner solution θ*, wraps it in the
-    ``implicit_root`` map and differentiates ``g(θ*(φ), φ)``. ``sketch`` is
-    an optional pre-built solver state; ``rng``/``indices`` pick the sketch
-    columns otherwise."""
+    ``implicit_root`` map and differentiates ``g(θ*(φ), φ)`` with
+    ``torch.func.grad``, so it composes with ``torch.func`` transforms:
+    under ``vmap`` over stacked points it gives per-point hypergradients.
+    ``sketch`` is an optional pre-built solver state; ``rng``/``indices``
+    pick the sketch columns otherwise."""
     from repro_torch.core.implicit import implicit_root
     solve = implicit_root(lambda phi, batch: params, inner_loss, solver)
-    leaves, treedef = tree_flatten(hparams)
-    leaves = [l.detach().requires_grad_(True) for l in leaves]
-    phi = treedef.unflatten(leaves)
-    theta = solve(phi, inner_batch, rng=rng, state=sketch, indices=indices)
-    loss = outer_loss(theta, phi, outer_batch)
-    return treedef.unflatten(list(torch.autograd.grad(loss, leaves)))
+
+    def outer_of(phi):
+        theta = solve(phi, inner_batch, rng=rng, state=sketch,
+                      indices=indices)
+        return outer_loss(theta, phi, outer_batch)
+
+    return grad(outer_of)(tree_map(torch.Tensor.detach, hparams))
 
 
 def unrolled_hypergradient(inner_loss: InnerLoss, outer_loss: OuterLoss,

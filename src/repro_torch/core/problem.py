@@ -188,7 +188,10 @@ def hypergrad_at(problem: BilevelProblem, config: HypergradConfig | Any,
     """One implicit hypergradient at an explicit linearization point:
     ``params`` is taken as θ* and ``outer_loss(θ*(φ), φ)`` is differentiated
     through ``implicit_root``. ``rng`` seeds the column sampling, or
-    ``indices`` injects the columns."""
+    ``indices`` injects the columns. Vmappable: ``torch.func.vmap`` over
+    stacked (params, hparams, batches, indices) measures a population of
+    points in one call (the solver runs once per point on plain tensors,
+    inside the solution map's task rule)."""
     _check_device(problem, device)
     if config is None:
         config = HypergradConfig()

@@ -874,6 +874,37 @@ def test_engine_graph_through_the_kernels_matches_flat(cuda, name):
         assert math.isfinite(a) and abs(a - b) <= 1e-4 * abs(b)
 
 
+def test_observatory_population_through_the_kernels_matches_flat(cuda):
+    """``chip_smoke.py`` phase 22 at toy size: a 2-member ``logreg_wd``
+    population, its Nyström cell on ``backend='cuda'`` against
+    ``backend='flat'`` (hypergradients at 1e-4 relative L2 per member,
+    errors at 1e-4 relative, the same bill), with kernels A, B and C
+    launched under the population's vmap."""
+    from repro_torch.bench import build_population
+    from repro_torch.bench.observatory import cell_hypergrads, measure_cell
+    bundle = build_population('logreg_wd:D=8:n=60', tasks=2, oracle_rho=1e-2,
+                              device=cuda)
+    point = {'k': 5, 'rho': 1e-2}
+    hg, cells = {}, {}
+    for backend in ('flat', 'cuda'):
+        _lib.reset_launches()
+        cells[backend] = measure_cell(bundle, 'nystrom', point,
+                                      backend=backend, reps=1, device=cuda)
+        torch.cuda.synchronize()
+        launches = dict(_lib.LAUNCHES)
+        hg[backend] = cell_hypergrads(bundle, 'nystrom', point,
+                                      backend=backend, device=cuda)
+    assert _launched_a_b_c(launches), launches
+    a, b = cells['cuda'], cells['flat']
+    assert a.hvp_count == b.hvp_count == 5 and a.backend == 'cuda'
+    assert abs(a.hypergrad_error - b.hypergrad_error) <= \
+        1e-4 * b.hypergrad_error and math.isfinite(a.err_max)
+    for t in range(2):
+        x, y = (torch.cat([leaf[t].reshape(-1) for leaf in h.values()])
+                for h in (hg['cuda'], hg['flat']))
+        assert float((x - y).norm() / y.norm()) <= 1e-4
+
+
 def _wide_mlp(device):
     """An MLP with p = 1,049,087 ≈ 2²⁰ parameters on ``device``, and an
     HVP of its loss."""

@@ -1,9 +1,9 @@
 """The port stands alone: every module of ``repro_torch`` (the serving
 tier, checkpoints, the multi-level engine, the data loader, the LM steps,
 the training CLI's LM route, the MoE layer, the decode path and the Mamba,
-RWKV-6, encoder-decoder and M-RoPE families included) imports with ``jax`` and
-``repro`` blocked, and its entry points refuse to drop to the CPU on their
-own."""
+RWKV-6, encoder-decoder and M-RoPE families and the solver observatory
+included) imports with ``jax`` and ``repro`` blocked, and its entry points
+refuse to drop to the CPU on their own."""
 import os
 import pkgutil
 import subprocess
@@ -62,6 +62,9 @@ from repro_torch.data import Prefetcher, ShardedLoader, TokenStream
 from repro_torch.launch.steps import (N_DOMAINS, build_hypergrad_step,
                                       build_train_step, make_optimizer)
 from repro_torch.launch.train import train_lm
+from repro_torch.bench import (DEFAULT_GRID, CompareError, RateFit,
+                               build_population, compare_docs, fit_rates,
+                               parse_grid, run_sweep)
 problem = build_logreg_weight_decay(D=5, n=8, device='cpu')
 if not torch.cuda.is_available():
     w = {'w': torch.zeros(5)}
@@ -111,6 +114,10 @@ if not torch.cuda.is_available():
                 steps=1, batch=2, seq=4, outer_every=1)),
             ('launch.train lm', lambda: train_main(
                 ['--arch', 'yi_9b', '--reduced', '--steps', '1'])),
+            ('build_population', lambda: build_population(
+                'logreg_wd:D=4:n=8', tasks=1)),
+            ('run_sweep', lambda: run_sweep(('logreg_wd:D=4:n=8',), ('cg',),
+                                            {'k': (2,)}, tasks=1)),
             ('hypergrad_at', lambda: hypergrad_at(
                 problem, HypergradConfig(k=2, backend='cuda'), w,
                 {'wd': torch.ones(5)}, problem.data.train_batch(0, 4),
