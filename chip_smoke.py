@@ -343,6 +343,30 @@ The solver observatory (the thirteenth slice, ``repro_torch.bench``):
     ``torch.profiler``: its device busy and idle share against the
     unprofiled cell, its kernels and its launches.
 
+Training the encoder-decoder, M-RoPE/embedding-input and MoE families
+(the fourteenth slice): f32 parameters from a seeded generator, bf16
+compute, remat 'full', batches of 8 × 128 in ``make_batch_sds``'s layout
+from a seed, every width whole and each depth cut printed with its reason
+(``TRAIN_CUTS``); every hypergradient a k = 8 bf16 sketch with
+``column_chunk=2`` whose gram runs on ``atb_tc``:
+
+23. (a) SeamlessM4T-large-v2 at 8 + 8 layers (tokens and bf16 frames)
+    and (b) Qwen2-VL-7B at depth 2 (bf16 embeddings, (t, h, w) ids with
+    an image grid): ``lm_hypergrad`` at one draw at the initial
+    parameters on 'cuda' and on 'flat' (its two reductions over p summed
+    by blocks, ``blocked_flat_backend``), then 3 ``build_train_step``
+    steps on its inner batch (losses finite and not rising). (c) Phi-3.5-MoE at depth 1 with 8
+    of its 16 experts: ``train_lm`` (4 steps, an outer step every 2) on
+    'cuda' and on 'flat', the same parameters, batches and draws; then
+    from the cuda run's state 3 inner steps on one batch and the last
+    outer step again, each timed, profiled (device idle share) and its
+    host syncs counted (sync debug mode, and the MoE group-size reads).
+    Gates, phase 18's: losses and values within 1e-4 relative; the
+    hypergradients within 1e-4 relative L2 cuda against flat, or, where
+    the f32 paths spread more, the IHVP through kernels A–C within 1e-4
+    of their plain versions in f64; everything finite; A (``atb_tc``), B
+    and C launched on every cuda run and nothing on 'flat'.
+
 The line before the last is the kernels' JSON record (seven rows, kernel
 E's the tensor-core variant at the prefill's own call; rows 1–5 also
 carry their p = 2²⁴ f32 and bf16 times under ``p24`` and the p = 2²⁰
@@ -357,8 +381,9 @@ phase 17's under ``engine_launches``: (a), each graph of (b), and (c) per
 timed step; phase 18's under ``lm_launches``: (a)'s cuda run and (b)'s
 training run; rows 6–7 phase 20's prefills under ``moe_launches`` and
 phase 21's (one prefill each) under ``family_launches``, rows 1, 3 and
-4 phase 22's 'cuda' cells summed by part under ``observatory_launches``,
-and every row
+4 phase 22's 'cuda' cells summed by part under ``observatory_launches``
+and phase 23's cuda runs by family under ``train_launches`` (row 1's
+counts the gram's ``atb_tc`` launches, all of them), and every row
 phases 19–21's decode runs under ``decode_launches``, all 0);
 the last
 line is ``{"ok": true, "device": {...}}``; standard error ends with the
@@ -3301,6 +3326,515 @@ def run_observatory(torch, dev, smi: str) -> dict:
     return {'default_sweep': sweep_launches, 'reweighting': main_launches}
 
 
+# --------------------------------------------------------------------------
+# Phase 23: training the encoder-decoder, M-RoPE/embedding-input and MoE
+# families, their Nyström sketches through kernels A-C
+# --------------------------------------------------------------------------
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 128, 3
+# Each family's depth cut, and why. Widths are whole. A k = 8 bf16 sketch
+# keeps C and its whitened factor B, 32 bytes a parameter, beside the f32
+# parameters (4), one column chunk's one-hots and columns (16) and the
+# apply's f32 vectors; AdamW adds 12 bytes a parameter while it lives.
+TRAIN_CUTS = {
+    'seamless_m4t_large_v2': (
+        dict(n_layers=8, n_enc_layers=8),
+        '24 + 24 layers cut to 8 + 8: the hypergradient ran out of the '
+        "card's memory at 24 + 24 (p = 2.03 B) and at 12 + 12 (p = 1.28 B)"),
+    'qwen2_vl_7b': (
+        dict(n_layers=2),
+        '28 layers cut to 2, as phase 18 cuts Yi-9B: about 233 M a layer '
+        'beside the 545 M unembedding'),
+    'phi35_moe_42b_a66b': (
+        dict(n_layers=1, n_experts=8),
+        '32 layers cut to 1 and its 16 experts to 8 (top-2 kept, each at '
+        'full width): with 16 (p = 1.56 B) train_lm ran out of memory, '
+        'AdamW living beside the sketch'),
+}
+TRAIN_LM = dict(steps=4, batch=TRAIN_B, seq=TRAIN_S, outer_every=2)
+TRAIN_ABC = ('nystrom_gram', 'nystrom_gram_tc', 'woodbury_ctv',
+             'woodbury_apply')
+
+
+def blocked_flat_backend(torch, dtype, cols: int = 1 << 24):
+    """``backend='flat'`` (the (k, p) fused buffer, every contraction a
+    ``torch.matmul`` accumulated in f32) with its two reductions over p,
+    ``gram`` and ``ctv``, summed over blocks of ``cols`` columns: the flat
+    backend upcasts the whole bf16 buffer to f32 for them, 32 bytes a
+    parameter at k = 8, which a sketch of p ~ 10⁹ beside its model cannot
+    hold. ``cv``, ``mul_right`` and ``combine`` already go by blocks."""
+    from repro_torch.core import FlatBackend
+
+    def blocks(n):
+        return (slice(r, r + cols) for r in range(0, n, cols))
+
+    class BlockedFlat(FlatBackend):
+        def gram(self, Ckp):
+            out = 0
+            for b in blocks(Ckp.shape[1]):
+                c = Ckp[:, b].float()
+                out = out + c @ c.T
+            return out
+
+        def ctv(self, Ckp, vf):
+            return sum(Ckp[:, b].float() @ vf[b].float()
+                       for b in blocks(Ckp.shape[1]))
+
+    return BlockedFlat(sketch_dtype=dtype)
+
+
+def _train_batch(torch, cfg, B: int, S: int, seed: int) -> dict:
+    """A training batch in ``make_batch_sds``'s layout from ``seed``, with
+    the hypergradient's ``domain`` (among 64): tokens and labels on the
+    host, bf16 embeddings and encoder frames drawn on the card, Qwen2-VL's
+    (t, h, w) ids with an image grid (:func:`_vision_ids`), about a tenth
+    of the mask off."""
+    from repro_torch.launch.steps import N_DOMAINS, make_batch_sds
+    host = torch.Generator().manual_seed(seed)
+    card = torch.Generator('cuda').manual_seed(seed)
+    out = {}
+    for name, sds in make_batch_sds(cfg, B, S).items():
+        if name == 'positions':
+            out[name] = _vision_ids(torch, B, S)
+        elif name == 'mask':
+            out[name] = (torch.rand(sds.shape, generator=host)
+                         < 0.9).float()
+        elif sds.dtype.is_floating_point:
+            out[name] = torch.randn(sds.shape, dtype=sds.dtype,
+                                    device='cuda', generator=card)
+        else:
+            out[name] = torch.randint(0, cfg.vocab_size, sds.shape,
+                                      generator=host, dtype=sds.dtype)
+    out['domain'] = torch.randint(0, N_DOMAINS, (B,), generator=host,
+                                  dtype=torch.int32)
+    return out
+
+
+@contextlib.contextmanager
+def _moe_syncs(torch, counts: dict):
+    """While the block runs: ``counts['host']``, the host syncs that
+    torch's sync debug mode reports, and ``counts['moe']``, the MoE
+    layers' group-size reads (one per call of ``moe.route``)."""
+    import warnings
+    from repro_torch.models import moe
+    route = moe.route
+
+    def counted(*args):
+        counts['moe'] += 1
+        return route(*args)
+    counts.update(host=0, moe=0)
+    moe.route = counted
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter('always')
+        torch.cuda.set_sync_debug_mode('warn')
+        try:
+            yield
+        finally:
+            torch.cuda.set_sync_debug_mode('default')
+            moe.route = route
+    counts['host'] = sum('synchroniz' in str(w.message) for w in caught)
+
+
+def _not_rising(label: str, losses: list, norms: list = ()) -> None:
+    """The inner losses of steps on one batch (and their gradient norms)
+    finite and not rising."""
+    if not (all(map(math.isfinite, list(losses) + list(norms)))
+            and all(b <= a for a, b in zip(losses, losses[1:]))):
+        raise AssertionError(f'{label}: inner losses on one batch {losses}, '
+                             f'gradient norms {list(norms)}')
+
+
+def _runs_gate(label: str, a, b, outer_every: int) -> dict:
+    """Two ``train_lm`` runs (cuda, flat) on the same parameters, batches
+    and draws, as ``_lm_gate`` holds them where bf16 compute lets it:
+    every value finite; the inner losses up to the first outer step and
+    its value within 1e-4 relative (the same parameters, until the
+    hyperparameters move); the domain logits within 2·lr a step of adam's
+    (``_lm_gate``'s bound). After the first update the runs' inner losses
+    follow two hyperparameter paths: the bf16-compute hypergradients are
+    ~1e-3 apart (the f32 paths' own spread at this p, which the f64 gate
+    on the IHVP decides), and adam turns a difference on a domain whose
+    hypergradient is rounding noise into a whole step; those losses,
+    values and hypergradients are returned, not gated. The first outer
+    step's hypergradients, at one point, are returned for phase 18's
+    gate."""
+    import numpy as np
+    finite = (all(map(math.isfinite, a.losses + b.losses))
+              and all(math.isfinite(o['val']) and
+                      bool(o['hypergrad'].isfinite().all())
+                      for o in a.outer + b.outer))
+    first = max(abs(x / y - 1)
+                for x, y in zip(a.losses[:outer_every],
+                                b.losses[:outer_every]))
+    val0 = abs(a.outer[0]['val'] / b.outer[0]['val'] - 1)
+    logits = max(float(np.abs(x['logits'].double().cpu().numpy()
+                              - y['logits'].double().cpu().numpy()).max())
+                 / (2 * 1e-2 * n)
+                 for n, (x, y) in enumerate(zip(a.outer, b.outer), 1))
+    spread = {'losses before the first update': first,
+              'first outer value': val0,
+              'logits over the bound 2·lr·n': logits,
+              'later losses': max(abs(x / y - 1) for x, y in zip(
+                  a.losses[outer_every:], b.losses[outer_every:])),
+              'later values': max(abs(x['val'] / y['val'] - 1)
+                                  for x, y in zip(a.outer[1:], b.outer[1:])),
+              'first hypergradient': _rel_l2(a.outer[0]['hypergrad'],
+                                             b.outer[0]['hypergrad']),
+              'later hypergradients': max(
+                  _rel_l2(x['hypergrad'], y['hypergrad'])
+                  for x, y in zip(a.outer[1:], b.outer[1:]))}
+    if not (finite and len(a.outer) == len(b.outer) >= 2
+            and first <= 1e-4 and val0 <= 1e-4 and logits <= 1):
+        raise AssertionError(f'{label}: cuda vs flat {spread}, finite '
+                             f'{finite}')
+    return spread
+
+
+def _ihvp_vs_f64(torch, solver, sketch, params, h, ib, ob, losses) -> dict:
+    """On the cuda ``sketch``: ``'u'``, the relative L2 of the IHVP u =
+    (H_k + ρI)⁻¹ ∇θ g through kernels A-C against their plain versions in
+    f64 (by blocks of rows, :func:`blocked_f64_backend`), phase 18's gate;
+    ``'hg64'``, the hypergradient through the f64 versions; ``'spec'``,
+    the range of H_KK and of BᵀB's eigenvalues. Raises where the sketch is
+    0 (its Hessian columns vanish), which no kernel check could read."""
+    from repro_torch.core.backend import flatten_vec
+    from repro_torch.launch.steps import lm_hypergrad, loss_and_grads
+    inner, outer = losses
+    ref64 = blocked_f64_backend(torch, torch.bfloat16)
+    solver64 = dataclasses.replace(solver, backend=ref64)
+    gram64 = ref64.gram(sketch.B)
+    lam = torch.linalg.eigvalsh(gram64.double())
+    hkk = float(sketch.H_KK.abs().max())
+    if not (hkk > 0 and float(lam.max()) > 0):
+        raise AssertionError(f'a sketch of zeros: |H_KK| {hkk}, eigenvalues '
+                             f'of BᵀB {lam.tolist()}')
+    sk64 = dataclasses.replace(sketch, gram_B=gram64)
+    _, g_theta = loss_and_grads(lambda th: outer(th, h, ob), params)
+    u = flatten_vec(solver.apply(sketch, g_theta))
+    u_err = _rel_l2(u, flatten_vec(solver64.apply(sk64, g_theta)))
+    del u, g_theta
+    _, hg64 = lm_hypergrad(solver64, inner, outer, params, h, ib, ob,
+                           state=sk64)
+    return {'u': u_err, 'hg64': hg64['domain_logits'],
+            'spec': f'max |H_KK| {hkk:.4e}, eigenvalues of BᵀB '
+                    f'{float(lam.min()):.4e} .. {float(lam.max()):.4e} '
+                    f'against rho {RHO}'}
+
+
+def _hg_gate(label: str, errs: dict) -> None:
+    """Phase 18's gate: cuda within 1e-4 of flat, or, where the f32 paths
+    spread more at this p, the IHVP u through the kernels within 1e-4 of
+    its f64 plain version."""
+    if not (errs['cuda vs flat'] <= 1e-4 or errs['u cuda vs f64'] <= 1e-4):
+        raise AssertionError(f'{label}: {errs}')
+
+
+def _train_family(torch, dev, smi: str, arch: str, label: str) -> dict:
+    """Phase 23 (a), (b): ``arch`` cut as ``TRAIN_CUTS`` says, f32
+    parameters from a seeded generator, bf16 compute, remat 'full'. First
+    ``lm_hypergrad`` through ``NystromIHVP(k=8, column_chunk=2)`` with a
+    bf16 sketch at one draw, at the initial parameters and the batch that
+    training then takes, on 'cuda' (the sketch prepared apart and kept for
+    the f64 check) and, first, on 'flat' (:func:`blocked_flat_backend`),
+    gated as phase 18. Then ``TRAIN_STEPS`` ``build_train_step`` steps on that
+    batch (losses finite and not rising). The hypergradient comes first:
+    one AdamW step at Qwen2-VL's width drives the batch it trained on to a
+    loss of 0 and leaves a Hessian of 0 on fresh batches too (chip run),
+    which would hand kernels A-C a sketch of zeros. Returns the cuda run's
+    launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import (HypergradConfig, PyTreeIndexer, make_hvp,
+                                  tree_leaves)
+    from repro_torch.kernels import _lib
+    from repro_torch.launch.steps import (N_DOMAINS, build_train_step,
+                                          domain_losses, lm_hypergrad,
+                                          make_optimizer, to_device)
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import train_loss
+    cuts, why = TRAIN_CUTS[arch]
+    cfg = dataclasses.replace(get_config(arch), **cuts)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = build_model(cfg, device=dev).init(
+        torch.Generator('cuda').manual_seed(0))
+    torch.cuda.synchronize()
+    p = sum(x.numel() for x in tree_leaves(params))
+    print(f'{label} training: depth cut: {why}; p={p:,} f32 parameters '
+          f'drawn in {time.perf_counter() - t0:.1f} s', flush=True)
+    ib = to_device(_train_batch(torch, cfg, TRAIN_B, TRAIN_S, 1), dev)
+    ob = to_device(_train_batch(torch, cfg, TRAIN_B, TRAIN_S, 2), dev)
+
+    inner, outer = domain_losses(cfg)
+    h = {'domain_logits': 0.1 * torch.randn(
+        N_DOMAINS, device=dev, generator=torch.Generator('cuda').manual_seed(3))}
+    indexer = PyTreeIndexer(params)
+    idx = indexer.sample_indices(torch.Generator().manual_seed(0), LM_K)
+    # 'flat' first: its call also takes the first call's set-up on the card
+    flat = HypergradConfig(solver='nystrom', k=LM_K, rho=RHO,
+                           column_chunk=LM_CHUNK,
+                           backend=blocked_flat_backend(
+                               torch, torch.bfloat16)).build()
+    _lib.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fval, fhg = lm_hypergrad(flat, inner, outer, params, h, ib, ob,
+                             indices=idx)
+    torch.cuda.synchronize()
+    flat_s = time.perf_counter() - t0
+    fhg = fhg['domain_logits']
+    if any(_lib.LAUNCHES.values()):
+        raise AssertionError(f'{label}: flat launched {_lib.LAUNCHES}')
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    solver = _lm_config('cuda', sketch_dtype='bfloat16').build()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sketch = solver.prepare(make_hvp(inner, params, h, ib), indexer, None,
+                            indices=idx)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    val, hg = lm_hypergrad(solver, inner, outer, params, h, ib, ob,
+                           state=sketch)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = {n: _lib.LAUNCHES[n] for n in TRAIN_ABC}
+    cuda_peak = torch.cuda.max_memory_allocated() / 1e9
+    hg = hg['domain_logits']
+    check = _ihvp_vs_f64(torch, solver, sketch, params, h, ib, ob,
+                         (inner, outer))
+    del sketch
+    errs = {'u cuda vs f64': check['u'], 'cuda vs flat': _rel_l2(hg, fhg),
+            'cuda vs f64': _rel_l2(hg, check['hg64']),
+            'flat vs f64': _rel_l2(fhg, check['hg64'])}
+    finite = bool(torch.isfinite(hg).all() and torch.isfinite(fhg).all())
+    if not (finite and launches['nystrom_gram_tc'] == launches[
+            'nystrom_gram'] > 0 and launches['woodbury_ctv'] > 0
+            and launches['woodbury_apply'] > 0
+            and abs(float(val) / float(fval) - 1) <= 1e-4):
+        raise AssertionError(f'{label}: launches {launches}, values '
+                             f'{float(val)} {float(fval)}, finite {finite}')
+    _hg_gate(label, errs)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f'{label} training: {smi} | {cfg.name} d_model {cfg.d_model}, '
+          f'depth {cfg.n_layers}'
+          + (f' + {cfg.n_enc_layers} encoder' if cfg.is_encdec else '')
+          + f', p={p:,}, f32 params, bf16 compute, remat {cfg.remat}, '
+          f'batch {TRAIN_B} x {TRAIN_S} ({", ".join(sorted(ib))}); '
+          f'lm_hypergrad k={LM_K}, column_chunk={LM_CHUNK}, bf16 sketch, '
+          f'cuda: outer step {t2 - t0:.4f} s (HVP columns and prepare '
+          f'{t1 - t0:.4f}, apply with the mixed term {t2 - t1:.4f}), peak '
+          f'{cuda_peak:.2f} GB, launches {launches}; flat, the first call, '
+          f'{flat_s:.4f} s; '
+          f'value {float(val):.6f} (flat {float(fval):.6f}); {check["spec"]};'
+          ' relative L2 '
+          + ', '.join(f'{k} {e:.3e}' for k, e in errs.items())
+          + f' (gate: cuda vs flat <= 1e-4, or u vs f64 <= 1e-4); peak '
+          f'over the outer steps {peak:.2f} GB', flush=True)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step = build_train_step(cfg)
+    opt_state = make_optimizer(cfg).init(params)
+    losses, norms, secs = [], [], []
+    for i in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, _, m = step(params, opt_state, i, ib)
+        losses.append(float(m['loss']))
+        norms.append(float(m['grad_norm']))
+        secs.append(time.perf_counter() - t0)
+    _not_rising(label, losses, norms)
+    with torch.no_grad():
+        seen, fresh = (float(train_loss(cfg, params, b)) for b in (ib, ob))
+    print(f'{label} training: {TRAIN_STEPS} build_train_step steps on that '
+          f'batch, s per step {[round(s, 4) for s in secs]}, losses '
+          f'{[round(x, 4) for x in losses]}, gradient norms '
+          f'{[round(x, 4) for x in norms]}; after them the loss on that '
+          f'batch {seen:.4f}, on the outer batch {fresh:.4f}; peak '
+          f'{torch.cuda.max_memory_allocated() / 1e9:.2f} GB', flush=True)
+    del params, opt_state, step
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _train_moe(torch, dev, smi: str) -> dict:
+    """Phase 23 (c): ``train_lm`` on Phi-3.5-MoE cut as ``TRAIN_CUTS``
+    says (``TRAIN_LM``: two outer steps, each a fresh k = 8 bf16 sketch)
+    on 'cuda' and on 'flat' (:func:`blocked_flat_backend`), the same
+    seeded parameters, batches and draws, gated by :func:`_runs_gate`.
+    Then from the cuda run's state: ``TRAIN_STEPS`` inner steps on one
+    batch (losses not rising), the second profiled and its host syncs
+    counted; and the last outer step again on a fresh inner batch (AdamW
+    freed), timed, profiled, its syncs counted, its IHVP against f64 and
+    its hypergradient against 'flat', phase 18's gate, which also holds
+    the training runs' first outer step. Returns the cuda run's
+    launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import HypergradConfig, PyTreeIndexer, make_hvp
+    from repro_torch.data import TokenStream
+    from repro_torch.kernels import _lib
+    from repro_torch.launch.steps import (domain_losses, lm_hypergrad,
+                                          loss_and_grads, make_optimizer,
+                                          to_device)
+    from repro_torch.launch.train import train_lm
+    arch, label = 'phi35_moe_42b_a66b', 'phi-3.5-moe'
+    cuts, why = TRAIN_CUTS[arch]
+    cfg = dataclasses.replace(get_config(arch), **cuts)
+    flat_be = blocked_flat_backend(torch, torch.bfloat16)
+    configs = {'cuda': _lm_config('cuda', sketch_dtype='bfloat16'),
+               'flat': HypergradConfig(solver='nystrom', k=LM_K, rho=RHO,
+                                       column_chunk=LM_CHUNK,
+                                       backend=flat_be)}
+    runs, launches, walls, peaks = {}, {}, {}, {}
+    for name in ('flat', 'cuda'):      # the cuda run's state is kept
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _lib.reset_launches()
+        t0 = time.perf_counter()
+        run, lines = _quiet(lambda: train_lm(cfg, configs[name], device=dev,
+                                             log_every=0, **TRAIN_LM))
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        peaks[name] = torch.cuda.max_memory_allocated() / 1e9
+        launches[name] = {n: _lib.LAUNCHES[n] for n in TRAIN_ABC}
+        if name == 'cuda':
+            state = (run.params, run.opt_state, run.hparams)
+        run.params = run.opt_state = None
+        runs[name] = run
+    got = launches['cuda']
+    if not (got['nystrom_gram_tc'] == got['nystrom_gram'] == 2
+            and got['woodbury_ctv'] > 0 and got['woodbury_apply'] > 0
+            and not any(launches['flat'].values())):
+        raise AssertionError(f'{label}: launches {launches}')
+    a, b = runs['cuda'], runs['flat']
+    spread = _runs_gate(label, a, b, TRAIN_LM['outer_every'])
+    p = sum(x.numel() for x in _leaves(state[0]))
+    print(f'{label} training: {smi} | depth cut: {why}; p={p:,}, f32 '
+          f'params, bf16 compute, remat {cfg.remat}; train_lm {TRAIN_LM}, '
+          f'k={LM_K}, column_chunk={LM_CHUNK}, bf16 sketch: cuda '
+          f"{walls['cuda']:.3f} s in all (init included), flat "
+          f"{walls['flat']:.3f} s; s per inner step "
+          f'{[round(x, 4) for x in a.step_s]}, s per outer step '
+          f"{[round(o['build_s'] + o['grad_s'], 4) for o in a.outer]} "
+          f"(sketch refresh {[round(o['build_s'], 4) for o in a.outer]}, "
+          f"hypergradient {[round(o['grad_s'], 4) for o in a.outer]}), "
+          f'inner losses {[round(x, 4) for x in a.losses]}, outer values '
+          f"{[round(o['val'], 4) for o in a.outer]}; cuda vs flat "
+          + ', '.join(f'{k} {e:.3e}' for k, e in spread.items())
+          + f"; peak {peaks['cuda']:.2f} GB (flat "
+          f"{peaks['flat']:.2f}), launches {got}", flush=True)
+
+    # from the cuda run's state: inner steps on one batch, profiled
+    params, opt_state, h = state
+    del state
+    inner, outer = domain_losses(cfg)
+    optimizer = make_optimizer(cfg)
+    stream = TokenStream(vocab_size=cfg.vocab_size, seq_len=TRAIN_S)
+    i = TRAIN_LM['steps']
+    ib = to_device(stream.batch(i, TRAIN_B), dev)
+    ob = to_device(stream.batch(10_000_000 + i, TRAIN_B, clean_only=True),
+                   dev)
+
+    def inner_step(params, opt_state, n):
+        loss, grads = loss_and_grads(inner, params, h, ib)
+        params, opt_state = optimizer.apply(grads, opt_state, params, i + n)
+        return params, opt_state, float(loss)
+
+    losses, counts = [], {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, opt_state, l0 = inner_step(params, opt_state, 0)
+    torch.cuda.synchronize()
+    inner_s = time.perf_counter() - t0
+    box = {}
+
+    def profiled_inner():
+        box['out'] = inner_step(params, opt_state, 1)
+    with _moe_syncs(torch, counts):
+        busy = _kernel_ms(torch, profiled_inner)
+    params, opt_state, l1 = box.pop('out')
+    inner_syncs = dict(counts)
+    params, opt_state, l2 = inner_step(params, opt_state, 2)
+    losses = [l0, l1, l2]
+    _not_rising(label, losses)
+    idle = ('not measured (no device events)' if busy is None else
+            f'{busy[1]} kernels, {busy[0]:.3f} ms of device time, idle '
+            f'{100 * (1 - busy[0] / (inner_s * 1e3)):.1f}%')
+    print(f'{label} training: {TRAIN_STEPS} inner steps on one batch from '
+          f'the trained state: losses {[round(x, 4) for x in losses]}, '
+          f'{inner_s:.4f} s unprofiled; profiled: {idle}; host syncs '
+          f"{inner_syncs['host']}, of them MoE group-size reads "
+          f"{inner_syncs['moe']} ({cfg.n_layers} MoE layer, remat "
+          f'{cfg.remat}: the recompute routes again)', flush=True)
+
+    # the outer step again at the trained state, AdamW freed, on a fresh
+    # inner batch (the one trained on three times may sit at a loss of 0)
+    del opt_state
+    hb = to_device(stream.batch(i + 1, TRAIN_B), dev)
+    torch.cuda.empty_cache()
+    solver = configs['cuda'].build()
+    indexer = PyTreeIndexer(params)
+    idx = indexer.sample_indices(torch.Generator().manual_seed(i), LM_K)
+
+    def outer_step():
+        sketch = solver.prepare(make_hvp(inner, params, h, hb), indexer,
+                                None, indices=idx)
+        val, hg = lm_hypergrad(solver, inner, outer, params, h, hb, ob,
+                               state=sketch)
+        return sketch, val, hg['domain_logits']
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sketch, _, hg = outer_step()
+    torch.cuda.synchronize()
+    outer_s = time.perf_counter() - t0
+    check = _ihvp_vs_f64(torch, solver, sketch, params, h, hb, ob,
+                         (inner, outer))
+    del sketch
+    torch.cuda.empty_cache()
+    with _moe_syncs(torch, counts):
+        busy = _kernel_ms(torch, lambda: box.update(out=outer_step()))
+    box.clear()
+    _, fhg = lm_hypergrad(
+        dataclasses.replace(solver, backend=flat_be), inner, outer, params,
+        h, hb, ob, indices=idx)
+    errs = {'u cuda vs f64': check['u'],
+            'cuda vs flat': _rel_l2(hg, fhg['domain_logits']),
+            'cuda vs f64': _rel_l2(hg, check['hg64']),
+            'flat vs f64': _rel_l2(fhg['domain_logits'], check['hg64'])}
+    _hg_gate(label, errs)
+    # the training runs' first outer step: the same point on both sides
+    _hg_gate(f'{label}, the first outer step of the training runs', {
+        'cuda vs flat': spread['first hypergradient'],
+        'u cuda vs f64': check['u']})
+    idle = ('not measured (no device events)' if busy is None else
+            f'{busy[1]} kernels, {busy[0]:.3f} ms of device time, idle '
+            f'{100 * (1 - busy[0] / (outer_s * 1e3)):.1f}%')
+    print(f'{label} training: the outer step again at the trained state: '
+          f'{outer_s:.4f} s unprofiled; profiled: {idle}; host syncs '
+          f"{counts['host']}, of them MoE group-size reads {counts['moe']} "
+          f'({LM_K // LM_CHUNK} column chunks under torch.func, no remat '
+          f'there); relative L2 '
+          + ', '.join(f'{k} {e:.3e}' for k, e in errs.items())
+          + f' (gate as phase 18); {check["spec"]} | {smi}', flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return got
+
+
+def run_train_families(torch, dev, smi: str) -> dict:
+    """Phase 23: (a) SeamlessM4T-large-v2, (b) Qwen2-VL-7B through
+    ``build_train_step`` and ``lm_hypergrad``, (c) Phi-3.5-MoE through
+    ``train_lm``; each at full width with its depth cut printed. Returns
+    the cuda runs' launches of kernels A (gram, ``atb_tc``), B and C by
+    family."""
+    return {'seamless_m4t_large_v2': _train_family(
+                torch, dev, smi, 'seamless_m4t_large_v2', 'seamless-m4t-v2'),
+            'qwen2_vl_7b': _train_family(torch, dev, smi, 'qwen2_vl_7b',
+                                         'qwen2-vl-7b'),
+            'phi35_moe_42b_a66b': _train_moe(torch, dev, smi)}
+
+
 PHASE_STARTS: list[tuple[str, float]] = []   # (phase, perf_counter)
 
 
@@ -3512,6 +4046,11 @@ def main() -> None:
     observatory_launches = run_observatory(torch, dev, smi)
     torch.cuda.empty_cache()
 
+    # 23. training Seamless, Qwen2-VL and Phi-3.5-MoE through kernels A-C
+    _phase('23')
+    train_launches = run_train_families(torch, dev, smi)
+    torch.cuda.empty_cache()
+
     # records -----------------------------------------------------------------
     _phase('records')
     records = []
@@ -3536,6 +4075,9 @@ def main() -> None:
             rec['observatory_launches'] = {
                 part: runs[kname]
                 for part, runs in observatory_launches.items()}
+            key = 'nystrom_gram_tc' if kname == 'nystrom_gram' else kname
+            rec['train_launches'] = {
+                arch: runs[key] for arch, runs in train_launches.items()}
         if kname in large['float32']:   # rows 1-5: phases 13-15's paths
             rec['imaml_launches_per_meta_step'] = {
                 mode: runs.get(kname, 0)

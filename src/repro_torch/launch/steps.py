@@ -9,11 +9,11 @@ specs: the port of ``repro/launch/steps.py``.
       → hparams after one Nyström hypergradient step (§5.4 at LM scale)
 
 ``serve_params`` casts the floating parameters to bf16, as the reference's
-serving load does (``_param_sds(serve=True)``). Batches are trees of
-tensors; a step moves them to its parameters' device. ``build_step`` picks
-one of the four by kind. Prefill and decode serve all ten architectures;
-the training steps refuse every family but the dense one
-(``check_trainable``).
+serving load does (``_param_sds(serve=True)``). Batches are dicts of
+tensors in the layout :func:`make_batch_sds` gives; a step moves them to
+its parameters' device. ``build_step`` picks one of the four by kind.
+Prefill and decode serve all ten architectures; the training steps train
+all but the recurrent ones (Jamba, RWKV-6: ``check_trainable``).
 """
 from __future__ import annotations
 
@@ -51,6 +51,32 @@ def to_device(batch: dict, device) -> dict:
     return {key: x.to(device, non_blocking=True) for key, x in batch.items()}
 
 
+def make_batch_sds(cfg: ModelConfig, batch: int, seq: int) -> dict:
+    """A training batch's fields as ``meta`` tensors (shape and dtype, no
+    storage), the reference's ``make_batch_sds`` layout: ``labels`` (B, S)
+    int32 and ``mask`` (B, S) f32; ``inputs`` (B, S) int32 tokens, or
+    (B, S, d) bf16 embeddings where ``cfg.embed_inputs`` is off, with
+    ``positions`` (B, 3, S) int32 under M-RoPE; an encoder-decoder's token
+    ``inputs`` and its (B, S, d) bf16 ``enc_inputs``. The hypergradient
+    step's batches add a (B,) int32 ``domain``, as the reference's
+    ``build_hypergrad_step`` does."""
+    def sds(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device='meta')
+
+    b = {'labels': sds((batch, seq), torch.int32),
+         'mask': sds((batch, seq), torch.float32)}
+    if cfg.is_encdec:
+        b['inputs'] = sds((batch, seq), torch.int32)
+        b['enc_inputs'] = sds((batch, seq, cfg.d_model), torch.bfloat16)
+    elif not cfg.embed_inputs:
+        b['inputs'] = sds((batch, seq, cfg.d_model), torch.bfloat16)
+        if cfg.mrope:
+            b['positions'] = sds((batch, 3, seq), torch.int32)
+    else:
+        b['inputs'] = sds((batch, seq), torch.int32)
+    return b
+
+
 def loss_and_grads(loss_fn: Callable, params, *args):
     """(loss, ∇loss) by one plain autograd pass, so that the model's remat
     (``torch.utils.checkpoint``) applies."""
@@ -64,7 +90,9 @@ def loss_and_grads(loss_fn: Callable, params, *args):
 def build_train_step(cfg: ModelConfig, optimizer=None,
                      microbatches: int | None = None) -> Callable:
     """``train_step(params, opt_state, step, batch)``: the masked token CE's
-    gradient, then ``optimizer`` (default :func:`make_optimizer`).
+    gradient (plus a MoE model's router aux), then ``optimizer`` (default
+    :func:`make_optimizer`). ``batch`` holds :func:`make_batch_sds`'s
+    fields; a recurrent config raises (``check_trainable``).
 
     ``microbatches`` > 1 splits the batch along its first axis and sums the
     microbatches' gradients in f32 from zeros before dividing, as the

@@ -85,8 +85,12 @@ def train_lm(cfg, hg_cfg, *, steps: int, batch: int, seq: int,
     (default: ``init`` from ``torch.Generator().manual_seed(0)`` on the
     device). The sketch's column draw at step i comes from
     ``torch.Generator().manual_seed(i)``, or ``indices(i)`` when given (the
-    parity tests pass the reference's draws). A MoE config raises
-    ``NotImplementedError`` first (``check_trainable``)."""
+    parity tests pass the reference's draws). ``TokenStream`` gives token
+    batches only, as the reference's does: an encoder-decoder or an
+    embedding-input config raises ``ValueError`` (they train through
+    ``build_train_step`` and ``build_hypergrad_step`` on batches in
+    ``make_batch_sds``'s layout), a recurrent one ``NotImplementedError``
+    (``check_trainable``)."""
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.core import SketchPolicy
     from repro_torch.data import Prefetcher, ShardedLoader, TokenStream
@@ -99,6 +103,13 @@ def train_lm(cfg, hg_cfg, *, steps: int, batch: int, seq: int,
     from repro_torch.optim import adam
 
     check_trainable(cfg)
+    if cfg.is_encdec or not cfg.embed_inputs:
+        raise ValueError(
+            f'{cfg.name}: the LM trainer reads token batches from '
+            'TokenStream, and this config takes '
+            + ('encoder frames' if cfg.is_encdec else '(B, S, d) embeddings')
+            + '; train it through launch.steps.build_train_step and '
+            'build_hypergrad_step on batches in make_batch_sds\'s layout')
     dev = resolve_device(device)
 
     def sync():
@@ -377,8 +388,9 @@ def main(argv=None):
         description='Train a transformer with bilevel data reweighting, or '
                     'run a registered problem, on the port (repro_torch).')
     ap.add_argument('--arch', default='yi_9b',
-                    help='the LM trainer\'s architecture (repro_torch.configs: '
-                         'yi_9b | qwen2_7b)')
+                    help='the LM trainer\'s architecture (repro_torch.configs:'
+                         ' a token-input one without recurrent mixers, e.g. '
+                         'yi_9b | qwen2_7b | phi35_moe_42b_a66b)')
     ap.add_argument('--reduced', action='store_true',
                     help='tiny same-family config (CPU smoke / CI)')
     ap.add_argument('--steps', type=int, default=200)

@@ -74,8 +74,10 @@ def _frequencies_on(head_dim: int, theta: float,
                     device: torch.device) -> torch.Tensor:
     """:func:`rope_frequencies` copied to ``device`` once: a copy from the
     host each step would wait for the card's queue to drain. A plain
-    tensor even when first asked for under ``inference_mode``."""
-    with torch.inference_mode(False):
+    tensor even when first asked for under ``inference_mode`` or inside a
+    ``torch.func`` transform (which would wrap it at a level that is gone
+    by the next call)."""
+    with torch.inference_mode(False), torch._C._DisableFuncTorch():
         return rope_frequencies(head_dim, theta).to(device)
 
 
@@ -93,8 +95,9 @@ def rope_tables(positions: torch.Tensor, head_dim: int,
 def _sections_on(sections: tuple[int, ...],
                  device: torch.device) -> torch.Tensor:
     """The position component (0 = t, 1 = h, 2 = w) of each of the hd/2
-    frequency slots under M-RoPE's ``sections``, on ``device`` once."""
-    with torch.inference_mode(False):
+    frequency slots under M-RoPE's ``sections``, on ``device`` once, a
+    plain tensor as :func:`_frequencies_on`'s."""
+    with torch.inference_mode(False), torch._C._DisableFuncTorch():
         return torch.repeat_interleave(
             torch.arange(len(sections)), torch.tensor(sections)).to(device)
 

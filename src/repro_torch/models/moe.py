@@ -12,10 +12,12 @@ device-to-host sync per MoE layer** (the only one: the counts are a
 input's maximum on the host too). An expert that gets no token is
 skipped.
 
-Not ported yet (``ROADMAP.md``): the fixed-capacity path that the
-reference takes under a mesh (``impl='capacity'`` inside ``shard_map``),
-which waits for the distributed slice, and ``_rdot``'s custom VJP, which
-waits for MoE training.
+The products differentiate as the reference's ``_rdot`` VJP does (see
+:func:`_grouped`), so MoE trains; the group sizes come from the routing,
+which carries no tangent, so ``torch.func``'s HVP columns read them on the
+host once a layer too. Not ported yet (``ROADMAP.md``): the fixed-capacity
+path that the reference takes under a mesh (``impl='capacity'`` inside
+``shard_map``), which waits for the distributed slice.
 """
 from __future__ import annotations
 
@@ -73,15 +75,27 @@ def route(params, xt: torch.Tensor, cfg: ModelConfig):
 def _grouped(x: torch.Tensor, w: torch.Tensor, sizes: list[int],
              ct: torch.dtype) -> torch.Tensor:
     """Rows of x sorted by expert, ``sizes[e]`` of them for expert e, each
-    group times ``w[e]`` cast to the compute dtype (``lax.ragged_dot``)."""
-    out = x.new_empty((x.shape[0], w.shape[-1]))
-    start = 0
-    for e, n in enumerate(sizes):
-        if n:
-            torch.matmul(x[start:start + n], w[e].to(ct),
-                         out=out[start:start + n])
-        start += n
-    return out
+    group times ``w[e]`` cast to the compute dtype (``lax.ragged_dot``).
+
+    Under ``inference_mode`` (serving) each product is written into one
+    output with ``out=``. Otherwise the groups are ``split`` off x, the
+    experts ``unbind`` off w, and the products joined by ``cat``, which
+    autograd and ``torch.func`` differentiate: dx = dy·wᵀ per group in the
+    compute dtype and dw = xᵀ·dy per group (the GEMM accumulates in f32,
+    then rounds to the cast weight's dtype), the values of the reference's
+    ``_rdot`` VJP; an expert without a token gets an exact zero."""
+    if torch.is_inference_mode_enabled():
+        out = x.new_empty((x.shape[0], w.shape[-1]))
+        start = 0
+        for e, n in enumerate(sizes):
+            if n:
+                torch.matmul(x[start:start + n], w[e].to(ct),
+                             out=out[start:start + n])
+            start += n
+        return out
+    return torch.cat([xe @ we.to(ct)
+                      for xe, we in zip(torch.split(x, sizes),
+                                        torch.unbind(w)) if xe.shape[0]])
 
 
 def _moe_local(params, xt: torch.Tensor, cfg: ModelConfig):

@@ -27,7 +27,8 @@ example: the bilevel inner objective of §5.4's data reweighting.
 block under ``torch.utils.checkpoint`` in a plain autograd pass; inside
 ``torch.func`` transforms (the HVP columns, the mixed term), which refuse
 checkpoint's saved-tensor hooks, the blocks run plainly. Remat moves
-memory, not values. Only the dense family trains
+memory, not values; a MoE layer's routing, and its host sync, runs again
+in the recompute. Every family but the recurrent ones trains
 (:func:`check_trainable`).
 
 Decode keeps the reference's cache layout: ``{'pos': 0-d int32, 'slots':
@@ -62,27 +63,20 @@ _ENC_KINDS = [('attn', 'dense')]   # the encoder's one slot a block
 
 
 def check_trainable(cfg: ModelConfig) -> None:
-    """Raise unless ``cfg`` is of the dense family: attention mixers with
-    dense FFNs over token inputs with plain RoPE, no encoder. Training
-    the others needs backward through the time loops, ``torch.func`` HVP
-    columns over them, and for MoE ``_rdot``'s VJP and data-dependent
-    routing, none of which is ported yet; the port serves them (forward,
-    prefill, decode)."""
-    kinds = cfg.layer_kinds()
-    missing = sorted({mixer for mixer, _ in kinds if mixer != 'attn'})
-    if any(ffn == 'moe' for _, ffn in kinds):
-        missing.append('MoE')
-    if cfg.is_encdec:
-        missing.append('encoder-decoder')
-    if cfg.mrope:
-        missing.append('M-RoPE')
-    if not cfg.embed_inputs:
-        missing.append('embedding inputs')
+    """Raise unless ``cfg`` trains on the port: attention mixers with dense
+    or MoE FFNs, over tokens or (B, S, d) embeddings, with plain RoPE or
+    M-RoPE, with or without an encoder. Mamba and RWKV mixers (Jamba,
+    RWKV-6) need backward through their time loops and ``torch.func`` HVP
+    columns over them, which are not ported yet; the port serves them
+    (forward, prefill, decode)."""
+    missing = sorted({mixer for mixer, _ in cfg.layer_kinds()
+                      if mixer != 'attn'})
     if missing:
         raise NotImplementedError(
-            f'{cfg.name}: training {missing} is not ported yet; the port '
-            'serves it (forward, prefill, decode) but trains the dense '
-            'family only (ROADMAP.md queue 1 item 12)')
+            f'{cfg.name}: training {missing} mixers is not ported yet; the '
+            'port serves them (forward, prefill, decode) but trains '
+            'attention models only (ROADMAP.md queue 1 item 12, training '
+            'part two)')
 
 
 # ---------------------------------------------------------------------- init
@@ -315,17 +309,22 @@ def train_loss(cfg: ModelConfig, params: dict, batch: dict,
                example_weights: torch.Tensor | None = None) -> torch.Tensor:
     """Next-token CE, the bilevel inner objective f.
 
-    ``batch``: ``inputs`` and ``labels`` (B, S) ints, optional ``mask``
-    (B, S) and ``positions``. ``example_weights``: optional (B,) loss
+    ``batch``: ``inputs`` ((B, S) ints, or (B, S, d) embeddings where
+    ``cfg.embed_inputs`` is off and there is no encoder), ``labels`` (B, S)
+    ints, optional ``mask`` (B, S), ``positions`` ((B, 3, S) under M-RoPE)
+    and an encoder-decoder's ``enc_inputs`` (B, T, d): the layout of
+    ``launch.steps.make_batch_sds``. ``example_weights``: optional (B,) loss
     weights per example, where the outer parameters of data reweighting
     (§5.4) enter. The reference's formula, op for op: the logits stay in
     the compute dtype, the log-sum-exp and the label's logit (a masked max,
     as the reference picks it) are reduced in f32, and the loss is
-    Σ tok·w / max(Σ w, 1e-6) plus the dense family's zero aux term. A
-    config outside the dense family raises (:func:`check_trainable`)."""
+    Σ tok·w / max(Σ w, 1e-6) plus ``forward``'s aux (the MoE router's
+    load-balance loss, 0 without experts). A recurrent mixer raises
+    (:func:`check_trainable`)."""
     check_trainable(cfg)
     logits, aux = forward(cfg, params, batch['inputs'],
-                          positions=batch.get('positions'))
+                          positions=batch.get('positions'),
+                          enc_inputs=batch.get('enc_inputs'))
     labels = batch['labels'].to(logits.device)
     mask = batch.get('mask')
     V = logits.shape[-1]

@@ -17,6 +17,7 @@ from repro.core.backend import get_backend as jget_backend
 from repro_torch.convert import to_torch
 from repro_torch.core.backend import CudaBackend, get_backend
 from repro_torch.core.tree_util import tree_leaves
+from torch_threads import torch_thread_cap  # noqa: F401
 
 K, M, RHO = 5, 3, 0.07
 

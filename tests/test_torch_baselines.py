@@ -42,6 +42,7 @@ from repro_torch.core.solvers import (CGIHVP, ExactIHVP, IterativeOperator,
                                       NeumannIHVP, NystromIHVP,
                                       solver_fingerprint, state_nbytes)
 from repro_torch.core.tree_util import PyTreeIndexer, tree_leaves
+from torch_threads import torch_thread_cap  # noqa: F401
 
 SHAPES = {'w': (4, 3), 'b': (3,)}
 P = 15

@@ -11,6 +11,7 @@ import pytest
 from repro.bench import compare as jcompare
 from repro.bench import rates as jrates
 from repro_torch.bench import compare, rates
+from torch_threads import torch_thread_cap  # noqa: F401
 
 MEASURED = ('wall_seconds', 'applies_per_sec', 'hypergrad_error',
             'jaccard_vs_exact', 'latency_p95_ms', 'hvp_count',

@@ -49,6 +49,7 @@ from repro_torch.bench.observatory import (DEFAULT_MAX_ORACLE_P,
 from repro_torch.convert import to_numpy, to_torch
 from repro_torch.core.problem import _stack_draws
 from repro_torch.core.tree_util import tree_leaves
+from torch_threads import torch_thread_cap  # noqa: F401
 
 SPEC = 'logreg_wd:D=8:n=60'
 RW = 'reweighting:d=8:width=16'

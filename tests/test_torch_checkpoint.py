@@ -28,6 +28,7 @@ from repro_torch.convert import to_torch
 from repro_torch.core.tree_util import (tree_flatten_with_path, tree_leaves,
                                         tree_map)
 from repro_torch.serve.store import SketchKey, SketchStore
+from torch_threads import torch_thread_cap  # noqa: F401
 
 
 def _np_tree(seed=0):

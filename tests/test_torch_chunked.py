@@ -32,6 +32,7 @@ from repro_torch.core.backend import CudaBackend, flatten_vec, get_backend
 from repro_torch.core.hvp import make_hvp
 from repro_torch.core.solvers import NystromIHVP, nystrom_inverse_dense
 from repro_torch.core.tree_util import PyTreeIndexer, tree_leaves
+from torch_threads import torch_thread_cap  # noqa: F401
 
 SHAPES = {'w': (4, 3), 'b': (3,)}
 P = 15

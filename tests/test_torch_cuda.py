@@ -65,6 +65,7 @@ from repro_torch.core.backend import CudaBackend
 from repro_torch.core.solvers import NystromIHVP, NystromSketch
 from repro_torch.kernels import _lib, ops, ref
 from repro_torch.kernels.flash_attention import expand_kv
+from torch_threads import torch_thread_cap  # noqa: F401
 
 pytestmark = pytest.mark.gpu
 

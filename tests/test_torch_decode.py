@@ -39,6 +39,7 @@ from repro_torch.convert import (cache_from_jax, cache_to_numpy,
 from repro_torch.kernels import _lib
 from repro_torch.launch.steps import build_serve_step, build_step
 from repro_torch.models import build_model
+from torch_threads import torch_thread_cap  # noqa: F401
 
 B, T, MAX_LEN = 2, 6, 8
 

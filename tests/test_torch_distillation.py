@@ -55,6 +55,7 @@ from repro_torch.core import (HypergradConfig, NystromIHVP, PyTreeIndexer,
                               get_problem, hypergrad_at, make_hvp, solve)
 from repro_torch.core.tree_util import tree_leaves
 from repro_torch.data.synthetic import DistillationTask
+from torch_threads import torch_thread_cap  # noqa: F401
 
 TOY = dict(image_size=8, width=16)
 SIZES = (64, 16, 10)

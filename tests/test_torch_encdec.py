@@ -38,6 +38,7 @@ from repro_torch.kernels import _lib
 from repro_torch.launch.steps import build_prefill_step, serve_params
 from repro_torch.models import attention as tattn
 from repro_torch.models import build_model
+from torch_threads import torch_thread_cap  # noqa: F401
 
 ARCH = 'seamless_m4t_large_v2'
 DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16}

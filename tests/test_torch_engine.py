@@ -30,6 +30,7 @@ from repro_torch.engine import (GRAPHS, Engine, EngineConfig, GraphError,
                                 get_graph)
 from repro_torch.launch.train import main as train_main
 from torch_engine_reference import DATA, REWEIGHT_KW, reference_run
+from torch_threads import torch_thread_cap  # noqa: F401
 
 TOL = 1e-4
 

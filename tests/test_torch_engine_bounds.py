@@ -15,6 +15,7 @@ and on the card the binding gate is the kernels against
 import pytest
 
 from torch_engine_reference import chip_bound
+from torch_threads import torch_thread_cap  # noqa: F401
 
 
 @pytest.mark.parametrize('name', ['reweight_maml', 'distill_hpo'])

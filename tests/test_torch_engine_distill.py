@@ -22,6 +22,7 @@ from repro_torch.engine import (Engine, EngineConfig, engine_edge_bills,
                                 engine_hypergrad, engine_hypergrad_reference,
                                 get_graph)
 from torch_engine_reference import DATA, DISTILL_KW, reference_run
+from torch_threads import torch_thread_cap  # noqa: F401
 
 TOL = 1e-4
 N_OUTER = 3

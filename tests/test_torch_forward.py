@@ -31,6 +31,7 @@ from repro_torch.convert import to_numpy, to_torch
 from repro_torch.core import (HypergradConfig, PyTreeIndexer, implicit_root,
                               make_hvp, tangent_apply)
 from repro_torch.core.tree_util import tree_leaves, tree_map, tree_vdot
+from torch_threads import torch_thread_cap  # noqa: F401
 
 D = torch.tensor([1.0, 2.0, 4.0])
 DJ = jnp.array([1.0, 2.0, 4.0])

@@ -27,6 +27,7 @@ from repro_torch.core.hvp import (extract_columns, gauss_newton_hvp,
                                   hessian_diagonal_estimate, make_hvp)
 from repro_torch.core.tree_util import PyTreeIndexer, tree_leaves
 from repro_torch.tasks.paper import build_logreg_weight_decay, build_reweighting
+from torch_threads import torch_thread_cap  # noqa: F401
 
 
 def _np(tree):

@@ -25,6 +25,7 @@ from repro_torch.core.implicit import implicit_root, phi_vjp_block
 from repro_torch.core.problem import hypergrad_at
 from repro_torch.core.tree_util import tree_leaves
 from repro_torch.tasks.paper import build_logreg_weight_decay
+from torch_threads import torch_thread_cap  # noqa: F401
 
 D = torch.tensor([1.0, 2.0, 4.0])
 

@@ -29,6 +29,7 @@ from repro_torch.core.problem import _per_example_grads
 from repro_torch.core.tree_util import tree_leaves
 from repro_torch.data import ArraySource
 from repro_torch.tasks import build_influence
+from torch_threads import torch_thread_cap  # noqa: F401
 
 TOY = dict(d=8, width=16)
 M = 4

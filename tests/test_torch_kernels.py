@@ -20,6 +20,7 @@ from repro.kernels import ops as jops
 from repro_torch.kernels import _lib
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attention import expand_kv
+from torch_threads import torch_thread_cap  # noqa: F401
 
 DTYPES = {'f32': (jnp.float32, torch.float32),
           'bf16': (jnp.bfloat16, torch.bfloat16)}

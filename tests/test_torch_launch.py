@@ -12,6 +12,7 @@ import re
 import pytest
 
 from repro_torch.launch.train import main
+from torch_threads import torch_thread_cap  # noqa: F401
 
 CPU = ['--device', 'cpu']
 

@@ -35,6 +35,7 @@ from repro_torch.core.tree_util import tree_leaves
 from repro_torch.launch.steps import N_DOMAINS, build_hypergrad_step
 from repro_torch.launch.train import main as train_main
 from repro_torch.launch.train import train_lm
+from torch_threads import torch_thread_cap  # noqa: F401
 
 TOL = 1e-4
 NOISE = 1e-5   # below NOISE·max|g| (~100 f32 ulps of the largest) is roundoff

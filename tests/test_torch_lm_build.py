@@ -22,6 +22,7 @@ from repro_torch.core.backend import (CudaBackend, FlatBackend, TreeBackend,
 from repro_torch.core.hvp import extract_columns
 from repro_torch.core.solvers import _EIG_REL_TOL
 from repro_torch.core.tree_util import tree_leaves, tree_map
+from torch_threads import torch_thread_cap  # noqa: F401
 
 K = 7
 

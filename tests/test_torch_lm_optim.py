@@ -27,6 +27,7 @@ from repro_torch.optim import (AdafactorState, adafactor, adamw, chain,
                                clip_by_global_norm, cosine_schedule,
                                scale_by_schedule, stacked_blocks,
                                warmup_cosine_schedule)
+from torch_threads import torch_thread_cap  # noqa: F401
 
 TOL = 1e-5
 

@@ -33,6 +33,7 @@ from repro_torch.launch.steps import (N_DOMAINS, build_train_step,
                                       domain_losses, make_optimizer)
 from repro_torch.models import layers as tlayers
 from repro_torch.models.transformer import train_loss
+from torch_threads import torch_thread_cap  # noqa: F401
 
 TOL = 1e-5
 

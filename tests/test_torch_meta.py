@@ -41,6 +41,7 @@ from repro_torch.core.tree_util import tree_leaves, tree_map
 from repro_torch.data import EpisodeSource, FewShotSampler
 from repro_torch.kernels import ops
 from repro_torch.tasks import build_imaml, build_logreg_weight_decay
+from torch_threads import torch_thread_cap  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 TOY = dict(width=8, image_size=6)

@@ -2,8 +2,8 @@
 
 ``moe_ffn`` (the reference's ``_moe_local`` on its ``impl='ragged'`` path,
 which it takes outside a mesh), the transformer ``forward`` of the two MoE
-archs at ``reduced()`` size, their parameter trees, and the training entry
-points' refusal. The reference's parameters are carried across by
+archs at ``reduced()`` size, their parameter trees, and that the training
+entry points now train them. The reference's parameters are carried across by
 ``model_params_from_jax``; inputs are drawn with numpy from a seed.
 
 Tolerances: relative L2 1e-5 on outputs and logits in f32, 1e-6 absolute on
@@ -17,7 +17,9 @@ every MoE layer, for that token and every one before it in its sequence
 many they left out, and hold those to 2e-2, as the dense family's
 logits.
 """
-import dataclasses
+import contextlib
+import io
+import math
 
 import jax
 import jax.numpy as jnp
@@ -31,13 +33,14 @@ from repro.models import moe as jmoe
 from repro_torch.configs import get_config
 from repro_torch.convert import model_params_from_jax, to_torch
 from repro_torch.kernels import _lib
-from repro_torch.launch.steps import (build_hypergrad_step, build_step,
-                                      build_train_step)
-from repro_torch.launch.train import main as train_main, train_lm
+from repro_torch.launch.steps import build_hypergrad_step, build_step
+from repro_torch.launch.steps import make_optimizer as step_optimizer
+from repro_torch.launch.train import main as train_main
 from repro_torch.models import build_model
 from repro_torch.models import layers as tlayers
 from repro_torch.models import moe as tmoe
 from repro_torch.models.transformer import abstract_params, train_loss
+from torch_threads import torch_thread_cap  # noqa: F401
 
 MOE_ARCHS = ['phi35_moe_42b_a66b', 'llama4_maverick_400b_a17b']
 
@@ -267,19 +270,39 @@ def test_moe_init_draws_each_expert_in_the_param_dtype(arch):
 
 
 @pytest.mark.parametrize('arch', MOE_ARCHS)
-def test_moe_training_entry_points_raise_naming_the_roadmap(arch):
-    cfg = dataclasses.replace(get_config(arch).reduced())
-    tokens = torch.zeros((1, 4), dtype=torch.int64)
-    for call in (lambda: build_train_step(cfg),
-                 lambda: build_hypergrad_step(cfg),
-                 lambda: build_step(cfg, 'train'),
-                 lambda: train_loss(cfg, {}, {'inputs': tokens,
-                                              'labels': tokens}),
-                 lambda: train_lm(cfg, None, steps=1, batch=1, seq=4,
-                                  outer_every=1, device='cpu'),
-                 lambda: train_main(['--arch', arch, '--reduced', '--steps',
-                                     '1', '--device', 'cpu'])):
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            call()
-    build_step(cfg, 'prefill', device='cpu')       # serving is ported
+def test_moe_training_entry_points_train(arch):
+    """The entry points that refused MoE train it now: ``train_lm`` and the
+    CLI's LM route on ``TokenStream`` batches (finite losses, outer steps
+    logged), ``build_train_step`` and ``build_hypergrad_step`` on a
+    ``make_batch_sds`` batch. Serving is unchanged. Their values against
+    the reference are in ``tests/test_torch_train_{families,moe}.py``."""
+    cfg = get_config(arch).reduced()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        run = train_main(['--arch', arch, '--reduced', '--steps', '4',
+                          '--outer-every', '2', '--batch', '2', '--seq', '8',
+                          '--log-every', '2', '--device', 'cpu'])
+    lines = out.getvalue().splitlines()
+    assert lines[0].startswith(f'[train] arch={cfg.name}')
+    assert sum(line.startswith('[outer] step') for line in lines) == 2
+    assert lines[-1].startswith('[train] done: 4 steps, final loss')
+    assert np.isfinite(run.losses).all() and len(run.outer) == 2
+    assert all(bool(torch.isfinite(o['hypergrad']).all()) for o in run.outer)
+    params = build_model(cfg, device='cpu').init(
+        torch.Generator().manual_seed(0))
+    batch = {'inputs': torch.randint(0, cfg.vocab_size, (2, 8),
+                                     generator=torch.Generator().manual_seed(1)),
+             'labels': torch.randint(0, cfg.vocab_size, (2, 8),
+                                     generator=torch.Generator().manual_seed(2)),
+             'domain': torch.tensor([3, 5])}
+    step = build_step(cfg, 'train')
+    _, _, nxt, m = step(params, step_optimizer(cfg).init(params), 0, batch)
+    assert nxt == 1 and math.isfinite(float(m['loss']))
+    assert float(m['grad_norm']) > 0
+    h = build_hypergrad_step(cfg, k=4)(
+        params, {'domain_logits': torch.zeros(64)}, batch, batch,
+        rng=torch.Generator().manual_seed(3))
+    assert bool(torch.isfinite(h['domain_logits']).all())
+    assert float(train_loss(cfg, params, batch)) > 0
+    build_step(cfg, 'prefill', device='cpu')       # serving as before
     build_step(cfg, 'decode', device='cpu')

@@ -34,6 +34,7 @@ from repro_torch.launch.steps import (build_prefill_step, build_step,
                                       serve_params)
 from repro_torch.models import build_model
 from repro_torch.models import layers as tlayers
+from torch_threads import torch_thread_cap  # noqa: F401
 
 ARCH = 'qwen2_vl_7b'
 DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16}

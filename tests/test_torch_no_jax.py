@@ -11,6 +11,7 @@ import sys
 from pathlib import Path
 
 import repro_torch
+from torch_threads import torch_thread_cap  # noqa: F401
 
 SRC = Path(__file__).resolve().parents[1] / 'src'
 

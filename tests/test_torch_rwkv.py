@@ -29,6 +29,7 @@ from repro_torch.convert import model_params_from_jax, to_torch
 from repro_torch.kernels import _lib
 from repro_torch.models import build_model
 from repro_torch.models import rwkv as trwkv
+from torch_threads import torch_thread_cap  # noqa: F401
 
 ARCH = 'rwkv6_1b6'
 DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16}

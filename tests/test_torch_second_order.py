@@ -46,6 +46,7 @@ from repro_torch.core import (HypergradConfig, PyTreeIndexer,
                               sgd_solver)
 from repro_torch.core import solvers as port_solvers
 from repro_torch.core.tree_util import tree_leaves
+from torch_threads import torch_thread_cap  # noqa: F401
 
 A_NP = np.random.RandomState(0).randn(4, 4).astype(np.float32)
 PHI0 = np.full(4, 0.1, np.float32)

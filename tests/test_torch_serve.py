@@ -62,6 +62,7 @@ from repro_torch.serve import (InfluenceService, QueryBatcher,
                                calibrate_block_size, sketch_key)
 from repro_torch.serve.batcher import split_block, stack_block
 from repro_torch.tasks import build_influence
+from torch_threads import torch_thread_cap  # noqa: F401
 
 SHAPES = {'w': (8,), 'm': (13, 7), 's': ()}
 P = 8 + 13 * 7 + 1

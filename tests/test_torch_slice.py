@@ -27,6 +27,7 @@ from repro_torch.convert import to_numpy, to_torch
 from repro_torch.core import HypergradConfig, hypergrad_at, solve
 from repro_torch.core.tree_util import tree_leaves
 from repro_torch.tasks import build_logreg_weight_decay, build_reweighting
+from torch_threads import torch_thread_cap  # noqa: F401
 
 
 def _np(tree):

@@ -26,6 +26,7 @@ from repro_torch.core.hypergrad import HypergradConfig
 from repro_torch.core.solvers import (ExactIHVP, NystromIHVP, SketchPolicy,
                                       query_width)
 from repro_torch.core.tree_util import PyTreeIndexer, tree_leaves
+from torch_threads import torch_thread_cap  # noqa: F401
 
 SHAPES = {'w': (4, 3), 'b': (3,)}
 P = 15

@@ -42,6 +42,7 @@ from repro_torch.kernels import _lib
 from repro_torch.models import build_model
 from repro_torch.models import moe as tmoe
 from repro_torch.models import ssm as tssm
+from torch_threads import torch_thread_cap  # noqa: F401
 
 ARCH = 'jamba_v01_52b'
 DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16}

@@ -21,6 +21,7 @@ from repro_torch.core.backend import flatten_vec, unflatten_vec
 from repro_torch.core.tree_util import (PyTreeIndexer, tree_flatten,
                                         tree_leaves, tree_map)
 from repro_torch.tasks.paper import mlp_init
+from torch_threads import torch_thread_cap  # noqa: F401
 
 
 def test_leaf_order_matches_jax_on_mlp_params():
