@@ -198,19 +198,17 @@ the card:
     outer ``‖x − 1‖²``, 200 SGD steps), full-rank Nyström (k = 4,
     ρ = 1e-2): relative L2 ≤ 1e-4, kernels A, B and C each launched inside
     the rules. (b) ``distill_hpo`` and ``reweight_maml`` at the registry
-    defaults, ``ENGINE_STEPS`` = 3 outer steps (seconds per step,
+    defaults, ``ENGINE_STEPS`` outer steps (2 and 3; seconds per step,
     launches): top losses within 1e-4 relative, ``edge_hvps`` equal to
     ``engine_edge_bills``, ``engine_hypergrad`` against the port's dense
     oracle within ``ENGINE_HG_BOUND`` (the reference's own error at the
     same settings, measured on the CPU by
     ``tests/test_torch_engine_bounds.py``) and against ``'flat'`` within
     1e-4. (c) ``distill_hpo(**STREAM_KW)``, images p = 18,000 and k = 10:
-    a warm-up step under ``torch.profiler`` (device time of its kernels,
-    card-only trace) and ``STREAM_TIMED`` timed step(s): seconds per step,
-    launches per step, the device idle share (the warm-up's device time
-    against the unprofiled step), peak device memory; gated on the top
-    losses and on the top gradient at the final values (``top_gradient``,
-    each run's live sketches) within 1e-4.
+    one outer step on each backend: its seconds (first-call set-up
+    included), launches, peak device memory; gated on the top loss and on
+    the top gradient at the final values (``top_gradient``, each run's
+    live sketches) within 1e-4.
 
 The bilevel LM trainer (the tenth slice), ``launch.train.train_lm``:
 
@@ -367,6 +365,31 @@ from a seed, every width whole and each depth cut printed with its reason
     of their plain versions in f64; everything finite; A (``atb_tc``), B
     and C launched on every cuda run and nothing on 'flat'.
 
+Training the recurrent families (the fifteenth slice): the same
+settings, backward through the Mamba and RWKV-6 time loops (by chunks of
+64 steps under ``torch.utils.checkpoint``, inside the blocks' own) and
+HVP columns through them (``vmap(jvp(grad))``, the loops in one piece):
+
+24. (a) RWKV-6 1.6B at its whole widths, depth cut (``RWKV_CUT``):
+    ``train_lm`` (3 inner steps, then one outer step) on 'cuda' and on
+    'flat', gated as phase 23 (c) (the runs equal until the first update,
+    the logits within 2·lr, the first hypergradients cuda against flat or
+    the IHVP through A–C against f64 within 1e-4); from the cuda run's
+    state an inner step profiled (kernels, idle share, the device time of
+    the loops' forward, their recompute in backward and their backward
+    nodes) and the outer step again at its point, profiled, equal to the
+    run's; one layer's forward and backward at 1 × 4096 with the loop by
+    chunks and in one piece: the peak memory of each, the gradients
+    within 1e-5. (b) Jamba-v0.1, one period: 3 ``build_train_step``
+    steps with the Mamba mixers and attention at full width
+    (``JAMBA_STEP_CUTS``: 2 experts, d_ff cut; the losses finite and the
+    first update lowering the loss), one more profiled as in (a); then
+    ``lm_hypergrad`` at a narrower cut (``JAMBA_HG_CUTS``, batches of 8 ×
+    ``JAMBA_HG_S``) on 'cuda' and 'flat', gated as phase 23 (a). Where a
+    Jamba cut runs out of memory the phase prints that and takes the
+    next. A, B and C launch exactly 1, 3
+    and 2 times a hypergradient, nothing on 'flat'.
+
 The line before the last is the kernels' JSON record (seven rows, kernel
 E's the tensor-core variant at the prefill's own call; rows 1–5 also
 carry their p = 2²⁴ f32 and bf16 times under ``p24`` and the p = 2²⁰
@@ -377,12 +400,12 @@ Nyström runs under ``distillation_launches``, rows 2 and 3 phase 12's
 record under ``alg1_p24``, rows 1–5 the launches of phases 13–15 under
 ``imaml_launches_per_meta_step``, ``forward_mode_launches`` and
 ``influence_launches``, phase 16's by pass under ``serve_launches``, and
-phase 17's under ``engine_launches``: (a), each graph of (b), and (c) per
-timed step; phase 18's under ``lm_launches``: (a)'s cuda run and (b)'s
+phase 17's under ``engine_launches``: (a), each graph of (b), and (c)'s
+one step; phase 18's under ``lm_launches``: (a)'s cuda run and (b)'s
 training run; rows 6–7 phase 20's prefills under ``moe_launches`` and
 phase 21's (one prefill each) under ``family_launches``, rows 1, 3 and
 4 phase 22's 'cuda' cells summed by part under ``observatory_launches``
-and phase 23's cuda runs by family under ``train_launches`` (row 1's
+and phases 23–24's cuda runs by family under ``train_launches`` (row 1's
 counts the gram's ``atb_tc`` launches, all of them), and every row
 phases 19–21's decode runs under ``decode_launches``, all 0);
 the last
@@ -1807,24 +1830,26 @@ def run_serving(torch, smi, problem, params, idx, want) -> dict:
     return launches
 
 
-ENGINE_STEPS = 3
+# Outer steps of each graph in phase 17 (b). distill_hpo takes 2 (some 20 s
+# of host dispatch a step on the card, 3 on each backend held the script
+# near its time limit), reweight_maml 3.
+ENGINE_STEPS = {'distill_hpo': 2, 'reweight_maml': 3}
 # The bound of phase 17 (b)'s oracle gate: the error of the reference's own
 # engine_hypergrad against its engine_hypergrad_reference (rho = 0) on each
 # registered graph at the registry defaults, after Engine().solve with
-# EngineConfig(n_outer=3), measured on the CPU by
-# tests/test_torch_engine.py and tests/test_torch_engine_distill.py
-# (test_chip_bound_is_the_reference_error). At distill_hpo's defaults the
-# reference's full-rank sketch and its dense oracle part ways (4.25 against
-# 0.0907), so that bound holds the port to little: there the gate that
-# binds is the kernels against backend='flat'.
-ENGINE_HG_BOUND = {'reweight_maml': 4.36e-4, 'distill_hpo': 45.9}
+# EngineConfig(n_outer=ENGINE_STEPS[name]), measured on the CPU by
+# tests/test_torch_engine_bounds.py (test_chip_bound_is_the_reference_error).
+# At distill_hpo's defaults the reference's full-rank sketch and its dense
+# oracle part ways (after 3 steps a top gradient of 4.25 against 0.0907),
+# so that bound holds the port to little: there the gate that binds is the
+# kernels against backend='flat'.
+ENGINE_HG_BOUND = {'reweight_maml': 4.36e-4, 'distill_hpo': 3.83}
 # phase 17 (c): a sketch that streams (images p = 2000 x 9 = 18,000, k = 10)
 STREAM_KW = dict(n_syn=2000, n_train=1024, n_val=1024, k_student=10,
                  k_images=10, rho=0.1)
 STREAM_P = 18000
-# a step there is some 15 s of host dispatch on an H100: one timed step,
-# not two, keeps (c) as near a minute as it comes without cutting a width
-STREAM_TIMED = 1
+# a step there is some 15-25 s of host dispatch on an H100: one step a
+# backend, unprofiled, keeps (c) near a minute without cutting a width
 
 
 def _on_backend(graph, backend: str):
@@ -1903,7 +1928,7 @@ def run_second_order(torch, dev) -> dict:
 
 def run_engine_graphs(torch, dev) -> dict:
     """Phase 17 (b): both registered graphs at the registry defaults, every
-    edge on ``backend='cuda'``, ``ENGINE_STEPS`` outer steps, against the
+    edge on ``backend='cuda'``, ``ENGINE_STEPS[name]`` outer steps, against the
     same on ``backend='flat'``; the bills; ``engine_hypergrad`` against the
     port's dense oracle. Returns the kernels' launches by graph."""
     from repro_torch.core import hypergrad_error
@@ -1913,13 +1938,13 @@ def run_engine_graphs(torch, dev) -> dict:
     from repro_torch.kernels import _lib
     launches = {}
     for name in ('distill_hpo', 'reweight_maml'):
-        base = get_graph(name)
+        base, steps = get_graph(name), ENGINE_STEPS[name]
         runs = {}
         for backend in ('cuda', 'flat'):
             graph = _on_backend(base, backend)
             torch.cuda.synchronize()
             _lib.reset_launches()
-            res = Engine().solve(graph, EngineConfig(n_outer=ENGINE_STEPS))
+            res = Engine().solve(graph, EngineConfig(n_outer=steps))
             torch.cuda.synchronize()
             if backend == 'cuda':
                 launches[name] = {n: c for n, c in _lib.LAUNCHES.items()
@@ -1934,7 +1959,7 @@ def run_engine_graphs(torch, dev) -> dict:
         if not loss_err <= 1e-4:
             raise AssertionError(f'engine {name}: top losses cuda '
                                  f'{res.losses} vs flat {resf.losses}')
-        bills = engine_edge_bills(g, n_outer=ENGINE_STEPS)
+        bills = engine_edge_bills(g, n_outer=steps)
         if res.edge_hvps != bills:
             raise AssertionError(f'engine {name}: bills {res.edge_hvps} vs '
                                  f'{bills}')
@@ -1947,8 +1972,8 @@ def run_engine_graphs(torch, dev) -> dict:
             raise AssertionError(
                 f'engine {name}: hypergradient vs oracle {err:.3e} (bound '
                 f'{ENGINE_HG_BOUND[name]}), cuda vs flat {be_err:.3e}')
-        print(f'engine {name}: {res.seconds / ENGINE_STEPS:.4f} s/outer step '
-              f'on cuda ({resf.seconds / ENGINE_STEPS:.4f} on flat), top '
+        print(f'engine {name}: {res.seconds / steps:.4f} s/outer step '
+              f'on cuda ({resf.seconds / steps:.4f} on flat), top '
               f'loss {[round(x, 6) for x in res.losses]}, cuda vs flat '
               f'{loss_err:.3e} (<= 1e-4), bills {res.edge_hvps}, '
               f'hypergradient vs the port\'s oracle {err:.3e} (<= the '
@@ -1977,10 +2002,10 @@ def _kernel_ms(torch, fn):
 
 def run_engine_stream(torch, dev) -> dict:
     """Phase 17 (c): ``distill_hpo(**STREAM_KW)`` (images p = 18,000,
-    k = 10) on ``backend='cuda'``: a profiled warm-up step and
-    ``STREAM_TIMED`` timed outer steps, against ``backend='flat'`` on the
-    losses and the top gradient at the final values (each run's live
-    sketches). Returns the launches per timed step."""
+    k = 10): one outer step on ``backend='cuda'`` and one on
+    ``backend='flat'``, gated on the top loss and on the top gradient at
+    the final values (each run's live sketches). Returns the step's
+    launches."""
     from repro_torch.core import hypergrad_error, tree_leaves
     from repro_torch.engine import Engine, EngineConfig, get_graph
     from repro_torch.kernels import _lib
@@ -1989,64 +2014,39 @@ def run_engine_stream(torch, dev) -> dict:
         torch.Generator())))
     if p != STREAM_P:
         raise AssertionError(f'images has p={p}, expected {STREAM_P}')
-    n_steps = 1 + STREAM_TIMED
     out = {}
     for backend in ('cuda', 'flat'):
         graph = _on_backend(base, backend)
-        program = Engine().lower(graph, EngineConfig(n_outer=n_steps))
-        carry = program.init()
-        losses, secs, busy = [], [], None
-        for i in range(n_steps):
-            torch.cuda.synchronize()
-            if i == 1:
-                torch.cuda.reset_peak_memory_stats()
-                _lib.reset_launches()
-            t0 = time.perf_counter()
-            if i == 0 and backend == 'cuda':   # the warm-up, profiled
-                result = []
-                busy = _kernel_ms(torch, lambda: result.append(
-                    program.step(carry, i)))
-                carry, loss = result[0]
-            else:
-                carry, loss = program.step(carry, i)
-            losses.append(float(loss))
-            torch.cuda.synchronize()
-            secs.append(time.perf_counter() - t0)
-        launches = {n: c / STREAM_TIMED for n, c in _lib.LAUNCHES.items()
-                    if c}
-        peak = torch.cuda.max_memory_allocated() / 2 ** 20
-        out[backend] = (program, carry, losses, secs, launches, peak, busy)
-    program, carry, losses, secs, launches, peak, busy = out['cuda']
-    losses_f, secs_f = out['flat'][2:4]
+        program = Engine().lower(graph, EngineConfig(n_outer=1))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _lib.reset_launches()
+        t0 = time.perf_counter()
+        carry, loss = program.step(program.init(), 0)
+        torch.cuda.synchronize()
+        out[backend] = (program, carry, float(loss),
+                        time.perf_counter() - t0,
+                        {n: c for n, c in _lib.LAUNCHES.items() if c},
+                        torch.cuda.max_memory_allocated() / 2 ** 20)
+    program, carry, loss, step_s, launches, peak = out['cuda']
+    loss_f, step_f = out['flat'][2:4]
     _kernels_of_rules('engine stream', launches)
-    loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses, losses_f))
+    loss_err = abs(loss - loss_f) / abs(loss_f)
     # the top gradient at the final values against each run's live sketches
     hg, _ = program.top_gradient(carry[0])
     hgf, _ = out['flat'][0].top_gradient(carry[0])
     hg_err = float(hypergrad_error(hg, hgf))
-    finite = all(map(math.isfinite, losses)) and all(
+    finite = math.isfinite(loss) and all(
         bool(torch.isfinite(x).all()) for x in tree_leaves(hg))
     if not (finite and loss_err <= 1e-4 and hg_err <= 1e-4):
-        raise AssertionError(f'engine stream: losses cuda {losses} vs flat '
-                             f'{losses_f}, top gradient {hg_err:.3e}')
-    step_s = sum(secs[1:]) / STREAM_TIMED
-    print(f'engine stream: distill_hpo images p={STREAM_P} k=10, '
-          f'{step_s:.4f} s/outer step on cuda over {STREAM_TIMED} timed '
-          f'step(s) (profiled warm-up {secs[0]:.4f} s; flat '
-          f'{sum(secs_f[1:]) / STREAM_TIMED:.4f}), top loss '
-          f'{[round(x, 6) for x in losses]} (the reference on its data: '
-          f'0.50845, 0.50856, 0.5095), cuda vs flat {loss_err:.3e} '
-          f'(<= 1e-4), top gradient {hg_err:.3e} (<= 1e-4), peak device '
-          f'memory {peak:.1f} MiB, launches per step {launches}', flush=True)
-    if busy is None:
-        print('engine stream: the profiler recorded no device events; '
-              'device time not measured', flush=True)
-    else:
-        ms, n = busy
-        print(f'engine stream: the profiled warm-up step ran {n} kernels, '
-              f'{ms:.3f} ms of device time, against an unprofiled '
-              f'{step_s * 1e3:.3f} ms step: device idle '
-              f'{100 * (1 - ms / (step_s * 1e3)):.1f}%', flush=True)
+        raise AssertionError(f'engine stream: loss cuda {loss} vs flat '
+                             f'{loss_f}, top gradient {hg_err:.3e}')
+    print(f'engine stream: distill_hpo images p={STREAM_P} k=10, one outer '
+          f'step {step_s:.4f} s on cuda (flat {step_f:.4f}; first-call '
+          f'set-up included), top loss {loss:.6f} (the reference on its '
+          f'data: 0.50845), cuda vs flat {loss_err:.3e} (<= 1e-4), top '
+          f'gradient {hg_err:.3e} (<= 1e-4), peak device memory '
+          f'{peak:.1f} MiB, launches {launches}', flush=True)
     return launches
 
 
@@ -2446,15 +2446,32 @@ def _depth(e) -> int:
     return n
 
 
+def _claimed(events, kernels):
+    """Each kernel of the device trace once, as (the op that launched it,
+    its name, its µs): the innermost host op that lists it (an outer op,
+    or an op's legacy total of device time, may list it again), or None
+    for a kernel no op claims (D and E, launched from ctypes)."""
+    from torch.autograd import DeviceType
+    unclaimed = collections.Counter(
+        (k.name, k.time_range.elapsed_us()) for k in kernels)
+    launchers = [e for e in events
+                 if e.device_type == DeviceType.CPU and e.kernels]
+    for e in sorted(launchers, key=_depth, reverse=True):
+        for k in e.kernels:
+            if unclaimed[(k.name, k.duration)] > 0:
+                unclaimed[(k.name, k.duration)] -= 1
+                yield e, k.name, k.duration
+    for (name, us), n in unclaimed.items():
+        for _ in range(n):
+            yield None, name, us
+
+
 def _by_family(torch, fn, label: str, step_ms: float):
     """``fn`` once under ``torch.profiler`` with :func:`_model_ranges`:
     device time by :func:`_family`, the kernel count and the device's idle
     share against the unprofiled ``step_ms``. A kernel's family comes from
-    its name and from the op that launched it with that op's enclosing ops
-    and ranges; each kernel of the device trace counts once, claimed by the
-    innermost op that lists it (an outer op, or an op's legacy total of
-    device time, may list it again). Kernels no op claims, D and E among
-    them (launched from ctypes), go by name."""
+    its name and from the op that launched it (:func:`_claimed`) with that
+    op's enclosing ops and ranges; kernels no op claims go by name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with _model_ranges(torch), profile(activities=[
@@ -2468,26 +2485,13 @@ def _by_family(torch, fn, label: str, step_ms: float):
         print(f'{label}: the profiler recorded no device events; device '
               'time not measured', flush=True)
         return
-    unclaimed = collections.Counter(
-        (k.name, k.time_range.elapsed_us()) for k in kernels)
-    split: dict = {}
-
-    def add(fam, us):
-        split[fam] = split.get(fam, 0.0) + us / 1e3
-
-    launchers = [e for e in events
-                 if e.device_type == DeviceType.CPU and e.kernels]
-    for e in sorted(launchers, key=_depth, reverse=True):
-        ops, parent = set(), e
-        while parent is not None:
-            ops.add(parent.name)
-            parent = parent.cpu_parent
-        for k in e.kernels:
-            if unclaimed[(k.name, k.duration)] > 0:
-                unclaimed[(k.name, k.duration)] -= 1
-                add(_family(k.name.lower(), ops), k.duration)
-    for (name, us), n in unclaimed.items():
-        add(_family(name.lower(), set()), n * us)
+    split = collections.Counter()
+    for e, name, us in _claimed(events, kernels):
+        ops = set()
+        while e is not None:
+            ops.add(e.name)
+            e = e.cpu_parent
+        split[_family(name.lower(), ops)] += us / 1e3
     busy = sum(split.values())
     for fam, ms in sorted(split.items(), key=lambda kv: -kv[1]):
         print(f'{label}: {fam:<58} {ms:10.3f} ms device '
@@ -3449,7 +3453,8 @@ def _runs_gate(label: str, a, b, outer_every: int) -> dict:
     every value finite; the inner losses up to the first outer step and
     its value within 1e-4 relative (the same parameters, until the
     hyperparameters move); the domain logits within 2·lr a step of adam's
-    (``_lm_gate``'s bound). After the first update the runs' inner losses
+    (``_lm_gate``'s bound); an outer step every ``outer_every`` steps.
+    After the first update the runs' inner losses
     follow two hyperparameter paths: the bf16-compute hypergradients are
     ~1e-3 apart (the f32 paths' own spread at this p, which the f64 gate
     on the IHVP decides), and adam turns a difference on a domain whose
@@ -3473,16 +3478,19 @@ def _runs_gate(label: str, a, b, outer_every: int) -> dict:
     spread = {'losses before the first update': first,
               'first outer value': val0,
               'logits over the bound 2·lr·n': logits,
-              'later losses': max(abs(x / y - 1) for x, y in zip(
-                  a.losses[outer_every:], b.losses[outer_every:])),
-              'later values': max(abs(x['val'] / y['val'] - 1)
-                                  for x, y in zip(a.outer[1:], b.outer[1:])),
               'first hypergradient': _rel_l2(a.outer[0]['hypergrad'],
-                                             b.outer[0]['hypergrad']),
-              'later hypergradients': max(
-                  _rel_l2(x['hypergrad'], y['hypergrad'])
-                  for x, y in zip(a.outer[1:], b.outer[1:]))}
-    if not (finite and len(a.outer) == len(b.outer) >= 2
+                                             b.outer[0]['hypergrad'])}
+    if len(a.outer) > 1:
+        spread.update({
+            'later losses': max(abs(x / y - 1) for x, y in zip(
+                a.losses[outer_every:], b.losses[outer_every:])),
+            'later values': max(abs(x['val'] / y['val'] - 1)
+                                for x, y in zip(a.outer[1:], b.outer[1:])),
+            'later hypergradients': max(
+                _rel_l2(x['hypergrad'], y['hypergrad'])
+                for x, y in zip(a.outer[1:], b.outer[1:]))})
+    if not (finite and len(a.outer) == len(b.outer)
+            == len(a.losses) // outer_every
             and first <= 1e-4 and val0 <= 1e-4 and logits <= 1):
         raise AssertionError(f'{label}: cuda vs flat {spread}, finite '
                              f'{finite}')
@@ -3531,27 +3539,32 @@ def _hg_gate(label: str, errs: dict) -> None:
 def _train_family(torch, dev, smi: str, arch: str, label: str) -> dict:
     """Phase 23 (a), (b): ``arch`` cut as ``TRAIN_CUTS`` says, f32
     parameters from a seeded generator, bf16 compute, remat 'full'. First
-    ``lm_hypergrad`` through ``NystromIHVP(k=8, column_chunk=2)`` with a
-    bf16 sketch at one draw, at the initial parameters and the batch that
-    training then takes, on 'cuda' (the sketch prepared apart and kept for
-    the f64 check) and, first, on 'flat' (:func:`blocked_flat_backend`),
-    gated as phase 18. Then ``TRAIN_STEPS`` ``build_train_step`` steps on that
-    batch (losses finite and not rising). The hypergradient comes first:
-    one AdamW step at Qwen2-VL's width drives the batch it trained on to a
-    loss of 0 and leaves a Hessian of 0 on fresh batches too (chip run),
-    which would hand kernels A-C a sketch of zeros. Returns the cuda run's
-    launches."""
+    the hypergradient at the initial parameters
+    (:func:`_family_hypergrad`), then ``TRAIN_STEPS`` ``build_train_step``
+    steps on its inner batch (:func:`_family_steps`). The hypergradient
+    comes first: one AdamW step at Qwen2-VL's width drives the batch it
+    trained on to a loss of 0 and leaves a Hessian of 0 on fresh batches
+    too (chip run), which would hand kernels A-C a sketch of zeros.
+    Returns the cuda run's launches."""
     from repro_torch.configs import get_config
-    from repro_torch.core import (HypergradConfig, PyTreeIndexer, make_hvp,
-                                  tree_leaves)
-    from repro_torch.kernels import _lib
-    from repro_torch.launch.steps import (N_DOMAINS, build_train_step,
-                                          domain_losses, lm_hypergrad,
-                                          make_optimizer, to_device)
-    from repro_torch.models import build_model
-    from repro_torch.models.transformer import train_loss
     cuts, why = TRAIN_CUTS[arch]
     cfg = dataclasses.replace(get_config(arch), **cuts)
+    params, ib, ob = _family_draw(torch, dev, cfg, label, why)
+    launches = _family_hypergrad(torch, dev, smi, cfg, label, params, ib,
+                                 ob)
+    held = [params]
+    del params
+    _family_steps(torch, cfg, label, held, ib, ob)
+    return launches
+
+
+def _family_draw(torch, dev, cfg, label: str, why: str, S: int = TRAIN_S):
+    """f32 parameters of ``cfg`` from a seeded generator on the card, and
+    an inner and an outer batch of ``TRAIN_B`` × ``S``; prints the cut
+    and its reason."""
+    from repro_torch.core import tree_leaves
+    from repro_torch.launch.steps import to_device
+    from repro_torch.models import build_model
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -3561,9 +3574,23 @@ def _train_family(torch, dev, smi: str, arch: str, label: str) -> dict:
     p = sum(x.numel() for x in tree_leaves(params))
     print(f'{label} training: depth cut: {why}; p={p:,} f32 parameters '
           f'drawn in {time.perf_counter() - t0:.1f} s', flush=True)
-    ib = to_device(_train_batch(torch, cfg, TRAIN_B, TRAIN_S, 1), dev)
-    ob = to_device(_train_batch(torch, cfg, TRAIN_B, TRAIN_S, 2), dev)
+    return (params, to_device(_train_batch(torch, cfg, TRAIN_B, S, 1), dev),
+            to_device(_train_batch(torch, cfg, TRAIN_B, S, 2), dev))
 
+
+def _family_hypergrad(torch, dev, smi: str, cfg, label: str, params, ib,
+                      ob) -> dict:
+    """``lm_hypergrad`` through ``NystromIHVP(k=8, column_chunk=2)`` with a
+    bf16 sketch at one draw, at ``params`` and ``ib``, on 'cuda' (the
+    sketch prepared apart and kept for the f64 check) and, first, on
+    'flat' (:func:`blocked_flat_backend`), gated as phase 18; the host
+    syncs of the cuda run counted. Returns the cuda run's launches."""
+    from repro_torch.core import (HypergradConfig, PyTreeIndexer, make_hvp,
+                                  tree_leaves)
+    from repro_torch.kernels import _lib
+    from repro_torch.launch.steps import (N_DOMAINS, domain_losses,
+                                          lm_hypergrad)
+    p = sum(x.numel() for x in tree_leaves(params))
     inner, outer = domain_losses(cfg)
     h = {'domain_logits': 0.1 * torch.randn(
         N_DOMAINS, device=dev, generator=torch.Generator('cuda').manual_seed(3))}
@@ -3587,16 +3614,18 @@ def _train_family(torch, dev, smi: str, arch: str, label: str) -> dict:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     solver = _lm_config('cuda', sketch_dtype='bfloat16').build()
+    counts = {}
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    sketch = solver.prepare(make_hvp(inner, params, h, ib), indexer, None,
-                            indices=idx)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    val, hg = lm_hypergrad(solver, inner, outer, params, h, ib, ob,
-                           state=sketch)
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
+    with _moe_syncs(torch, counts):
+        t0 = time.perf_counter()
+        sketch = solver.prepare(make_hvp(inner, params, h, ib), indexer,
+                                None, indices=idx)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        val, hg = lm_hypergrad(solver, inner, outer, params, h, ib, ob,
+                               state=sketch)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
     launches = {n: _lib.LAUNCHES[n] for n in TRAIN_ABC}
     cuda_peak = torch.cuda.max_memory_allocated() / 1e9
     hg = hg['domain_logits']
@@ -3619,18 +3648,38 @@ def _train_family(torch, dev, smi: str, arch: str, label: str) -> dict:
           f'depth {cfg.n_layers}'
           + (f' + {cfg.n_enc_layers} encoder' if cfg.is_encdec else '')
           + f', p={p:,}, f32 params, bf16 compute, remat {cfg.remat}, '
-          f'batch {TRAIN_B} x {TRAIN_S} ({", ".join(sorted(ib))}); '
+          f'batch {TRAIN_B} x {ib["labels"].shape[1]} '
+          f'({", ".join(sorted(ib))}); '
           f'lm_hypergrad k={LM_K}, column_chunk={LM_CHUNK}, bf16 sketch, '
           f'cuda: outer step {t2 - t0:.4f} s (HVP columns and prepare '
           f'{t1 - t0:.4f}, apply with the mixed term {t2 - t1:.4f}), peak '
-          f'{cuda_peak:.2f} GB, launches {launches}; flat, the first call, '
-          f'{flat_s:.4f} s; '
+          f'{cuda_peak:.2f} GB, launches {launches}, host syncs '
+          f"{counts['host']} (MoE group-size reads {counts['moe']}); flat, "
+          f'the first call, {flat_s:.4f} s; '
           f'value {float(val):.6f} (flat {float(fval):.6f}); {check["spec"]};'
           ' relative L2 '
           + ', '.join(f'{k} {e:.3e}' for k, e in errs.items())
           + f' (gate: cuda vs flat <= 1e-4, or u vs f64 <= 1e-4); peak '
           f'over the outer steps {peak:.2f} GB', flush=True)
+    return launches
 
+
+def _family_steps(torch, cfg, label: str, held: list, ib, ob,
+                  profile: bool = False) -> None:
+    """``TRAIN_STEPS`` ``build_train_step`` steps on ``ib`` from the
+    parameters in the one-element list ``held`` (taken out of it, so that
+    each step's update frees the last), then the loss on ``ib`` and
+    ``ob``. Without ``profile`` (phase 23) the losses must be finite and
+    not rising. With ``profile`` (phase 24's Jamba) they must be finite
+    and the first update must lower the loss: at the random init's logit
+    scale AdamW's first step takes Jamba's batch from a loss of 266 to
+    0.72 and its second overshoots to 20.8 (chip run); then one more step
+    runs under ``torch.profiler`` (:func:`_loop_profile`: its kernels,
+    device idle share and the time loops' device time) with its host
+    syncs counted."""
+    from repro_torch.launch.steps import build_train_step, make_optimizer
+    from repro_torch.models.transformer import train_loss
+    params = held.pop()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     step = build_train_step(cfg)
@@ -3643,7 +3692,12 @@ def _train_family(torch, dev, smi: str, arch: str, label: str) -> dict:
         losses.append(float(m['loss']))
         norms.append(float(m['grad_norm']))
         secs.append(time.perf_counter() - t0)
-    _not_rising(label, losses, norms)
+    if not profile:
+        _not_rising(label, losses, norms)
+    elif not (all(map(math.isfinite, losses + norms))
+              and min(losses[1:]) < losses[0]):
+        raise AssertionError(f'{label}: losses on one batch {losses}, '
+                             f'gradient norms {norms}')
     with torch.no_grad():
         seen, fresh = (float(train_loss(cfg, params, b)) for b in (ib, ob))
     print(f'{label} training: {TRAIN_STEPS} build_train_step steps on that '
@@ -3652,9 +3706,16 @@ def _train_family(torch, dev, smi: str, arch: str, label: str) -> dict:
           f'{[round(x, 4) for x in norms]}; after them the loss on that '
           f'batch {seen:.4f}, on the outer batch {fresh:.4f}; peak '
           f'{torch.cuda.max_memory_allocated() / 1e9:.2f} GB', flush=True)
+    if profile:
+        box, counts = {}, {}
+        with _moe_syncs(torch, counts):
+            split = _loop_profile(torch, lambda: box.update(
+                out=step(params, opt_state, TRAIN_STEPS, ib)))
+        box.clear()
+        _print_loop_profile(f'{label} training: a build_train_step step',
+                            split, min(secs[1:]), counts)
     del params, opt_state, step
     torch.cuda.empty_cache()
-    return launches
 
 
 def _train_moe(torch, dev, smi: str) -> dict:
@@ -3833,6 +3894,362 @@ def run_train_families(torch, dev, smi: str) -> dict:
             'qwen2_vl_7b': _train_family(torch, dev, smi, 'qwen2_vl_7b',
                                          'qwen2-vl-7b'),
             'phi35_moe_42b_a66b': _train_moe(torch, dev, smi)}
+
+
+# --------------------------------------------------------------------------
+# Phase 24: training the recurrent families (RWKV-6, Jamba's Mamba), their
+# backward and HVP columns through the time loops, sketches through A-C
+# --------------------------------------------------------------------------
+# RWKV-6 1.6B at its whole widths (d_model 2048, d_ff 7168, vocab 65,536),
+# depth cut; the next cut where one runs out of the card's memory
+RWKV_CUT = (dict(n_layers=2), '24 layers cut to 2 (p = 0.27 B) to keep '
+            'phase 24 near 90 s: every layer\'s time loop is launch-bound, '
+            'and at depth 4 the phase took 164 s on a slower host; for '
+            'memory, in train_lm at depth 8 the outer step ran out of the '
+            'card\'s memory and at depth 6 it peaked at 80.67 GB (chip runs), '
+            'the HVP columns keeping the loop\'s per-step states under '
+            'torch.func, ~7 GB a layer, beside the sketch\'s 32 bytes a '
+            'parameter')
+RWKV_LM = dict(steps=3, batch=TRAIN_B, seq=TRAIN_S, outer_every=3)
+# Jamba-v0.1, one period (7 Mamba + 1 attention, 4 MoE FFNs): the training
+# steps at full width with the experts cut, the hypergradient narrower
+JAMBA_STEP_CUTS = (
+    (dict(n_layers=8, n_experts=2, d_ff=2048), '32 layers cut to one period '
+     'of 8 (7 Mamba at d_inner 8192, d_state 16, 1 attention at 32/8 heads, '
+     'all at d_model 4096, vocabulary whole), its 16 experts to 2 (top-2 '
+     'kept) and d_ff 14336 to 2048 (p = 1.59 B): the port\'s functional '
+     'AdamW step holds the old and the new moments, the gradients, the '
+     'update and the new parameters at once, about 36 bytes a parameter, '
+     '122 GB at d_ff 14336 (p = 3.40 B)'),
+    (dict(n_layers=8, n_experts=2, d_ff=1024), 'd_ff cut to 1024 (p = 1.44 '
+     'B): the cut above ran out of memory'),
+)
+JAMBA_HG_CUTS = (
+    (dict(n_layers=8, n_experts=2, d_model=1536, n_heads=12, n_kv_heads=4,
+          d_ff=5376), 'one period, d_model 4096 cut to 1536 (12/4 heads, '
+     'd_ff 5376, d_inner 3072, 2 experts; p = 0.605 B): at d_model 2048 '
+     '(p = 0.985 B) the hypergradient ran out of the card\'s memory (chip '
+     'run), the HVP columns keeping the Mamba loops\' per-step states '
+     'under torch.func beside the sketch\'s 32 bytes a parameter'),
+    (dict(n_layers=8, n_experts=2, d_model=1024, n_heads=8, n_kv_heads=4,
+          d_ff=3584), 'd_model cut to 1024 as well (8/4 heads, d_ff 3584; '
+     'p = 0.31 B): the cut above ran out of memory'),
+)
+JAMBA_HG_S = 64       # the hypergradient's batches: 8 x 64, for time
+LOOP_S = 4096         # one RWKV-6 layer's backward, 1 x 4096, for its peak
+
+
+def _first_fit(torch, label: str, cuts, fn):
+    """``fn(cuts, why)`` for the first of ``cuts`` that fits in the card's
+    memory: where one runs out, print that and take the next."""
+    import gc
+    for i, (cut, why) in enumerate(cuts):
+        try:
+            return fn(cut, why)
+        except torch.cuda.OutOfMemoryError as err:
+            if i + 1 == len(cuts):
+                raise
+            print(f'{label}: {cut} ran out of memory ({str(err)[:120]}); '
+                  'taking the next cut', flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _loop_profile(torch, fn):
+    """``fn()`` once under ``torch.profiler`` (host and card), the time
+    loops' pieces (``ssm._scan_steps``, ``rwkv._wkv_steps``) under the
+    range ``scan.loop``: the device time of all kernels and of the loops'
+    by part, each kernel counted once, claimed by the innermost op that
+    launched it. 'loop forward': kernels launched inside the range on the
+    forward's thread; 'loop recompute': inside the range on another
+    thread (the checkpointed chunks run again in backward); 'loop
+    backward': launched by the autograd nodes of ops recorded inside the
+    range (matched by the forward op's thread and sequence number). None
+    where the profiler saw no device event."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import rwkv, ssm
+    with _ranges(torch, (ssm, '_scan_steps', 'scan.loop'),
+                 (rwkv, '_wkv_steps', 'scan.loop')), profile(activities=[
+                     ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with torch.profiler.record_function('step'):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and not getattr(e, 'is_user_annotation', False)]
+    if not kernels:
+        return None
+    cpu = [e for e in events if e.device_type == DeviceType.CPU]
+    main = next(e.thread for e in cpu if e.name == 'step')
+
+    def ranged(e):
+        while e is not None:
+            if e.name == 'scan.loop':
+                return True
+            e = e.cpu_parent
+        return False
+
+    looped = {(e.thread, e.sequence_nr) for e in cpu
+              if e.sequence_nr >= 0 and ranged(e)}
+    nodes = {id(e) for e in cpu
+             if e.name.startswith('autograd::engine::evaluate_function')
+             and (e.fwd_thread, e.sequence_nr) in looped}
+
+    def part(e):
+        if ranged(e):
+            return 'loop forward' if e.thread == main else 'loop recompute'
+        while e is not None:
+            if id(e) in nodes:
+                return 'loop backward'
+            e = e.cpu_parent
+        return 'rest'
+
+    split = collections.Counter()
+    for e, _, us in _claimed(events, kernels):
+        split['rest' if e is None else part(e)] += us / 1e3
+    return {'device_ms': sum(split.values()), 'kernels': len(kernels),
+            'parts': dict(split), 'matched_nodes': len(nodes)}
+
+
+def _print_loop_profile(label: str, split, step_s: float,
+                        counts: dict) -> None:
+    if split is None:
+        print(f'{label}: the profiler recorded no device events; device '
+              'time not measured', flush=True)
+        return
+    ms = split['device_ms']
+    parts = ', '.join(f'{k} {v:.3f} ms'
+                      for k, v in sorted(split['parts'].items()))
+    print(f'{label}: {split["kernels"]} kernels, {ms:.3f} ms of device time '
+          f'against the unprofiled {step_s * 1e3:.3f} ms: device idle '
+          f'{100 * (1 - ms / (step_s * 1e3)):.1f}%; by part: {parts} '
+          f'({split["matched_nodes"]} autograd nodes of the loops matched); '
+          f"host syncs {counts['host']}, of them MoE group-size reads "
+          f"{counts['moe']}", flush=True)
+
+
+def _loop_peak(torch, dev, smi: str, cfg) -> None:
+    """One RWKV-6 layer (time mix and channel mix) of ``cfg`` at 1 ×
+    ``LOOP_S``, forward and backward, with the time loop by chunks of 64
+    under checkpoint and in one piece: the peak memory above the inputs
+    and the seconds of each; their gradients within 1e-5."""
+    from repro_torch.core import tree_flatten
+    from repro_torch.models import rwkv
+    from repro_torch.models.layers import rmsnorm
+    from repro_torch.models.transformer import init_params
+    one = dataclasses.replace(cfg, n_layers=1)
+    gen = torch.Generator('cuda').manual_seed(5)
+    sp = init_params(one, gen, dev)['blocks'][0]['slot0']
+    leaves, treedef = tree_flatten(sp)
+    x = torch.randn((1, LOOP_S, cfg.d_model), device=dev, generator=gen,
+                    dtype=torch.bfloat16)
+    zeros = torch.zeros((1, cfg.d_model), device=dev, dtype=torch.bfloat16)
+    wkv = rwkv.init_rwkv_state(cfg, 1, dev)['wkv']
+    out = {}
+    for chunk in (rwkv.CHUNK, LOOP_S):
+        live = [t.detach().requires_grad_(True) for t in leaves]
+        p = treedef.unflatten(live)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        h, _, _ = rwkv.rwkv_time_mix(p['mixer'], rmsnorm(p['ln1'], x, 1e-5),
+                                     zeros, wkv, cfg, chunk)
+        y = x + h
+        h, _ = rwkv.rwkv_channel_mix(p['mixer'], rmsnorm(p['ln2'], y, 1e-5),
+                                     zeros, cfg)
+        grads = torch.autograd.grad((y + h).float().square().mean(), live)
+        torch.cuda.synchronize()
+        out[chunk] = ((torch.cuda.max_memory_allocated() - base) / 1e9,
+                      time.perf_counter() - t0,
+                      torch.cat([g.reshape(-1).float() for g in grads]))
+        del grads, h, y, p, live
+    err = _rel_l2(out[rwkv.CHUNK][2], out[LOOP_S][2])
+    if not err <= 1e-5:
+        raise AssertionError(f'rwkv-6 layer backward: chunked vs one piece '
+                             f'{err:.3e}')
+    print(f'rwkv-6 training: one layer (d_model {cfg.d_model}) forward and '
+          f'backward at 1 x {LOOP_S}, bf16 compute: the time loop by chunks '
+          f'of {rwkv.CHUNK} under checkpoint peaks {out[rwkv.CHUNK][0]:.3f} '
+          f'GB above its inputs in {out[rwkv.CHUNK][1]:.3f} s, in one piece '
+          f'{out[LOOP_S][0]:.3f} GB in {out[LOOP_S][1]:.3f} s; gradients '
+          f'{err:.3e} apart | {smi}', flush=True)
+
+
+def _train_rwkv(torch, dev, smi: str) -> dict:
+    """Phase 24 (a): RWKV-6 1.6B cut as ``RWKV_CUT`` says, ``train_lm``
+    (``RWKV_LM``: 3 inner steps, then one outer step with a k = 8 bf16
+    sketch) on 'cuda' and on 'flat', the same seeded parameters, batches
+    and draws, gated by :func:`_runs_gate`. From the cuda run's state: an
+    inner step profiled (:func:`_loop_profile`, against the run's last
+    unprofiled one); then, AdamW
+    freed, the outer step again at its own point (φ = 0, the last inner
+    batch and the step's draw), profiled (its idle share against the
+    run's unprofiled outer step), its IHVP against f64 and its
+    hypergradient against the run's, and the runs' first hypergradients
+    against each other, phase 18's gate. Then one layer's peak memory
+    (:func:`_loop_peak`). Returns the cuda run's launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import HypergradConfig, PyTreeIndexer, make_hvp
+    from repro_torch.data import TokenStream
+    from repro_torch.kernels import _lib
+    from repro_torch.launch.steps import (domain_losses, lm_hypergrad,
+                                          loss_and_grads, make_optimizer,
+                                          to_device)
+    from repro_torch.launch.train import train_lm
+    label = 'rwkv-6 training'
+    cut, why = RWKV_CUT
+    cfg = dataclasses.replace(get_config('rwkv6_1b6'), **cut)
+    flat_be = blocked_flat_backend(torch, torch.bfloat16)
+    configs = {'cuda': _lm_config('cuda', sketch_dtype='bfloat16'),
+               'flat': HypergradConfig(solver='nystrom', k=LM_K, rho=RHO,
+                                       column_chunk=LM_CHUNK,
+                                       backend=flat_be)}
+    runs, launches, walls, peaks = {}, {}, {}, {}
+    for name in ('flat', 'cuda'):      # the cuda run's state is kept
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _lib.reset_launches()
+        t0 = time.perf_counter()
+        run, _ = _quiet(lambda: train_lm(cfg, configs[name], device=dev,
+                                         log_every=0, **RWKV_LM))
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        peaks[name] = torch.cuda.max_memory_allocated() / 1e9
+        launches[name] = {n: _lib.LAUNCHES[n] for n in TRAIN_ABC}
+        if name == 'cuda':
+            state = (run.params, run.opt_state)
+        run.params = run.opt_state = None
+        runs[name] = run
+    got = launches['cuda']
+    if not (got['nystrom_gram_tc'] == got['nystrom_gram'] == 1
+            and got['woodbury_ctv'] == 3 and got['woodbury_apply'] == 2
+            and not any(launches['flat'].values())):
+        raise AssertionError(f'{label}: launches {launches}')
+    a, b = runs['cuda'], runs['flat']
+    spread = _runs_gate(label, a, b, RWKV_LM['outer_every'])
+    p = sum(x.numel() for x in _leaves(state[0]))
+    print(f'{label}: {smi} | depth cut: {why}; p={p:,}, f32 params, bf16 '
+          f'compute, remat {cfg.remat}; train_lm {RWKV_LM}, k={LM_K}, '
+          f'column_chunk={LM_CHUNK}, bf16 sketch: cuda {walls["cuda"]:.3f} '
+          f's in all (init included), flat {walls["flat"]:.3f} s; s per '
+          f'inner step {[round(x, 4) for x in a.step_s]}, s per outer step '
+          f"{[round(o['build_s'] + o['grad_s'], 4) for o in a.outer]} "
+          f"(sketch refresh {[round(o['build_s'], 4) for o in a.outer]}, "
+          f"hypergradient {[round(o['grad_s'], 4) for o in a.outer]}), "
+          f'inner losses {[round(x, 4) for x in a.losses]}, outer value '
+          f"{[round(o['val'], 4) for o in a.outer]}; cuda vs flat "
+          + ', '.join(f'{k} {e:.3e}' for k, e in spread.items())
+          + f"; peak {peaks['cuda']:.2f} GB (flat {peaks['flat']:.2f}), "
+          f'launches {got}', flush=True)
+
+    params, opt_state = state
+    del state
+    inner, outer = domain_losses(cfg)
+    optimizer = make_optimizer(cfg)
+    stream = TokenStream(vocab_size=cfg.vocab_size, seq_len=TRAIN_S)
+    i = RWKV_LM['steps'] - 1          # the outer step's loop index
+    h = {'domain_logits': torch.zeros_like(a.outer[0]['logits'])}
+    hb = to_device(stream.batch(i, TRAIN_B), dev)
+    ob = to_device(stream.batch(10_000_000 + i, TRAIN_B, clean_only=True),
+                   dev)
+
+    # an inner step from the trained state, profiled; the state it reaches
+    # is dropped: the outer step below is at the run's
+    def inner_step():
+        loss, grads = loss_and_grads(inner, params, h, hb)
+        return optimizer.apply(grads, opt_state, params, RWKV_LM['steps'])
+
+    counts = {}
+    with _moe_syncs(torch, counts):
+        split = _loop_profile(torch, inner_step)
+    _print_loop_profile(f'{label}: an inner step', split, a.step_s[-1],
+                        counts)
+    del opt_state
+    torch.cuda.empty_cache()
+
+    solver = configs['cuda'].build()
+    indexer = PyTreeIndexer(params)
+    idx = indexer.sample_indices(torch.Generator().manual_seed(i), LM_K)
+    box = {}
+
+    def outer_step():
+        sketch = solver.prepare(make_hvp(inner, params, h, hb), indexer,
+                                None, indices=idx)
+        _, hg = lm_hypergrad(solver, inner, outer, params, h, hb, ob,
+                             state=sketch)
+        box.update(sketch=sketch, hg=hg['domain_logits'])
+
+    with _moe_syncs(torch, counts):
+        busy = _kernel_ms(torch, outer_step)
+    check = _ihvp_vs_f64(torch, solver, box['sketch'], params, h, hb, ob,
+                         (inner, outer))
+    hg = box['hg']
+    box.clear()
+    errs = {'u cuda vs f64': check['u'],
+            'cuda vs flat': spread['first hypergradient'],
+            'again vs the run': _rel_l2(hg, a.outer[0]['hypergrad']),
+            'cuda vs f64': _rel_l2(hg, check['hg64']),
+            'flat vs f64': _rel_l2(b.outer[0]['hypergrad'], check['hg64'])}
+    _hg_gate(label, errs)
+    if not errs['again vs the run'] <= 1e-5:
+        raise AssertionError(f'{label}: the outer step again is not the '
+                             f"run's: {errs}")
+    outer_s = a.outer[0]['build_s'] + a.outer[0]['grad_s']
+    idle = ('not measured (no device events)' if busy is None else
+            f'{busy[1]} kernels, {busy[0]:.3f} ms of device time, idle '
+            f'{100 * (1 - busy[0] / (outer_s * 1e3)):.1f}% of the run\'s '
+            f'{outer_s:.4f} s')
+    print(f'{label}: the outer step again at its point, profiled: {idle}; '
+          f'host syncs {counts["host"]}; '
+          f'relative L2 ' + ', '.join(f'{k} {e:.3e}' for k, e in errs.items())
+          + f' (gate as phase 18); {check["spec"]} | {smi}', flush=True)
+    del params
+    torch.cuda.empty_cache()
+    _loop_peak(torch, dev, smi, cfg)
+    return got
+
+
+def _train_jamba(torch, dev, smi: str) -> dict:
+    """Phase 24 (b): Jamba-v0.1, one period. ``TRAIN_STEPS``
+    ``build_train_step`` steps at full width with the experts cut
+    (``JAMBA_STEP_CUTS``) and one more profiled (:func:`_family_steps`);
+    then the hypergradient at a narrower cut (``JAMBA_HG_CUTS``) on 'cuda'
+    and 'flat' (:func:`_family_hypergrad`). Returns the cuda run's
+    launches."""
+    from repro_torch.configs import get_config
+    label = 'jamba-v0.1'
+    base = get_config('jamba_v01_52b')
+
+    def steps(cut, why):
+        cfg = dataclasses.replace(base, **cut)
+        params, ib, ob = _family_draw(torch, dev, cfg, label, why)
+        held = [params]
+        del params
+        _family_steps(torch, cfg, label, held, ib, ob, profile=True)
+
+    def hypergrad(cut, why):
+        cfg = dataclasses.replace(base, **cut)
+        params, ib, ob = _family_draw(
+            torch, dev, cfg, label, why + f'; batches of {TRAIN_B} x '
+            f'{JAMBA_HG_S}, for time (the HVP columns run the loops in one '
+            'piece, 2 launches a token and Mamba layer)', JAMBA_HG_S)
+        return _family_hypergrad(torch, dev, smi, cfg, label, params, ib, ob)
+
+    _first_fit(torch, label, JAMBA_STEP_CUTS, steps)
+    torch.cuda.empty_cache()
+    return _first_fit(torch, label, JAMBA_HG_CUTS, hypergrad)
+
+
+def run_train_recurrent(torch, dev, smi: str) -> dict:
+    """Phase 24: (a) RWKV-6 1.6B through ``train_lm`` and (b) Jamba-v0.1's
+    one period through ``build_train_step`` and ``lm_hypergrad``; each
+    depth or width cut printed. Returns the cuda runs' launches of kernels
+    A (gram, ``atb_tc``), B and C by family."""
+    return {'rwkv6_1b6': _train_rwkv(torch, dev, smi),
+            'jamba_v01_52b': _train_jamba(torch, dev, smi)}
 
 
 PHASE_STARTS: list[tuple[str, float]] = []   # (phase, perf_counter)
@@ -4049,6 +4466,11 @@ def main() -> None:
     # 23. training Seamless, Qwen2-VL and Phi-3.5-MoE through kernels A-C
     _phase('23')
     train_launches = run_train_families(torch, dev, smi)
+    torch.cuda.empty_cache()
+
+    # 24. training RWKV-6 and Jamba through their time loops, A-C --------
+    _phase('24')
+    train_launches.update(run_train_recurrent(torch, dev, smi))
     torch.cuda.empty_cache()
 
     # records -----------------------------------------------------------------

@@ -12,8 +12,8 @@ specs: the port of ``repro/launch/steps.py``.
 serving load does (``_param_sds(serve=True)``). Batches are dicts of
 tensors in the layout :func:`make_batch_sds` gives; a step moves them to
 its parameters' device. ``build_step`` picks one of the four by kind.
-Prefill and decode serve all ten architectures; the training steps train
-all but the recurrent ones (Jamba, RWKV-6: ``check_trainable``).
+All ten architectures serve and train; the recurrent ones (Jamba's Mamba,
+RWKV-6) take their HVP columns through the Python time loops.
 """
 from __future__ import annotations
 
@@ -25,8 +25,7 @@ from repro_torch.core import NystromIHVP, implicit_root
 from repro_torch.core.tree_util import tree_flatten, tree_leaves, tree_map
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import (check_trainable, decode_step,
-                                            forward, train_loss)
+from repro_torch.models.transformer import decode_step, forward, train_loss
 from repro_torch.optim import (adafactor, adamw, chain, clip_by_global_norm,
                                stacked_blocks)
 
@@ -92,13 +91,12 @@ def build_train_step(cfg: ModelConfig, optimizer=None,
     """``train_step(params, opt_state, step, batch)``: the masked token CE's
     gradient (plus a MoE model's router aux), then ``optimizer`` (default
     :func:`make_optimizer`). ``batch`` holds :func:`make_batch_sds`'s
-    fields; a recurrent config raises (``check_trainable``).
+    fields.
 
     ``microbatches`` > 1 splits the batch along its first axis and sums the
     microbatches' gradients in f32 from zeros before dividing, as the
     reference's scan does; the loss is their mean. Default: 4 for the
     scanned production path above 300B parameters, else 1."""
-    check_trainable(cfg)
     optimizer = optimizer or make_optimizer(cfg)
     if microbatches is None:
         microbatches = 4 if (cfg.param_count() > 3e11
@@ -176,7 +174,6 @@ def build_hypergrad_step(cfg: ModelConfig, k: int = 8,
     column_chunk=2)``), then ``h − 1e-2·g``. ``rng`` (a CPU
     ``torch.Generator``) draws the sketch's columns, or ``indices=``
     injects a draw."""
-    check_trainable(cfg)
     solver = NystromIHVP(k=k, rho=rho, column_chunk=2)
     inner_loss, outer_loss = domain_losses(cfg)
 

@@ -89,8 +89,8 @@ def train_lm(cfg, hg_cfg, *, steps: int, batch: int, seq: int,
     batches only, as the reference's does: an encoder-decoder or an
     embedding-input config raises ``ValueError`` (they train through
     ``build_train_step`` and ``build_hypergrad_step`` on batches in
-    ``make_batch_sds``'s layout), a recurrent one ``NotImplementedError``
-    (``check_trainable``)."""
+    ``make_batch_sds``'s layout). Every token config trains here, the
+    recurrent ones (Jamba, RWKV-6) too."""
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.core import SketchPolicy
     from repro_torch.data import Prefetcher, ShardedLoader, TokenStream
@@ -99,10 +99,8 @@ def train_lm(cfg, hg_cfg, *, steps: int, batch: int, seq: int,
                                           lm_hypergrad, loss_and_grads,
                                           make_optimizer, to_device)
     from repro_torch.models import build_model
-    from repro_torch.models.transformer import check_trainable
     from repro_torch.optim import adam
 
-    check_trainable(cfg)
     if cfg.is_encdec or not cfg.embed_inputs:
         raise ValueError(
             f'{cfg.name}: the LM trainer reads token batches from '
@@ -389,8 +387,8 @@ def main(argv=None):
                     'run a registered problem, on the port (repro_torch).')
     ap.add_argument('--arch', default='yi_9b',
                     help='the LM trainer\'s architecture (repro_torch.configs:'
-                         ' a token-input one without recurrent mixers, e.g. '
-                         'yi_9b | qwen2_7b | phi35_moe_42b_a66b)')
+                         ' a token-input one, e.g. yi_9b | qwen2_7b | '
+                         'phi35_moe_42b_a66b | jamba_v01_52b | rwkv6_1b6)')
     ap.add_argument('--reduced', action='store_true',
                     help='tiny same-family config (CPU smoke / CI)')
     ap.add_argument('--steps', type=int, default=200)

@@ -5,8 +5,7 @@ RWKV-6).
 ``build_model(cfg, device=None)`` returns a :class:`Model` whose ``init``
 draws random parameters on the model's device (the card unless the caller
 asks for ``device='cpu'``) and whose ``forward`` runs where the parameters
-lie (``transformer.train_loss`` is the training loss, of every family but
-the recurrent ones).
+lie (``transformer.train_loss`` is the training loss, of every family).
 ``init_cache`` makes a zeroed decode cache on the model's device and
 ``decode_step`` feeds it one token per sequence. An encoder-decoder's
 ``encode`` runs the encoder and ``fill_cross_cache`` writes its output's

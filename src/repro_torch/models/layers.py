@@ -44,6 +44,16 @@ def dense_init(generator: torch.Generator | None, shape, dtype: torch.dtype,
     return w.mul_(std).to(dtype)
 
 
+def records_graph(*tensors: torch.Tensor) -> bool:
+    """An autograd pass that records a graph, outside ``torch.func``'s
+    transforms (which refuse ``torch.utils.checkpoint``'s saved-tensor
+    hooks), and, where ``tensors`` are given, one of them requires grad:
+    where activation checkpointing can run and pays."""
+    return (torch.is_grad_enabled()
+            and torch._C._functorch.peek_interpreter_stack() is None
+            and (not tensors or any(t.requires_grad for t in tensors)))
+
+
 # ----------------------------------------------------------------- RMSNorm
 def init_rmsnorm(cfg: ModelConfig, device, dtype: torch.dtype,
                  dim: int | None = None) -> dict:

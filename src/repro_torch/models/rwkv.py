@@ -6,21 +6,26 @@ Data-dependent decay linear attention (a per-channel, per-token decay
 w_t from a low-rank MLP of the input) and the channel mix, with the
 reference's static token-shift mixes. Heads are fixed at 64 dims. The wkv
 state (B, H, 64, 64), keyed [k, v], is f32; the time loop carries it one
-token at a time, as the reference's ``lax.scan`` does (its chunking under
-``jax.checkpoint`` bounds backward memory only; the port does not train
-this family). Decode is the S = 1 case of :func:`rwkv_time_mix` and
-:func:`rwkv_channel_mix`.
+token at a time, as the reference's ``lax.scan`` does. Where the
+reference chunks the loop (``S % chunk == 0 and S > chunk``) under
+``jax.checkpoint``, the port runs each chunk under
+``torch.utils.checkpoint`` in an autograd pass that records a graph, the
+state threading through the chunks, as ``ssm.py`` does its scan: the same
+values, O(S/chunk) saved states. Decode is the S = 1 case of
+:func:`rwkv_time_mix` and :func:`rwkv_channel_mix`.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import cdtype, dense_init
+from repro_torch.models.layers import cdtype, dense_init, records_graph
 
 HEAD = 64          # RWKV-6's fixed head width
 LORA = 64          # rank of the decay MLP
+CHUNK = 64         # the reference's time-loop chunk
 
 
 def _n_heads(cfg: ModelConfig) -> int:
@@ -93,34 +98,57 @@ def _wkv_step(state: torch.Tensor, r, k, v, w, bonus_k):
     return torch.addcmul(state * w, k, v), y
 
 
-def _wkv(r, k, v, w, bonus_k, state: torch.Tensor):
+def _wkv(r, k, v, w, bonus_k, state: torch.Tensor, chunk: int = CHUNK):
     """The time loop over (B, S, H, 64) f32 streams from ``state``:
-    :func:`_wkv_step` a token at a time, four launches a step. Each stream
-    is copied once, time-major and shaped for its step, as the reference's
-    scan takes its inputs time-major. Returns (y (B, S, H, 64), the final
-    state)."""
+    :func:`_wkv_step` a token at a time, four launches a step; by chunks
+    of ``chunk`` tokens under ``torch.utils.checkpoint`` where the
+    reference chunks and a graph is recorded (the module's docstring).
+    Each stream is copied once, time-major and shaped for its step, as the
+    reference's scan takes its inputs time-major. Returns (y (B, S, H,
+    64), the final state)."""
     def steps(t, dim):
-        return t.transpose(0, 1).unsqueeze(dim).contiguous().unbind(0)
+        return t.transpose(0, 1).unsqueeze(dim).contiguous()
+    streams = (steps(r, -2), steps(k, -1), steps(v, -2), steps(w, -1),
+               steps(bonus_k, -1))
+    S = r.shape[1]
+    if not (S % chunk == 0 and S > chunk
+            and records_graph(state, *streams)):
+        state, y = _wkv_steps(state, *streams)
+        return y.transpose(1, 2), state
     ys = []
-    for r_t, k_t, v_t, w_t, bk_t in zip(steps(r, -2), steps(k, -1),
-                                        steps(v, -2), steps(w, -1),
-                                        steps(bonus_k, -1)):
-        state, y = _wkv_step(state, r_t, k_t, v_t, w_t, bk_t)
+    for t in range(0, S, chunk):
+        state, y = checkpoint(_wkv_steps, state,
+                              *(x[t:t + chunk] for x in streams),
+                              use_reentrant=False)
         ys.append(y)
     return torch.cat(ys, dim=-2).transpose(1, 2), state
 
 
+def _wkv_steps(state: torch.Tensor, r, k, v, w, bonus_k):
+    """:func:`_wkv`'s steps over time-major streams (s, B, H, …) from
+    ``state``. Returns (the last state, y (B, H, s, 64))."""
+    ys = []
+    for r_t, k_t, v_t, w_t, bk_t in zip(r.unbind(0), k.unbind(0),
+                                        v.unbind(0), w.unbind(0),
+                                        bonus_k.unbind(0)):
+        state, y = _wkv_step(state, r_t, k_t, v_t, w_t, bk_t)
+        ys.append(y)
+    return state, torch.cat(ys, dim=-2)
+
+
 def rwkv_time_mix(params, x: torch.Tensor, x_prev: torch.Tensor,
-                  state: torch.Tensor, cfg: ModelConfig):
+                  state: torch.Tensor, cfg: ModelConfig,
+                  chunk: int = CHUNK):
     """x: (B, S, d); ``x_prev`` (B, d) the token before x; ``state`` the
-    wkv state (B, H, 64, 64) f32, not written. Returns (out (B, S, d),
-    x's last token, the new state)."""
+    wkv state (B, H, 64, 64) f32, not written; ``chunk`` as in
+    :func:`_wkv`. Returns (out (B, S, d), x's last token, the new
+    state)."""
     ct = cdtype(cfg)
     B, S, d = x.shape
     r, k, v, g, w = _time_mix_streams(params, x, x_prev, cfg)
     r, k, v = r.float(), k.float(), v.float()
     bonus_k = torch.exp(params['bonus'].float()) * k
-    y, state = _wkv(r, k, v, w, bonus_k, state)              # (B, S, H, 64)
+    y, state = _wkv(r, k, v, w, bonus_k, state, chunk)       # (B, S, H, 64)
     # per-head group norm in f32, then the gate and the output projection
     var, mean = torch.var_mean(y, dim=-1, keepdim=True, correction=0)
     y = (y - mean) * torch.rsqrt(var + 1e-5) * params['ln_scale'].float()

@@ -28,8 +28,12 @@ block under ``torch.utils.checkpoint`` in a plain autograd pass; inside
 ``torch.func`` transforms (the HVP columns, the mixed term), which refuse
 checkpoint's saved-tensor hooks, the blocks run plainly. Remat moves
 memory, not values; a MoE layer's routing, and its host sync, runs again
-in the recompute. Every family but the recurrent ones trains
-(:func:`check_trainable`).
+in the recompute. Every family trains. The Mamba and RWKV time loops
+checkpoint their chunks of 64 steps in such a pass, as the reference
+does, whatever ``cfg.remat`` says; under ``'full'`` and ``'dots'`` that
+checkpoint nests inside the block's (for ``'dots'``, inside its
+selective-checkpoint context), and the gradients stay those without
+remat.
 
 Decode keeps the reference's cache layout: ``{'pos': 0-d int32, 'slots':
 {'slot{i}': state}}`` (and ``'cross': {'k', 'v'}`` for an
@@ -55,28 +59,11 @@ from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (cdtype, embed, init_embedding,
                                        init_mlp, init_rmsnorm, mlp, pdtype,
-                                       rmsnorm, rope_for, rope_tables,
-                                       unembed)
+                                       records_graph, rmsnorm, rope_for,
+                                       rope_tables, unembed)
 from repro_torch.models.moe import init_moe, moe_ffn
 
 _ENC_KINDS = [('attn', 'dense')]   # the encoder's one slot a block
-
-
-def check_trainable(cfg: ModelConfig) -> None:
-    """Raise unless ``cfg`` trains on the port: attention mixers with dense
-    or MoE FFNs, over tokens or (B, S, d) embeddings, with plain RoPE or
-    M-RoPE, with or without an encoder. Mamba and RWKV mixers (Jamba,
-    RWKV-6) need backward through their time loops and ``torch.func`` HVP
-    columns over them, which are not ported yet; the port serves them
-    (forward, prefill, decode)."""
-    missing = sorted({mixer for mixer, _ in cfg.layer_kinds()
-                      if mixer != 'attn'})
-    if missing:
-        raise NotImplementedError(
-            f'{cfg.name}: training {missing} mixers is not ported yet; the '
-            'port serves them (forward, prefill, decode) but trains '
-            'attention models only (ROADMAP.md queue 1 item 12, training '
-            'part two)')
 
 
 # ---------------------------------------------------------------------- init
@@ -217,10 +204,8 @@ def _remat_active(cfg: ModelConfig) -> bool:
     """Blocks run under activation checkpointing: ``cfg.remat`` with
     ``scan_layers`` (the reference remats the scanned body only), in an
     autograd pass that records a graph, outside ``torch.func``'s
-    transforms."""
-    return (cfg.remat != 'none' and cfg.scan_layers
-            and torch.is_grad_enabled()
-            and torch._C._functorch.peek_interpreter_stack() is None)
+    transforms (:func:`~repro_torch.models.layers.records_graph`)."""
+    return cfg.remat != 'none' and cfg.scan_layers and records_graph()
 
 
 def _run_blocks(cfg: ModelConfig, blocks: list, x: torch.Tensor, rope,
@@ -319,9 +304,7 @@ def train_loss(cfg: ModelConfig, params: dict, batch: dict,
     the compute dtype, the log-sum-exp and the label's logit (a masked max,
     as the reference picks it) are reduced in f32, and the loss is
     Σ tok·w / max(Σ w, 1e-6) plus ``forward``'s aux (the MoE router's
-    load-balance loss, 0 without experts). A recurrent mixer raises
-    (:func:`check_trainable`)."""
-    check_trainable(cfg)
+    load-balance loss, 0 without experts)."""
     logits, aux = forward(cfg, params, batch['inputs'],
                           positions=batch.get('positions'),
                           enc_inputs=batch.get('enc_inputs'))

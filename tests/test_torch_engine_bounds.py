@@ -2,15 +2,17 @@
 the card the port's ``engine_hypergrad`` against its dense oracle is held
 to the reference's own error at the same settings — the registered graph
 at the registry defaults, ``Engine().solve`` with
-``EngineConfig(n_outer=3)``, the oracle at ρ = 0 — and this file measures
-that error with the reference on the CPU, to 1e-2 relative of the constant
-``chip_smoke.ENGINE_HG_BOUND`` cites.
+``EngineConfig(n_outer=chip_smoke.ENGINE_STEPS[name])`` (2 steps of
+``distill_hpo``, 3 of ``reweight_maml``), the oracle at ρ = 0 — and this
+file measures that error with the reference on the CPU, to 1e-2 relative
+of the constant ``chip_smoke.ENGINE_HG_BOUND`` cites.
 
-On ``distill_hpo`` it is large (about 46): at the registry defaults the
-reference's full-rank sketch and its dense oracle part ways (a top
-gradient of 4.25 against 0.0907), so that bound holds the port to little,
-and on the card the binding gate is the kernels against
-``backend='flat'``. On ``reweight_maml`` it is 4.4e-4.
+On ``distill_hpo`` it is large (3.83 after 2 steps, about 46 after 3):
+at the registry defaults the reference's full-rank sketch and its dense
+oracle part ways (after 3 steps a top gradient of 4.25 against 0.0907),
+so that bound holds the port to little, and on the card the binding gate
+is the kernels against ``backend='flat'``. On ``reweight_maml`` it is
+4.4e-4.
 """
 import pytest
 

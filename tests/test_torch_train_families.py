@@ -33,8 +33,7 @@ from repro.launch.steps import build_train_step as jbuild_train_step
 from repro.launch.steps import make_batch_sds as jmake_batch_sds
 from repro.launch.steps import make_optimizer as jmake_optimizer
 from repro.models.transformer import train_loss as jtrain_loss
-from repro_torch.convert import model_indices_from_jax, model_params_from_jax
-from repro_torch.core.tree_util import tree_flatten_with_path, tree_leaves
+from repro_torch.convert import model_indices_from_jax
 from repro_torch.launch.steps import (N_DOMAINS, build_hypergrad_step,
                                       build_train_step, loss_and_grads,
                                       make_batch_sds, make_optimizer)
@@ -42,30 +41,6 @@ from repro_torch.launch.train import main as train_main
 from repro_torch.launch.train import train_lm
 from repro_torch.models.transformer import train_loss
 from torch_threads import torch_thread_cap  # noqa: F401
-
-
-def _rel(got, want) -> float:
-    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
-    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
-
-
-def _port_tree(arch, tree):
-    """A reference tree of the model's shape (numpy) in the port's
-    layout."""
-    return model_params_from_jax(jax.tree.map(np.asarray, tree),
-                                 R.configs(arch)[1])
-
-
-def _assert_leaves_close(got, want, tol):
-    """Every leaf of ``got`` within ``tol`` relative L2 of ``want``'s (a
-    leaf that is 0 in the reference must be 0 in the port)."""
-    pairs, _ = tree_flatten_with_path(got)
-    for (path, g), w in zip(pairs, tree_leaves(want)):
-        g, w = g.detach().double().numpy(), w.double().numpy()
-        if not np.any(w):
-            assert not np.any(g), path
-            continue
-        assert _rel(g, w) <= tol, (path, _rel(g, w))
 
 
 @pytest.mark.parametrize('arch', R.FAMILIES)
@@ -88,10 +63,10 @@ def test_train_loss_and_gradients_match_the_reference(arch):
     want, jgrads = jax.value_and_grad(
         functools.partial(jtrain_loss, jcfg))(jp, jb)
     got, grads = loss_and_grads(lambda p, batch: train_loss(cfg, p, batch),
-                                _port_tree(arch, R.reference_params(arch)),
+                                R.port_tree(arch, R.reference_params(arch)),
                                 b)
     assert abs(float(got) / float(want) - 1) <= 1e-5
-    _assert_leaves_close(grads, _port_tree(arch, jgrads), 1e-4)
+    R.assert_leaves_close(grads, R.port_tree(arch, jgrads), 1e-4)
 
 
 @pytest.mark.parametrize('arch', R.FAMILIES)
@@ -101,7 +76,7 @@ def test_build_train_step_matches_the_reference(arch):
                                       R.SEQ).fn)
     jp = jax.tree.map(jnp.asarray, R.reference_params(arch))
     jopt = jmake_optimizer(jcfg).init(jp)
-    params = _port_tree(arch, R.reference_params(arch))
+    params = R.port_tree(arch, R.reference_params(arch))
     step, opt_state = build_train_step(cfg), make_optimizer(cfg).init(params)
     for i in range(2):
         jb, b = R.both(R.numpy_batch(arch, 2 + i))
@@ -111,11 +86,7 @@ def test_build_train_step_matches_the_reference(arch):
         assert abs(float(m['loss']) / float(jm['loss']) - 1) <= 1e-5
         assert abs(float(m['grad_norm']) / float(jm['grad_norm']) - 1) \
             <= 1e-5
-    want = _port_tree(arch, jp)
-    num = sum(float(torch.sum((g.double() - w.double()) ** 2))
-              for g, w in zip(tree_leaves(params), tree_leaves(want)))
-    den = sum(float(torch.sum(w.double() ** 2)) for w in tree_leaves(want))
-    assert np.sqrt(num / den) <= 1e-4
+    assert R.tree_rel(params, R.port_tree(arch, jp)) <= 1e-4
 
 
 @pytest.mark.parametrize('arch', [R.ENCDEC, R.MROPE])
@@ -132,12 +103,12 @@ def test_build_hypergrad_step_matches_the_reference(arch):
     # the reference's step draws at `key` over its stacked tree
     draw = jax.tree.map(np.asarray, JIndexer(jp).sample_indices(key, 8))
     got = build_hypergrad_step(cfg)(
-        _port_tree(arch, R.reference_params(arch)),
+        R.port_tree(arch, R.reference_params(arch)),
         {'domain_logits': torch.from_numpy(h0)}, ib, ob,
         indices=model_indices_from_jax(draw, cfg))
     step_g = np.asarray(want['domain_logits']) - h0
-    assert _rel(got['domain_logits'].numpy() - h0, step_g) <= 1e-4
-    assert _rel(got['domain_logits'].numpy(), want['domain_logits']) <= 1e-5
+    assert R.rel(got['domain_logits'].numpy() - h0, step_g) <= 1e-4
+    assert R.rel(got['domain_logits'].numpy(), want['domain_logits']) <= 1e-5
 
 
 @pytest.mark.parametrize('arch,what', [(R.ENCDEC, 'encoder frames'),

@@ -37,12 +37,10 @@ import torch
 import torch_train_reference as R
 from repro.core.hvp import extract_columns as jextract_columns
 from repro.core.hvp import make_hvp as jmake_hvp
-from repro.core.solvers import NystromIHVP as JNystrom
 from repro.core.tree_util import PyTreeIndexer as JIndexer
 from repro.launch.train import build_losses as jbuild_losses
 from repro.models import moe as jmoe
-from repro_torch.convert import (model_indices_from_jax,
-                                 model_params_from_jax, to_torch)
+from repro_torch.convert import model_indices_from_jax, model_params_from_jax
 from repro_torch.core import (NystromIHVP, PyTreeIndexer, extract_columns,
                               make_hvp)
 from repro_torch.core.tree_util import tree_leaves
@@ -209,51 +207,19 @@ def test_hvp_columns_match_the_reference_through_the_adapter(arch):
         make_hvp(domain_losses(s['cfg'])[0], s['params'],
                  {'domain_logits': torch.from_numpy(s['h'])}, s['ib']),
         PyTreeIndexer(s['params']), idx, column_chunk=CHUNK)
-    # the reference's columns lead with k, its stacked blocks then with
-    # the block: the port's list takes the block, the column stays first
-    want = dict(jax.tree.map(np.asarray, jcols))
-    want['blocks'] = [jax.tree.map(lambda x, i=i: x[:, i], want['blocks'])
-                      for i in range(s['cfg'].n_blocks)]
-    got, wnt = tree_leaves(cols), tree_leaves(to_torch(want))
-    num = sum(float(np.sum((_np(a) - _np(b)) ** 2)) for a, b in zip(got, wnt))
-    den = sum(float(np.sum(_np(b) ** 2)) for b in wnt)
-    assert np.sqrt(num / den) <= 1e-4
+    assert R.tree_rel(cols, R.port_columns(jcols, s['cfg'])) <= 1e-4
     gk = PyTreeIndexer(s['params']).gather(cols, idx).numpy()
     wk = np.asarray(JIndexer(s['jp']).gather(jcols, draw))
     assert _rel(gk, wk) <= 1e-4
 
 
 def _eq3(arch, draw, k: int = K, h=None):
-    """The hypergradient of Eq. 3 from the reference's pieces: the sketch
-    by ``NystromIHVP.prepare`` on the adapter HVP at ``draw``, u =
-    ``apply``(∇θ outer), and the mixed term −(∂²f/∂φ∂θ)ᵀu (the outer loss
-    does not read φ). The reference takes that term by reverse mode over
-    its gradient, which transposes ``_rdot``'s VJP and raises in jax 0.9.0
-    (``ragged_dot_general``'s transpose in its ragged-contracting mode is
-    not implemented): here it is ⟨jvp(φ ↦ ∇θ f)(e_j), u⟩ for each of φ's
-    64 coordinates, forward over reverse as its HVP, mapped with
-    ``jax.lax.map``."""
+    """The hypergradient of Eq. 3 from the reference's pieces
+    (:func:`torch_train_reference.eq3`) at ``draw``, ``h`` (default the
+    setup's logits)."""
     s = _setup(arch)
-    jinner, jouter = jbuild_losses(s['jcfg'])
-    phi = jnp.asarray(s['h'] if h is None else h)
-    solver = JNystrom(k=k, rho=RHO, column_chunk=CHUNK, backend='flat')
-    indexer = JIndexer(s['jp'])
-    hvp = R.serial_columns(jmake_hvp(jinner, s['jp'], {'domain_logits': phi},
-                                     s['jib']))
-    indexer.sample_indices = lambda rng, k, w=None: draw
-    sketch = solver.prepare(hvp, indexer, jax.random.PRNGKey(0))
-    u = solver.apply(sketch, jax.grad(jouter)(
-        s['jp'], {'domain_logits': phi}, s['job']))
-
-    def grad_theta(p):
-        return jax.grad(jinner)(s['jp'], {'domain_logits': p}, s['jib'])
-
-    def mixed(e):
-        col = jax.jvp(grad_theta, (phi,), (e,))[1]
-        return sum(jnp.vdot(a, b) for a, b in zip(jax.tree.leaves(col),
-                                                  jax.tree.leaves(u)))
-
-    return -np.asarray(jax.lax.map(mixed, jnp.eye(N_DOMAINS)))
+    return R.eq3(s['jcfg'], s['jp'], s['h'] if h is None else h, s['jib'],
+                 s['job'], draw, k, RHO, CHUNK)
 
 
 @pytest.mark.parametrize('arch', R.MOE)

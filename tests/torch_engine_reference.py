@@ -90,9 +90,9 @@ def reference_run(name: str, n_outer: int, outer_lr: float,
 
 def chip_bound(name: str) -> tuple[float, float]:
     """(the reference's own engine_hypergrad-vs-oracle error at the registry
-    defaults after ``Engine().solve`` with ``EngineConfig(n_outer=3)``,
-    oracle at ρ = 0; the bound ``chip_smoke.py`` phase 17 (b) holds the
-    port to on the card)."""
+    defaults after ``Engine().solve`` with ``EngineConfig(n_outer=``
+    ``chip_smoke.ENGINE_STEPS[name])``, oracle at ρ = 0; the bound
+    ``chip_smoke.py`` phase 17 (b) holds the port to on the card)."""
     import importlib.util
     from pathlib import Path
 
@@ -102,7 +102,7 @@ def chip_bound(name: str) -> tuple[float, float]:
     chip_smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(chip_smoke)
     g = jget_graph(name)
-    res = JEngine().solve(g, JConfig(n_outer=chip_smoke.ENGINE_STEPS))
+    res = JEngine().solve(g, JConfig(n_outer=chip_smoke.ENGINE_STEPS[name]))
     hg, _ = jax.jit(lambda v: jengine_hypergrad(g, v))(res.values)
     ref, _ = jax.jit(lambda v: jengine_reference(g, v))(res.values)
     return float(hypergrad_error(hg, ref)), chip_smoke.ENGINE_HG_BOUND[name]
