@@ -78,13 +78,16 @@ def _block_counts(cfg) -> dict:
     return counts
 
 
-def model_params_from_jax(tree: PyTree, cfg, device: Any = 'cpu') -> dict:
+def model_params_from_jax(tree: PyTree, cfg, device: Any = 'cpu',
+                          mesh=None) -> dict:
     """The reference's transformer parameters (numpy leaves, as from
     ``jax.tree.map(np.asarray, params)``) → the port's, on ``device``.
     With ``scan_layers`` the reference stacks ``blocks`` (and
     ``enc_blocks``) into one dict whose leaves lead with a block axis; the
     port keeps a list of block dicts, so that axis is split. Leaves are
-    matched by name."""
+    matched by name. ``mesh``: this rank's blocks of them for the model
+    split on it (:func:`repro_torch.models.split.shard_params` under
+    ``param_specs(cfg, mesh)``)."""
     tree = dict(tree)
     for key, n in _block_counts(cfg).items():
         blocks = tree[key]
@@ -92,7 +95,12 @@ def model_params_from_jax(tree: PyTree, cfg, device: Any = 'cpu') -> dict:
             blocks = [tree_map(lambda x, i=i: x[i], blocks)
                       for i in range(n)]
         tree[key] = list(blocks)
-    return to_torch(tree, device)
+    if mesh is None:
+        return to_torch(tree, device)
+    from repro_torch.models.split import shard_params, split_specs
+    return tree_map(lambda x: x.to(device),
+                    shard_params(to_torch(tree, 'cpu'),
+                                 split_specs(cfg, mesh), mesh))
 
 
 def _stacked_paths(cfg, port_tree: dict) -> list:

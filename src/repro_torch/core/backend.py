@@ -173,8 +173,23 @@ def _sink_of_tree(be, C: PyTree):
 # ---------------------------------------------------------------------------
 # backends
 # ---------------------------------------------------------------------------
+class _WholeTrees:
+    """What a backend says of the θ-trees it is handed where each rank
+    holds them whole: their column indexer and their inner product."""
+
+    def indexer(self, theta: PyTree):
+        """The column indexer of ``theta``."""
+        from repro_torch.core.tree_util import PyTreeIndexer
+        return PyTreeIndexer(theta)
+
+    def vdot(self, a: PyTree, b: PyTree) -> torch.Tensor:
+        """⟨a, b⟩ of two θ-trees, f32 accumulation."""
+        return sum(tree_leaves(tree_map(
+            lambda x, y: torch.sum(x.float() * y.float()), a, b)))
+
+
 @dataclasses.dataclass(frozen=True)
-class TreeBackend:
+class TreeBackend(_WholeTrees):
     """Per-leaf einsum contractions on the parameter tree."""
     name = 'tree'
 
@@ -254,7 +269,7 @@ class TreeBackend:
 
 
 @dataclasses.dataclass(frozen=True)
-class FlatBackend:
+class FlatBackend(_WholeTrees):
     """One ``torch.matmul`` per contraction over the sketch-major (k, p)
     buffer; f32 accumulation whatever ``sketch_dtype`` stores."""
     name = 'flat'
@@ -407,8 +422,9 @@ class ShardedOperand:
 
 class _ShardedSink:
     """FlatShardedBackend's operand from chunks of columns: each chunk's
-    leaves (full, (width, *shape)) give up this rank's block, which is
-    written into the (p_local, k) buffer, allocated at the first chunk."""
+    leaves (full, (width, *shape)) give up this rank's block (over a split
+    model they are that block already), which is written into the
+    (p_local, k) buffer, allocated at the first chunk."""
 
     def __init__(self, be, k: int, device):
         self.be, self.k, self.device = be, k, device
@@ -426,8 +442,8 @@ class _ShardedSink:
         off = 0
         for c, (gshape, spec, lsize, _) in zip(leaves, self.plan):
             w = c.shape[0]
-            blk = c[(slice(None),) + block_slices(gshape, spec,
-                                                  self.be.mesh)]
+            blk = c if self.be.split else c[
+                (slice(None),) + block_slices(gshape, spec, self.be.mesh)]
             self.buf[off:off + lsize, start:start + w].copy_(
                 blk.reshape(w, lsize).T)
             off += lsize
@@ -438,7 +454,7 @@ class _ShardedSink:
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
-class FlatShardedBackend:
+class FlatShardedBackend(_WholeTrees):
     """``flat``'s fusion under a mesh (the reference's ``flat_sharded``):
     each rank fuses only its blocks of the sketch's leaves (``specs``, a
     spec tree over the parameters, e.g.
@@ -459,15 +475,21 @@ class FlatShardedBackend:
     ``combine``/``combinem`` in kernel C, as in ``CudaBackend``; on a CPU
     buffer their plain versions run. Nothing falls back to a library call.
 
-    Vectors come in full (every rank holds the whole tree, as the port's
-    replicated model does) and ``vec`` takes this rank's blocks;
-    ``unvec`` gathers the blocks of a result into whole leaves with one
-    more ``all_reduce`` an apply, which the replicated model's Eq. 3 mixed
-    term needs."""
+    With a replicated model (``split=False``) vectors come in full and
+    ``vec`` takes this rank's blocks; ``unvec`` gathers the blocks of a
+    result into whole leaves with one more ``all_reduce`` an apply, which
+    the replicated model's Eq. 3 mixed term needs. Over a model split on
+    the mesh (``split=True``, :mod:`repro_torch.models.split`; ``specs``
+    its sanitized spec tree) every tree is this rank's blocks already:
+    ``vec`` fuses them as they come, the HVP columns are written as they
+    are, and ``unvec`` hands the blocks back with no collective. Then
+    :meth:`indexer` draws columns over the whole leaves and :meth:`vdot`
+    is the inner product of two such trees over the mesh."""
     name = 'flat_sharded'
     mesh: Any = None
     specs: Any = None
     sketch_dtype: Any = torch.float32
+    split: bool = False
 
     k_major = False    # the fused buffer is (p_local, k)
 
@@ -483,13 +505,16 @@ class FlatShardedBackend:
         ``tree_leaves`` order; ``lead`` leading and ``trail``
         trailing unsharded dims (the sketch's k, a block's m) are left
         out."""
-        from repro_torch.distributed.sharding import (local_shape,
+        from repro_torch.distributed.sharding import (global_shape,
+                                                      local_shape,
                                                       replication_factor,
                                                       sanitize_spec,
                                                       specs_like)
         plan = []
         for leaf, sp in zip(tree_leaves(tree), specs_like(tree, self.specs)):
             gshape = tuple(leaf.shape)[lead:leaf.ndim - trail]
+            if self.split:
+                gshape = global_shape(gshape, sp, self.mesh)
             sp = sanitize_spec(gshape, sp, self.mesh)
             lsize = math.prod(local_shape(gshape, sp, self.mesh))
             plan.append((gshape, sp, lsize,
@@ -506,6 +531,8 @@ class FlatShardedBackend:
 
     def _local(self, tree, lead: int, trail: int) -> list:
         from repro_torch.distributed.sharding import block_slices
+        if self.split:
+            return tree_leaves(tree)
         out = []
         for leaf, (gshape, sp, _, _) in zip(tree_leaves(tree),
                                             self._plan(tree, lead, trail)):
@@ -573,10 +600,33 @@ class FlatShardedBackend:
         return treedef.unflatten(outs)
 
     def unvec(self, u: torch.Tensor, like: PyTree) -> PyTree:
+        if self.split:
+            return unflatten_vec(u, like)
         return self._unfuse(u, like, 0)
 
     def unvecm(self, U: torch.Tensor, like: PyTree) -> PyTree:
+        if self.split:
+            return unflatten_vecm(U, like)
         return self._unfuse(U, like, 1)
+
+    # -- a split model's trees ----------------------------------------------
+    def indexer(self, theta: PyTree):
+        """The column indexer of ``theta``: over the whole leaves where the
+        model is split (every rank draws the same columns and builds its
+        blocks of them), plain otherwise."""
+        from repro_torch.core.tree_util import PyTreeIndexer
+        if self.split:
+            return PyTreeIndexer(theta, mesh=self.mesh, specs=self.specs)
+        return super().indexer(theta)
+
+    def vdot(self, a: PyTree, b: PyTree) -> torch.Tensor:
+        """⟨a, b⟩ of two θ-trees: over the mesh where they are a split
+        model's blocks (:func:`~repro_torch.distributed.ctx.split_vdot`),
+        the plain sum otherwise."""
+        if self.split:
+            from repro_torch.distributed.ctx import split_vdot
+            return split_vdot(a, b, self.specs, self.mesh)
+        return super().vdot(a, b)
 
     # -- reductions: a local contraction + one all_reduce ------------------
     def ctv(self, C: ShardedOperand, vf: torch.Tensor) -> torch.Tensor:

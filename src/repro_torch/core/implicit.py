@@ -71,6 +71,7 @@ True
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable
 
 import numpy as np
@@ -79,8 +80,9 @@ from torch.func import grad, jvp, vmap
 
 from repro_torch.core.hvp import make_hvp
 from repro_torch.core.solvers import (_detached, _save, _saved, _zeros_for,
-                                      forward_rule, linear_solve)
-from repro_torch.core.tree_util import (PyTree, PyTreeIndexer, TreeDef,
+                                      forward_rule, linear_solve,
+                                      theta_backend)
+from repro_torch.core.tree_util import (PyTree, TreeDef,
                                         tree_flatten, tree_leaves, tree_map,
                                         tree_scale)
 
@@ -97,12 +99,13 @@ def _default_rng(rng, indices):
 
 
 def _mixed_vjp(inner_loss: InnerLoss, theta: PyTree, phi: PyTree,
-               batch: Any, u: PyTree) -> PyTree:
-    """−∇_φ ⟨∇_θ f(θ, φ), u⟩ = −(∂²f/∂φ∂θ)ᵀ u, f32 accumulation."""
+               batch: Any, u: PyTree, vdot: Callable) -> PyTree:
+    """−∇_φ ⟨∇_θ f(θ, φ), u⟩ = −(∂²f/∂φ∂θ)ᵀ u, f32 accumulation. ``vdot``:
+    the inner product of θ-trees, the solver's backend's
+    (:func:`~repro_torch.core.solvers.theta_backend`: a split model's sums
+    its blocks over the mesh)."""
     def inner_grad_dot_u(p):
-        g_theta = grad(inner_loss, argnums=0)(theta, p, batch)
-        return sum(tree_leaves(tree_map(
-            lambda a, b: torch.sum(a.float() * b.float()), g_theta, u)))
+        return vdot(grad(inner_loss, argnums=0)(theta, p, batch), u)
 
     return tree_scale(grad(inner_grad_dot_u)(phi), -1.0)
 
@@ -121,7 +124,8 @@ def _prepared(solver, inner_loss, theta, phi, batch, rng, state, indices):
     if state is not None:
         return state
     hvp = make_hvp(inner_loss, theta, phi, batch)
-    return solver.prepare(hvp, PyTreeIndexer(theta), rng, indices=indices)
+    return solver.prepare(hvp, theta_backend(solver).indexer(theta), rng,
+                          indices=indices)
 
 
 def phi_vjp_block(solver, inner_loss: InnerLoss, theta: PyTree,
@@ -138,7 +142,8 @@ def phi_vjp_block(solver, inner_loss: InnerLoss, theta: PyTree,
     state = _prepared(solver, inner_loss, theta, phi, batch,
                       _default_rng(rng, indices), state, indices)
     U = tree_map(torch.Tensor.detach, solver.apply_matrix(state, V))
-    return vmap(lambda u: _mixed_vjp(inner_loss, theta, phi, batch, u),
+    vdot = theta_backend(solver).vdot
+    return vmap(lambda u: _mixed_vjp(inner_loss, theta, phi, batch, u, vdot),
                 in_dims=-1, out_dims=-1)(U)
 
 
@@ -300,7 +305,9 @@ class _SolutionMap(torch.autograd.Function):
             spec = dataclasses.replace(
                 spec, batched=spec.batched + (True,) * len(theta))
         u = _ihvp(spec, ops, theta, _zeros_for(v, theta))
-        phi_bar = _mixed(spec, _mixed_vjp, ops, theta, u, spec.theta_def,
+        mixed = functools.partial(_mixed_vjp,
+                                  vdot=theta_backend(spec.solver).vdot)
+        phi_bar = _mixed(spec, mixed, ops, theta, u, spec.theta_def,
                          (True,) * len(u), ops[:spec.n_phi])
         return (None, *phi_bar, *[None] * (spec.n_map - spec.n_phi))
 

@@ -202,6 +202,15 @@ class NystromIHVP:
         return self.apply(self.prepare(hvp, indexer, rng, indices=indices), v)
 
 
+def theta_backend(solver):
+    """The backend that holds ``solver``'s θ-trees, whose ``indexer`` and
+    ``vdot`` the sketch build and Eq. 3's mixed term use: the Nyström
+    solver's own (``flat_sharded`` over a split model holds this rank's
+    blocks), the tree backend for the solvers that take whole trees."""
+    return solver._be() if isinstance(solver, NystromIHVP) else \
+        get_backend('tree')
+
+
 def _build_operand(be, hvp: HVP, indexer: PyTreeIndexer, idx: dict,
                    column_chunk: int | None):
     """(C in the backend's layout, H_KK unsymmetrized), chunk by chunk: each
@@ -989,8 +998,9 @@ class SketchPolicy:
         """Prepare the solver state at (params, hparams, batch): the only
         lifecycle stage that runs HVPs."""
         hvp = make_hvp(self.inner_loss, params, hparams, batch)
-        return self.solver.prepare(hvp, PyTreeIndexer(params), rng,
-                                   indices=indices)
+        return self.solver.prepare(
+            hvp, theta_backend(self.solver).indexer(params), rng,
+            indices=indices)
 
     def init_state(self) -> SketchState:
         """A stale state: the first ``refresh`` builds it."""

@@ -15,6 +15,7 @@ solver state or a checkpointed tree is laid out on disk.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable
 
 import numpy as np
@@ -206,11 +207,34 @@ class PyTreeIndexer:
     with R the largest leaf rank, as in the reference: never a global flat
     offset, so the scheme stays int32-safe at any parameter count. They live
     on the device of the tree's leaves.
+
+    Over a split tree (``mesh=`` and ``specs=``, the sanitized spec tree:
+    each leaf is this rank's block of a whole leaf,
+    :mod:`repro_torch.models.split`) the indices address the **whole**
+    leaves (``shapes``, ``total``): every rank draws the same ones from the
+    same generator, :meth:`one_hots` gives this rank's block of the whole
+    one-hots (a coordinate outside the block gives a zero block), and
+    :meth:`gather` gives the whole entries on every rank (one
+    ``all_reduce``).
     """
 
-    def __init__(self, tree: PyTree):
+    def __init__(self, tree: PyTree, mesh=None, specs=None):
         leaves, self.treedef = tree_flatten(tree)
-        self.shapes = [tuple(l.shape) for l in leaves]
+        self.mesh = mesh
+        self.local_shapes = [tuple(l.shape) for l in leaves]
+        self.shapes = self.local_shapes
+        if mesh is not None:
+            from repro_torch.distributed.sharding import (block_slices,
+                                                          global_shape,
+                                                          holds_first_replica,
+                                                          spec_leaves)
+            self.specs = spec_leaves(specs)
+            self.shapes = [global_shape(s, sp, mesh)
+                           for s, sp in zip(self.local_shapes, self.specs)]
+            self._starts = [[sl.start for sl in block_slices(s, sp, mesh)]
+                            for s, sp in zip(self.shapes, self.specs)]
+            self._first = [holds_first_replica(sp, mesh)
+                           for sp in self.specs]
         self.dtypes = [l.dtype for l in leaves]
         self.device = leaves[0].device if leaves else torch.device('cpu')
         self.sizes = [int(np.prod(s, dtype=np.int64)) for s in self.shapes]
@@ -271,35 +295,72 @@ class PyTreeIndexer:
                                   device=leaf.device)[leaf]
         return (indices['dims'].long() * strides).sum(-1)
 
+    def _in_block(self, lid: int, indices: dict, mask: torch.Tensor):
+        """(where the masked indices of leaf ``lid`` fall in this rank's
+        block, their row-major offsets inside it)."""
+        dims = indices['dims'][mask].long()
+        shape = self.local_shapes[lid]
+        r = len(shape)
+        start = torch.as_tensor(self._starts[lid] + [0] * (self.max_rank - r),
+                                dtype=torch.int64, device=dims.device)
+        local = dims - start
+        size = torch.as_tensor(list(shape) + [1] * (self.max_rank - r),
+                               dtype=torch.int64, device=dims.device)
+        inside = ((local >= 0) & (local < size)).all(-1)
+        off = torch.zeros_like(inside, dtype=torch.int64)
+        stride = 1
+        for d in range(r - 1, -1, -1):
+            off = off + local[:, d] * stride
+            stride *= shape[d]
+        return inside, off
+
     def one_hots(self, indices: dict) -> PyTree:
         """Batched one-hot tree: every leaf carries a leading k axis. The
         sketch build calls it on one chunk of the draw at a time
-        (:func:`slice_indices`), so that k·p one-hots never coexist."""
+        (:func:`slice_indices`), so that k·p one-hots never coexist. Over a
+        split tree: this rank's blocks of them."""
         leaf = indices['leaf'].long()
-        local = self._local_offsets(indices)
         k = leaf.shape[0]
         rows = torch.arange(k, device=leaf.device)
+        if self.mesh is None:
+            local = self._local_offsets(indices)
         outs = []
-        for lid, (shape, size, dtype) in enumerate(
-                zip(self.shapes, self.sizes, self.dtypes)):
+        for lid, (shape, dtype) in enumerate(zip(self.local_shapes,
+                                                 self.dtypes)):
+            size = math.prod(shape)
             oh = torch.zeros((k, size), dtype=dtype, device=self.device)
             mask = leaf == lid
-            oh[rows[mask], local[mask]] = 1
+            if self.mesh is None:
+                oh[rows[mask], local[mask]] = 1
+            else:
+                inside, off = self._in_block(lid, indices, mask)
+                oh[rows[mask][inside], off[inside]] = 1
             outs.append(oh.reshape((k,) + shape))
         return self.treedef.unflatten(outs)
 
     def gather(self, batched_tree: PyTree, indices: dict) -> torch.Tensor:
         """Entries of each batched-tree column at the structured indices:
-        (k_batch, k_idx) f32."""
+        (k_batch, k_idx) f32. Over a split tree each entry is read on the
+        rank whose block holds it (one replica of it) and the whole matrix
+        is all-reduced, so every rank holds it."""
         leaf = indices['leaf'].long()
-        local = self._local_offsets(indices)
         leaves = tree_leaves(batched_tree)
         kb = leaves[0].shape[0]
         out = torch.zeros((kb, leaf.shape[0]), dtype=torch.float32,
                           device=leaves[0].device)
+        if self.mesh is None:
+            local = self._local_offsets(indices)
         for lid, c in enumerate(leaves):
             mask = leaf == lid
-            out[:, mask] = c.reshape(kb, -1)[:, local[mask]].float()
+            if self.mesh is None:
+                out[:, mask] = c.reshape(kb, -1)[:, local[mask]].float()
+            elif self._first[lid]:
+                inside, off = self._in_block(lid, indices, mask)
+                cols = torch.nonzero(mask).reshape(-1)[inside]
+                out[:, cols] = c.reshape(kb, -1)[:, off[inside]].float()
+        if self.mesh is not None:
+            from repro_torch.distributed.ctx import _all_reduce
+            out = _all_reduce(out, self.mesh, None, 'sum', 'gather')
         return out
 
     def sample_indices(self, rng: torch.Generator, k: int,

@@ -6,36 +6,38 @@ MoE layer reads it and takes its sharded ``capacity`` path);
 ``constrain(x, *entries)`` is the reference's layout hint, which changes
 no value: the port returns ``x`` as it is, inside a mesh or not.
 
-The port's model is replicated in this slice: every rank holds the full
-parameters and activations, and a sharded piece of work takes this rank's
-blocks of them (:func:`shard_map`), works on those, and reduces or gathers
-what it hands back. The collectives are ``all_reduce`` and ``broadcast``
-only, which every backend offers for CPU and CUDA tensors (gloo offers
-nothing else for CUDA tensors): a gather is an ``all_reduce`` of
-zero-padded blocks. Each call counts itself in :data:`COLLECTIVES` under
-its own name.
+A model runs replicated (every rank holds the full parameters and
+activations, and a sharded piece of work takes this rank's blocks of them
+with :func:`shard_map`) or split (each rank holds its blocks of every
+parameter, :mod:`repro_torch.models.split`). The collectives are
+``all_reduce`` and ``broadcast`` only, which every backend offers for CPU
+and CUDA tensors (gloo offers nothing else for CUDA tensors): a gather is
+an ``all_reduce`` of zero-padded blocks, and a reduce-scatter is a sum
+then a block. Each call counts itself in :data:`COLLECTIVES` under its own
+name.
 
-Under reverse-mode autograd the collectives differentiate as the
-reference's ``shard_map`` transposes them, for a loss every rank computes
-alike: :func:`psum`'s cotangent passes through unchanged (:func:`pmean`'s
-scaled by 1/n), :func:`pvary`
-(an invariant value entering work that varies over some axes) sums its
-cotangent over them, :func:`block` (a full tensor → this rank's block)
-gathers its cotangent over the spec's axes, and :func:`gather` takes the
-block of its cotangent. Forward mode (``torch.func.jvp``) sees none of
-them: no HVP column passes through a collective in this slice.
+The collectives differentiate as the reference's ``shard_map`` transposes
+them, for a loss every rank computes alike: :func:`psum`'s cotangent
+passes through as a :func:`pvary` (:func:`pmean`'s scaled by 1/n),
+:func:`pvary` (an invariant value entering work that varies over some
+axes) sums its cotangent over them, :func:`block` (a full tensor → this
+rank's block) gathers its cotangent over the spec's axes, and
+:func:`gather` takes the block of its cotangent. Each also has a forward
+rule (the same collective on the tangent) and a ``vmap`` rule, and its
+backward is built of these collectives again: HVP columns
+(``vmap(jvp(grad))``) and second derivatives pass through them.
 """
 from __future__ import annotations
 
 import collections
 import contextlib
-import math
 
 import torch
 
 from repro_torch.distributed.sharding import (P, _entry_axes,
-                                              block_slices,
-                                              holds_first_replica)
+                                              block_slices, global_shape,
+                                              holds_first_replica, spec_axes,
+                                              spec_leaves)
 
 #: collectives run since the last :func:`reset_collectives`, by name
 #: (``psum``, ``pmax``, ``gather``, ``pvary``, ``block``); each is one
@@ -79,7 +81,9 @@ def _all_reduce(x: torch.Tensor, mesh, axes, op: str, name: str):
     """A copy of ``x`` all-reduced over ``axes``' group (no copy and no
     call when those axes hold one rank)."""
     import torch.distributed as dist
-    axes = mesh.axis_names if axes is None else tuple(axes)
+    if axes is None:
+        axes = mesh.axis_names
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
     if mesh.axes_size(axes) == 1:
         return x
     out = x.contiguous().clone()
@@ -100,79 +104,198 @@ def _spec_axes(spec: P) -> tuple:
     return tuple(a for e in spec for a in _entry_axes(e))
 
 
-def _full_shape(x_block: torch.Tensor, spec: P, mesh) -> tuple:
-    entries = list(spec) + [None] * (x_block.ndim - len(spec))
-    return tuple(n * math.prod(mesh.shape[a] for a in _entry_axes(e))
-                 for n, e in zip(x_block.shape, entries))
-
-
 # ------------------------------------------- differentiable collectives
+# Each collective is an autograd Function in the ``setup_context`` form, so
+# that plain autograd and every ``torch.func`` transform see it: a ``jvp``
+# rule (the same collective on the tangent: each is linear), a ``vmap``
+# rule (one collective on the batched tensor, its batch dimension kept, so
+# every rank calls the same collectives in the same order), and a backward
+# written with the differentiable collectives themselves, so that a
+# gradient's own graph (``jvp(grad)``, ``vmap`` of it, a second backward)
+# holds them too. The transposes are shard_map's: psum ↔ pvary, block ↔
+# gather.
+def _batched_spec(spec: P, dim) -> P:
+    """``spec`` for a tensor with a batch dimension moved to the front."""
+    return spec if dim is None else P(None, *spec)
+
+
+def _front(x: torch.Tensor, dim):
+    return x if dim is None else x.movedim(dim, 0)
+
+
 class _PSum(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh, axes, scale):
-        ctx.scale = scale
-        out = _all_reduce(x, mesh, axes, 'sum', 'psum')
-        return out * scale if scale != 1.0 else out.clone()
+    def forward(x, mesh, axes, scale, name):
+        out = _all_reduce(x, mesh, axes, 'sum', name)
+        return out * scale if scale != 1.0 else out
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.args = inputs[1:]
 
     @staticmethod
     def backward(ctx, g):
-        return (g * ctx.scale if ctx.scale != 1.0 else g), None, None, None
+        mesh, axes, scale, _ = ctx.args
+        g = pvary(g, mesh, mesh.axis_names if axes is None else axes)
+        return (g * scale if scale != 1.0 else g), None, None, None, None
+
+    @staticmethod
+    def jvp(ctx, x_dot, *_):
+        return _PSum.apply(x_dot, *ctx.args)
+
+    @staticmethod
+    def vmap(info, in_dims, x, *args):
+        return _PSum.apply(x, *args), in_dims[0]
 
 
 class _PVary(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh, axes):
-        ctx.mesh, ctx.axes = mesh, axes
+    def forward(x, mesh, axes):
         return x.view_as(x)
 
     @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.args = inputs[1:]
+
+    @staticmethod
     def backward(ctx, g):
-        return _all_reduce(g, ctx.mesh, ctx.axes, 'sum', 'pvary'), None, None
+        mesh, axes = ctx.args
+        return _PSum.apply(g, mesh, axes, 1.0, 'pvary'), None, None
+
+    @staticmethod
+    def jvp(ctx, x_dot, *_):
+        return _PVary.apply(x_dot, *ctx.args)
+
+    @staticmethod
+    def vmap(info, in_dims, x, *args):
+        return _PVary.apply(x, *args), in_dims[0]
+
+
+def _restrict(spec: P, axes) -> P:
+    """``spec`` with only the entries over ``axes`` kept (None: all); an
+    entry partly over them raises."""
+    if axes is None:
+        return spec
+    out = []
+    for e in spec:
+        used = _entry_axes(e)
+        inside = [a in axes for a in used]
+        if any(inside) and not all(inside):
+            raise ValueError(f'entry {e} of {spec} is only partly over {axes}')
+        out.append(e if used and all(inside) else None)
+    return P(*out)
 
 
 class _Block(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh, spec):
-        ctx.mesh, ctx.spec, ctx.shape = mesh, spec, tuple(x.shape)
-        return x[block_slices(tuple(x.shape), spec, mesh)]
+    def forward(x, mesh, spec, axes):
+        return x[block_slices(tuple(x.shape), _restrict(spec, axes), mesh)]
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.args = inputs[1:]
 
     @staticmethod
     def backward(ctx, g):
-        full = _padded(g, ctx.spec, ctx.mesh, ctx.shape)
-        return (_all_reduce(full, ctx.mesh, _spec_axes(ctx.spec), 'sum',
-                            'block'), None, None)
+        mesh, spec, axes = ctx.args
+        spec = _restrict(spec, axes)
+        return (_Gather.apply(g, mesh, spec, _spec_axes(spec), (), 'block'),
+                None, None, None)
+
+    @staticmethod
+    def jvp(ctx, x_dot, *_):
+        return _Block.apply(x_dot, *ctx.args)
+
+    @staticmethod
+    def vmap(info, in_dims, x, mesh, spec, axes):
+        d = in_dims[0]
+        return (_Block.apply(_front(x, d), mesh, _batched_spec(spec, d),
+                             axes), None if d is None else 0)
 
 
 class _Gather(torch.autograd.Function):
+    """The whole tensor from the blocks: over ``axes`` (every rank of an
+    ``axes`` group holds a distinct block), or over the whole mesh
+    (``axes=None``: each shard written by one of its replicas). ``vary``:
+    the axes the result enters varying work over (a ``pvary`` fused in:
+    the cotangent is summed over them before its block is taken, which is
+    a reduce-scatter)."""
+
     @staticmethod
-    def forward(ctx, x_block, mesh, spec):
-        ctx.mesh, ctx.spec = mesh, spec
-        shape = _full_shape(x_block, spec, mesh)
+    def forward(x_block, mesh, spec, axes, vary, name='gather'):
+        spec = _restrict(spec, axes)
+        shape = global_shape(tuple(x_block.shape), spec, mesh)
         full = _padded(x_block, spec, mesh, shape)
-        if not holds_first_replica(spec, mesh):
+        if axes is None and not holds_first_replica(spec, mesh):
             full.zero_()
-        return _all_reduce(full, mesh, None, 'sum', 'gather')
+        return _all_reduce(full, mesh, axes, 'sum', name)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.args = inputs[1:]
 
     @staticmethod
     def backward(ctx, g):
-        return (g[block_slices(tuple(g.shape), ctx.spec, ctx.mesh)],
-                None, None)
+        mesh, spec, axes, vary = ctx.args[:4]
+        if vary and mesh.axes_size(vary) > 1:
+            g = _PSum.apply(g, mesh, vary, 1.0, 'pvary')
+        return (_Block.apply(g, mesh, spec, axes),) + (None,) * 5
+
+    @staticmethod
+    def jvp(ctx, x_dot, *_):
+        return _Gather.apply(x_dot, *ctx.args)
+
+    @staticmethod
+    def vmap(info, in_dims, x, mesh, spec, axes, vary, name='gather'):
+        d = in_dims[0]
+        return (_Gather.apply(_front(x, d), mesh, _batched_spec(spec, d),
+                              axes, vary, name), None if d is None else 0)
 
 
 def psum(x: torch.Tensor, mesh, axes=None) -> torch.Tensor:
     """Σ of ``x`` over ``axes`` (None: the whole mesh), on every rank."""
-    return _PSum.apply(x, mesh, axes, 1.0)
+    axes_ = mesh.axis_names if axes is None else axes
+    if mesh.axes_size(axes_) == 1:
+        return x
+    return _PSum.apply(x, mesh, axes, 1.0, 'psum')
 
 
 def pmean(x: torch.Tensor, mesh, axes=None) -> torch.Tensor:
     """The mean of ``x`` over ``axes``, on every rank."""
     axes_ = mesh.axis_names if axes is None else axes
-    return _PSum.apply(x, mesh, axes, 1.0 / mesh.axes_size(axes_))
+    if mesh.axes_size(axes_) == 1:
+        return x
+    return _PSum.apply(x, mesh, axes, 1.0 / mesh.axes_size(axes_), 'psum')
+
+
+class _PMax(torch.autograd.Function):
+    @staticmethod
+    def forward(x, mesh, axes):
+        return _all_reduce(x, mesh, axes, 'max', 'pmax')
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.mark_non_differentiable(output)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, None, None
+
+    @staticmethod
+    def jvp(ctx, x_dot, *_):
+        return torch.zeros_like(x_dot)
+
+    @staticmethod
+    def vmap(info, in_dims, x, *args):
+        return _PMax.apply(x, *args), in_dims[0]
 
 
 def pmax(x: torch.Tensor, mesh, axes=None) -> torch.Tensor:
     """The elementwise max of ``x`` over ``axes`` (no gradient)."""
-    return _all_reduce(x.detach(), mesh, axes, 'max', 'pmax')
+    axes_ = mesh.axis_names if axes is None else axes
+    if mesh.axes_size(axes_) == 1:
+        return x.detach()
+    return _PMax.apply(x.detach(), mesh, axes)
 
 
 def pvary(x: torch.Tensor, mesh, axes) -> torch.Tensor:
@@ -183,16 +306,44 @@ def pvary(x: torch.Tensor, mesh, axes) -> torch.Tensor:
     return _PVary.apply(x, mesh, tuple(axes))
 
 
-def block(x: torch.Tensor, spec: P, mesh) -> torch.Tensor:
-    """This rank's block of the full (replicated) ``x`` under ``spec``."""
-    return _Block.apply(x, mesh, spec)
+def block(x: torch.Tensor, spec: P, mesh, axes=None) -> torch.Tensor:
+    """This rank's block of the full (replicated) ``x`` under ``spec``
+    (only the entries over ``axes``, when given)."""
+    return _Block.apply(x, mesh, spec, None if axes is None else tuple(axes))
 
 
-def gather(x_block: torch.Tensor, spec: P, mesh) -> torch.Tensor:
+def gather(x_block: torch.Tensor, spec: P, mesh, axes=None,
+           vary=()) -> torch.Tensor:
     """The full tensor from every rank's block under ``spec``: one
-    ``all_reduce`` over the mesh of the zero-padded blocks, each shard
-    written by one of its replicas only."""
-    return _Gather.apply(x_block, mesh, spec)
+    ``all_reduce`` of the zero-padded blocks, over the whole mesh (each
+    shard written by one of its replicas only) or, with ``axes``, over
+    those axes' group, taking only the spec's entries over them (FSDP's
+    gather on use). ``vary``: axes the result enters varying work over;
+    its cotangent is summed over them before the block is taken."""
+    if axes is not None:
+        axes = tuple(axes)
+        if mesh.axes_size(_spec_axes(_restrict(spec, axes))) == 1:
+            return pvary(x_block, mesh, vary)
+    return _Gather.apply(x_block, mesh, spec, axes, tuple(vary))
+
+
+def split_vdot(a, b, specs, mesh) -> torch.Tensor:
+    """⟨a, b⟩ over whole trees held as blocks (``specs``: their sanitized
+    spec tree): each leaf's local dot summed over the axes its spec splits
+    it on only, one ``psum`` per set of axes, so that the value is the
+    whole dot on every rank and its derivatives through the collectives
+    are too (a replicated leaf is counted once, as it is held)."""
+    from repro_torch.core.tree_util import tree_leaves
+    groups: dict = {}
+    for x, y, s in zip(tree_leaves(a), tree_leaves(b), spec_leaves(specs)):
+        key = spec_axes(s, mesh)
+        d = torch.sum(x.float() * y.float())
+        groups[key] = d if key not in groups else groups[key] + d
+    out = None
+    for key in sorted(groups):
+        d = psum(groups[key], mesh, key) if key else groups[key]
+        out = d if out is None else out + d
+    return out
 
 
 def shard_map(f, mesh, in_specs, out_specs):
@@ -223,4 +374,4 @@ def shard_map(f, mesh, in_specs, out_specs):
 
 __all__ = ['COLLECTIVES', 'activation_mesh', 'block', 'constrain',
            'current_mesh', 'gather', 'pmax', 'pmean', 'psum',
-           'pvary', 'reset_collectives', 'shard_map']
+           'pvary', 'reset_collectives', 'shard_map', 'split_vdot']

@@ -317,6 +317,24 @@ def local_shape(shape: tuple, spec: P, mesh) -> tuple:
     return tuple(out)
 
 
+def spec_axes(spec: P, mesh) -> tuple:
+    """The mesh axes that ``spec`` splits over, in the mesh's order."""
+    used = {a for e in spec for a in _entry_axes(e)}
+    return tuple(a for a in mesh.axis_names if a in used)
+
+
+def global_shape(local: tuple, spec: P, mesh) -> tuple:
+    """A leaf's whole shape from a rank's block shape under a sanitized
+    ``spec``: the inverse of :func:`local_shape`."""
+    entries = list(spec) + [None] * (len(local) - len(spec))
+    out = []
+    for dim, e in zip(local, entries):
+        for a in _entry_axes(e):
+            dim *= _axis_size(mesh, a)
+        out.append(dim)
+    return tuple(out)
+
+
 def block_slices(shape: tuple, spec: P, mesh) -> tuple:
     """This rank's block of a leaf under ``spec`` as one ``slice`` per dim.
     A dim split over several axes takes the index major to minor; the

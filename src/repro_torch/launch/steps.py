@@ -1,5 +1,5 @@
-"""The step functions of the port, on one card, without a mesh or sharding
-specs: the port of ``repro/launch/steps.py``.
+"""The step functions of the port, on one card or over a model split on a
+mesh: the port of ``repro/launch/steps.py``.
 
   train_step(params, opt_state, step, batch)
       → params, opt_state, step + 1, {'loss', 'grad_norm'}
@@ -14,9 +14,23 @@ tensors in the layout :func:`make_batch_sds` gives; a step moves them to
 its parameters' device. ``build_step`` picks one of the four by kind.
 All ten architectures serve and train; the recurrent ones (Jamba's Mamba,
 RWKV-6) take their HVP columns through the Python time loops.
+
+``mesh=`` (a :class:`~repro_torch.launch.mesh.Mesh`) builds the train,
+prefill and hypergradient steps over a model split on it, as the
+reference's builders take ``param_specs(cfg, mesh)`` for their input
+shardings: ``params`` (and the optimizer state) are this rank's blocks
+(:func:`repro_torch.models.split.shard_params`), batches are whole and
+each rank takes its rows (over ('pod', 'data') where they divide the
+batch, else all), and what a step returns is whole on every rank (the
+loss, the norm, the last position's logits, the hyperparameters) or this
+rank's blocks (parameters, optimizer state). The dense GQA family splits;
+the rest raises (:func:`~repro_torch.models.split.check_splittable`).
+With ``mesh=None`` each builder is the one-card step.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
 from typing import Callable
 
 import torch
@@ -24,7 +38,9 @@ import torch
 from repro_torch.core import NystromIHVP, implicit_root
 from repro_torch.core.tree_util import tree_flatten, tree_leaves, tree_map
 from repro_torch.device import resolve_device
+from repro_torch.distributed.ctx import split_vdot
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.split import Split, make_split, split_specs
 from repro_torch.models.transformer import decode_step, forward, train_loss
 from repro_torch.optim import (adafactor, adamw, chain, clip_by_global_norm,
                                stacked_blocks)
@@ -32,17 +48,58 @@ from repro_torch.optim import (adafactor, adamw, chain, clip_by_global_norm,
 N_DOMAINS = 64          # outer-parameter dimension for LM data reweighting
 
 
-def make_optimizer(cfg: ModelConfig):
+def make_optimizer(cfg: ModelConfig, split: Split | None = None):
     """Adafactor above 100B parameters (its factored state is what fits),
     AdamW below. Adafactor runs on the reference's stacked layout of the
     blocks (``stacked_blocks``) where ``cfg.scan_layers`` stacks them, so
     that its per-leaf factoring and clipping give the reference's
-    numbers."""
+    numbers. ``split``: AdamW on a split model's blocks (elementwise),
+    clipped by the whole gradient's norm; Adafactor's factored statistics
+    need whole rows and columns, and are refused there."""
+    if split is not None:
+        if cfg.param_count() > 100e9:
+            raise NotImplementedError(
+                f'{cfg.name}: above 100B parameters the optimizer is '
+                'Adafactor, whose factored statistics need whole rows and '
+                'columns; Adafactor on a split model\'s blocks is ROADMAP '
+                'item 12, not ported')
+        return chain(clip_by_global_norm(1.0, _sq_norm(split)),
+                     adamw(3e-4, weight_decay=0.1))
     if cfg.param_count() > 100e9:
         base = adafactor(1e-2)
         return chain(clip_by_global_norm(1.0),
                      stacked_blocks(base) if cfg.scan_layers else base)
     return chain(clip_by_global_norm(1.0), adamw(3e-4, weight_decay=0.1))
+
+
+def _sq_norm(split: Split) -> Callable:
+    """grads (a split model's blocks) → the squared whole norm: each
+    leaf's local squares summed over the axes its spec splits it on, every
+    distinct block counted once."""
+    return lambda grads: split_vdot(grads, grads, split.specs, split.mesh)
+
+
+def _splits(cfg: ModelConfig, mesh) -> Callable[[int], Split]:
+    """``rows → Split`` of ``cfg`` on ``mesh`` for a batch of that many
+    rows, the spec tree worked out once."""
+    return functools.partial(make_split, cfg, mesh,
+                             specs=split_specs(cfg, mesh))
+
+
+def local_batch(batch: dict, split: Split, device) -> dict:
+    """This rank's rows of a whole batch, on ``device``."""
+    return {key: split.batch_block(x).to(device, non_blocking=True)
+            for key, x in batch.items()}
+
+
+def _rows(splits, batch: dict, device) -> tuple[dict, Split | None]:
+    """(this rank's rows of a whole batch on ``device``, their
+    :class:`Split`); without a mesh (``splits`` None) the whole batch and
+    None."""
+    if splits is None:
+        return to_device(batch, device), None
+    split = splits(next(iter(batch.values())).shape[0])
+    return local_batch(batch, split, device), split
 
 
 def to_device(batch: dict, device) -> dict:
@@ -87,7 +144,8 @@ def loss_and_grads(loss_fn: Callable, params, *args):
 
 
 def build_train_step(cfg: ModelConfig, optimizer=None,
-                     microbatches: int | None = None) -> Callable:
+                     microbatches: int | None = None,
+                     mesh=None) -> Callable:
     """``train_step(params, opt_state, step, batch)``: the masked token CE's
     gradient (plus a MoE model's router aux), then ``optimizer`` (default
     :func:`make_optimizer`). ``batch`` holds :func:`make_batch_sds`'s
@@ -96,18 +154,31 @@ def build_train_step(cfg: ModelConfig, optimizer=None,
     ``microbatches`` > 1 splits the batch along its first axis and sums the
     microbatches' gradients in f32 from zeros before dividing, as the
     reference's scan does; the loss is their mean. Default: 4 for the
-    scanned production path above 300B parameters, else 1."""
-    optimizer = optimizer or make_optimizer(cfg)
+    scanned production path above 300B parameters, else 1.
+
+    ``mesh``: over a model split on it (module doc): ``params`` and
+    ``opt_state`` are this rank's blocks, each microbatch's rows are split
+    over the batch axes, the loss is the whole batch's masked mean and
+    ``grad_norm`` the whole gradient's norm, on every rank."""
+    splits = None if mesh is None else _splits(cfg, mesh)
+    if optimizer is None:
+        optimizer = make_optimizer(cfg, None if mesh is None else splits(1))
+    elif mesh is not None:
+        raise ValueError('optimizer= with mesh=: a caller\'s optimizer would '
+                         'clip by each rank\'s own norm; over a split model '
+                         'the step uses make_optimizer(cfg, split)')
     if microbatches is None:
         microbatches = 4 if (cfg.param_count() > 3e11
                              and cfg.scan_layers) else 1
 
-    def loss_fn(params, batch):
-        return train_loss(cfg, params, batch)
+    def grads_of(params, batch, device):
+        """(loss, grads) of a whole (micro)batch."""
+        rows, split = _rows(splits, batch, device)
+        return loss_and_grads(
+            lambda p, b: train_loss(cfg, p, b, split=split), params, rows)
 
     def train_step(params, opt_state, step, batch):
         device = tree_leaves(params)[0].device
-        batch = to_device(batch, device)
         if microbatches > 1:
             gsum = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                                   device=p.device), params)
@@ -116,33 +187,43 @@ def build_train_step(cfg: ModelConfig, optimizer=None,
             for i in range(microbatches):
                 mb = {key: x[i * size:(i + 1) * size]
                       for key, x in batch.items()}
-                loss_i, grads = loss_and_grads(loss_fn, params, mb)
+                loss_i, grads = grads_of(params, mb, device)
                 gsum = tree_map(torch.add, gsum, grads)
                 losses.append(loss_i)
             grads = tree_map(lambda g: g / microbatches, gsum)
             loss = torch.stack(losses).mean()
         else:
-            loss, grads = loss_and_grads(loss_fn, params, batch)
+            loss, grads = grads_of(params, batch, device)
         params, opt_state = optimizer.apply(grads, opt_state, params, step)
-        gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                               for g in tree_leaves(grads)))
+        if splits is None:
+            gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                                   for g in tree_leaves(grads)))
+        else:
+            gnorm = torch.sqrt(_sq_norm(splits(1))(grads))
         return params, opt_state, step + 1, {'loss': loss, 'grad_norm': gnorm}
 
     return train_step
 
 
-def domain_losses(cfg: ModelConfig):
+def domain_losses(cfg: ModelConfig, split: Split | None = None):
     """(inner_loss, outer_loss) of §5.4's data reweighting: the inner loss
     weights each example by N_DOMAINS · softmax(domain_logits)[domain], the
-    outer loss is the plain token CE on a clean batch."""
+    outer loss is the plain token CE on a clean batch. ``split``: over a
+    split model, on this rank's rows; the weights (whole on every rank)
+    enter the rows' work through a ``pvary`` over the batch axes, so that
+    their cotangent is summed over the batch's shards once."""
+    from repro_torch.distributed import ctx
+
     def inner_loss(params, hparams, batch):
         w = torch.softmax(hparams['domain_logits'], dim=-1) * N_DOMAINS
+        if split is not None:
+            w = ctx.pvary(w, split.mesh, split.batch_axes)
         return train_loss(cfg, params, batch,
-                          example_weights=w[batch['domain']])
+                          example_weights=w[batch['domain']], split=split)
 
     def outer_loss(params, hparams, batch):
         del hparams
-        return train_loss(cfg, params, batch)
+        return train_loss(cfg, params, batch, split=split)
 
     return inner_loss, outer_loss
 
@@ -165,25 +246,72 @@ def lm_hypergrad(solver, inner_loss: Callable, outer_loss: Callable, params,
     return loss_and_grads(outer_obj, hparams)
 
 
-def build_hypergrad_step(cfg: ModelConfig, k: int = 8,
-                         rho: float = 1e-2) -> Callable:
+def split_solver(mesh, specs, hg_cfg) -> NystromIHVP:
+    """``hg_cfg``'s Nyström solver (a :class:`HypergradConfig`) over a
+    model split on ``mesh`` (``specs``: its sanitized spec tree):
+    ``flat_sharded`` on the rank's blocks (``split=True``: HVP columns,
+    vectors and u stay blocks, one all-reduce per k-output pass, kernels
+    A–C on a card) in ``hg_cfg``'s ``sketch_dtype``. Another solver, a backend chosen other than
+    'flat_sharded' (the field's default 'tree' counts as not chosen), or
+    ``mesh``/``param_specs`` set on ``hg_cfg`` raise: the split model
+    decides them."""
+    from repro_torch.core.backend import FlatShardedBackend
+    from repro_torch.core.hypergrad import _DTYPES
+    if hg_cfg.solver != 'nystrom':
+        raise NotImplementedError(
+            f'solver={hg_cfg.solver!r} over a split model: its vector '
+            'algebra sums whole trees on one rank; only the Nyström solver '
+            '(flat_sharded over the blocks) is ported to the mesh')
+    if hg_cfg.backend not in ('tree', 'flat_sharded'):
+        raise ValueError(
+            f'backend={hg_cfg.backend!r} over a split model: its sketch '
+            "and vectors are the rank's blocks, which only 'flat_sharded' "
+            'takes')
+    if hg_cfg.mesh is not None or hg_cfg.param_specs is not None:
+        raise ValueError('mesh/param_specs over a split model are the '
+                         "split's own: leave them unset")
+    backend = FlatShardedBackend(
+        mesh=mesh, specs=specs, split=True,
+        sketch_dtype=_DTYPES[hg_cfg.sketch_dtype or 'float32'])
+    return dataclasses.replace(hg_cfg, backend=backend,
+                               sketch_dtype=None).build()
+
+
+def build_hypergrad_step(cfg: ModelConfig, k: int = 8, rho: float = 1e-2,
+                         mesh=None, hg_cfg=None) -> Callable:
     """``hypergrad_step(params, hparams, inner_batch, outer_batch, rng=None,
     indices=None)``: the Nyström-IHVP hypergradient of the clean batch's
     loss with respect to the per-domain loss weights, at the trained
-    ``params`` as the implicit solution (``NystromIHVP(k, rho,
-    column_chunk=2)``), then ``h − 1e-2·g``. ``rng`` (a CPU
-    ``torch.Generator``) draws the sketch's columns, or ``indices=``
-    injects a draw."""
-    solver = NystromIHVP(k=k, rho=rho, column_chunk=2)
-    inner_loss, outer_loss = domain_losses(cfg)
+    ``params`` as the implicit solution, then ``h − 1e-2·g``. The solver
+    is ``hg_cfg``'s (a :class:`HypergradConfig`), by default
+    ``NystromIHVP(k, rho, column_chunk=2)``; ``k`` and ``rho`` are
+    shorthand for that default and must stay at theirs when ``hg_cfg`` is
+    given. ``rng`` (a CPU ``torch.Generator``) draws the sketch's columns,
+    or ``indices=`` injects a draw.
+
+    ``mesh``: over a model split on it, through ``flat_sharded`` on the
+    rank's blocks (:func:`split_solver` of the same ``hg_cfg``): every
+    rank draws the same columns over the whole leaves and computes its
+    blocks of them, u comes back as blocks, and the hypergradient is whole
+    on every rank."""
+    from repro_torch.core.hypergrad import HypergradConfig
+    if hg_cfg is None:
+        hg_cfg = HypergradConfig(k=k, rho=rho, column_chunk=2)
+    elif (k, rho) != (8, 1e-2):
+        raise ValueError('k and rho are shorthand for the default hg_cfg: '
+                         'set them on the hg_cfg given')
+    splits = None if mesh is None else _splits(cfg, mesh)
+    solver = (hg_cfg.build() if mesh is None
+              else split_solver(mesh, splits(1).specs, hg_cfg))
 
     def hypergrad_step(params, hparams, inner_batch, outer_batch, rng=None,
                        indices=None):
         device = tree_leaves(params)[0].device
-        _, hg = lm_hypergrad(solver, inner_loss, outer_loss, params, hparams,
-                             to_device(inner_batch, device),
-                             to_device(outer_batch, device), rng=rng,
-                             indices=indices)
+        ib, inner_split = _rows(splits, inner_batch, device)
+        ob, outer_split = _rows(splits, outer_batch, device)
+        _, hg = lm_hypergrad(solver, domain_losses(cfg, inner_split)[0],
+                             domain_losses(cfg, outer_split)[1], params,
+                             hparams, ib, ob, rng=rng, indices=indices)
         return tree_map(lambda h, g: h - 1e-2 * g, hparams, hg)
 
     return hypergrad_step
@@ -195,35 +323,51 @@ def serve_params(params):
                     if x.is_floating_point() else x, params)
 
 
-def build_prefill_step(cfg: ModelConfig, device=None) -> Callable:
+def build_prefill_step(cfg: ModelConfig, device=None, mesh=None) -> Callable:
     """``prefill_step(params, batch)``: ``forward`` over ``batch['inputs']``
     ((B, S) tokens, or (B, S, d) embeddings where ``cfg.embed_inputs`` is
     off), with ``batch['positions']`` and an encoder-decoder's
     ``batch['enc_inputs']`` where given, moved to the step's device (the
     card unless ``device='cpu'``), under ``torch.inference_mode()``;
     returns the next-token logits ``logits[:, -1, :]`` as a tensor of its
-    own."""
+    own. ``mesh``: over a model split on it; each rank runs its rows and
+    heads, and the last position's logits come back gathered whole
+    (B, V_padded) on every rank."""
     device = resolve_device(device)
+    splits = None if mesh is None else _splits(cfg, mesh)
 
     def prefill_step(params: dict, batch: dict) -> torch.Tensor:
         with torch.inference_mode():
-            batch = to_device(batch, device)
+            batch, split = _rows(splits, batch, device)
             logits, _ = forward(cfg, params, batch['inputs'],
                                 positions=batch.get('positions'),
-                                enc_inputs=batch.get('enc_inputs'))
-            return logits[:, -1, :].clone()
+                                enc_inputs=batch.get('enc_inputs'),
+                                split=split)
+            if split is None:
+                return logits[:, -1, :].clone()
+            from repro_torch.distributed import ctx
+            from repro_torch.distributed.sharding import P
+            return ctx.gather(logits[:, -1, :].contiguous(),
+                              P(split.batch_axes or None, 'model'), mesh)
 
     return prefill_step
 
 
-def build_serve_step(cfg: ModelConfig, device=None) -> Callable:
+def build_serve_step(cfg: ModelConfig, device=None, mesh=None) -> Callable:
     """``serve_step(params, inputs, cache)``: one :func:`decode_step` of
     (B, 1) tokens, or (B, 1, d) embeddings where ``cfg.embed_inputs`` is
     off and there is no encoder, moved to the step's device (the card
     unless ``device='cpu'``), under ``torch.inference_mode()``; returns
     (logits (B, 1, V_padded), cache). The cache comes from ``init_cache``
     (an encoder-decoder's filled by ``fill_cross_cache``) and is consumed:
-    its k, v and recurrent states are written in place."""
+    its k, v and recurrent states are written in place. Decode under a
+    mesh (the KV cache's sequence over 'model') is not ported: ``mesh``
+    raises."""
+    if mesh is not None:
+        raise NotImplementedError(
+            'decode over a split model (cache_specs\' KV sequence over '
+            '\'model\', the flash-decoding reduction) is ROADMAP item 12, '
+            'not ported')
     device = resolve_device(device)
 
     def serve_step(params: dict, inputs: torch.Tensor, cache: dict):
@@ -237,7 +381,8 @@ def build_step(cfg: ModelConfig, kind: str, **kwargs) -> Callable:
     """The step of ``kind``: ``'train'`` (:func:`build_train_step`),
     ``'prefill'`` (:func:`build_prefill_step`), ``'decode'``
     (:func:`build_serve_step`) or ``'hypergrad'``
-    (:func:`build_hypergrad_step`), with ``kwargs`` passed on."""
+    (:func:`build_hypergrad_step`), with ``kwargs`` (``mesh=`` included)
+    passed on."""
     builders = {'train': build_train_step, 'prefill': build_prefill_step,
                 'decode': build_serve_step,
                 'hypergrad': build_hypergrad_step}

@@ -3,7 +3,8 @@ routes (registered problems through ``solve()``, influence problems through
 ``influence()`` or the serving tier, the multi-level engine's graphs
 through ``Engine.solve``).
 
-The counterpart of ``repro/launch/train.py`` on one card:
+The counterpart of ``repro/launch/train.py``, on one card or over a
+model split on a mesh of ranks:
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch yi_9b --reduced \\
       --steps 6 --outer-every 3 --batch 4 --seq 32
@@ -19,10 +20,16 @@ reweighting (:func:`train_lm`): AdamW inner steps on the weighted token CE,
 and every ``--outer-every`` steps a Nyström hypergradient of a clean
 batch's loss with respect to the domain logits, through the implicit map
 at the warm-started parameters. ``--ckpt-dir`` checkpoints and resumes.
-``--production-mesh`` is refused: the mesh exists
-(:mod:`repro_torch.launch.mesh`, :mod:`repro_torch.distributed`), but the
-step builders over a model split on it are what ROADMAP item 12 still
-holds.
+Launched in a world of several ranks (``torchrun --nproc-per-node N``:
+the CLI joins the group, each rank on a card of its own over NCCL, or on
+the CPU over gloo under ``--device cpu``), the LM route makes
+``make_host_mesh()``, as the reference does, or ``make_production_mesh()``
+under ``--production-mesh`` (which needs a world of 256 or 512 ranks), and
+trains the model split on it (:mod:`repro_torch.models.split`: the dense
+GQA family; the rest raises):
+
+  torchrun --nproc-per-node 2 -m repro_torch.launch.train --arch yi_9b \
+      --reduced --steps 4 --outer-every 2 --batch 4 --seq 32 --device cpu
 
 ``--serve`` stands up the serving tier (:mod:`repro_torch.serve`) and
 answers ``--queries`` queries twice, cold (the first flush builds the
@@ -65,12 +72,40 @@ class LMRun:
     outer: list
 
 
+def _whole_state(tree: dict, split, params) -> list:
+    """The NamedSharding of each leaf of a checkpointed tree ``{'params',
+    'opt', 'h', 'houter'}`` over a split model: the parameters' specs, the
+    optimizer state's mirrored from them by structure, and the
+    hyperparameters replicated."""
+    from repro_torch.core.tree_util import tree_leaves
+    from repro_torch.distributed.sharding import (P, NamedSharding,
+                                                  spec_leaves)
+    from repro_torch.models.split import state_spec_leaves
+    by_key = {'params': spec_leaves(split.specs),
+              'opt': state_spec_leaves(tree['opt'], params, split.specs),
+              'h': [P()] * len(tree_leaves(tree['h'])),
+              'houter': [P()] * len(tree_leaves(tree['houter']))}
+    return [NamedSharding(split.mesh, s)
+            for key in sorted(by_key) for s in by_key[key]]   # leaf order
+
+
+def _gathered(tree: dict, shardings: list) -> dict:
+    """Every leaf of ``tree`` whole (one ``gather`` a split leaf), for the
+    reference's checkpoint format."""
+    from repro_torch.core.tree_util import tree_flatten
+    from repro_torch.distributed import ctx
+    leaves, treedef = tree_flatten(tree)
+    return treedef.unflatten([
+        ctx.gather(x, s.spec, s.mesh) if any(e is not None for e in s.spec)
+        else x for x, s in zip(leaves, shardings)])
+
+
 def train_lm(cfg, hg_cfg, *, steps: int, batch: int, seq: int,
              outer_every: int, ckpt_dir: str | None = None,
              ckpt_every: int = 100, log_every: int = 10, device=None,
-             params=None, indices: Callable[[int], dict] | None = None
-             ) -> LMRun:
-    """The bilevel LM trainer (the reference's loop without its mesh).
+             params=None, indices: Callable[[int], dict] | None = None,
+             mesh=None) -> LMRun:
+    """The bilevel LM trainer (the reference's loop).
 
     Inner steps: ``make_optimizer(cfg)`` on the domain-weighted token CE of
     ``TokenStream`` batches (step-indexed, prefetched on a host thread),
@@ -93,15 +128,26 @@ def train_lm(cfg, hg_cfg, *, steps: int, batch: int, seq: int,
     embedding-input config raises ``ValueError`` (they train through
     ``build_train_step`` and ``build_hypergrad_step`` on batches in
     ``make_batch_sds``'s layout). Every token config trains here, the
-    recurrent ones (Jamba, RWKV-6) too."""
+    recurrent ones (Jamba, RWKV-6) too.
+
+    ``mesh``: the model split on it (:mod:`repro_torch.models.split`):
+    ``params`` (default: the same init, then this rank's blocks) and the
+    optimizer state are blocks, every rank reads the same batches and takes
+    its rows, the Nyström solver runs on ``flat_sharded`` over the blocks
+    (``hg_cfg``'s ``sketch_dtype``), and the draws are over the whole
+    model, so that a run matches one rank's at the same seeds. Checkpoints
+    gather each leaf whole into the reference's format (rank 0 writes) and
+    resume as blocks. Only rank 0 prints."""
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.core import SketchPolicy
     from repro_torch.data import Prefetcher, ShardedLoader, TokenStream
     from repro_torch.device import resolve_device
     from repro_torch.launch.steps import (N_DOMAINS, domain_losses,
-                                          lm_hypergrad, loss_and_grads,
-                                          make_optimizer, to_device)
+                                          lm_hypergrad, local_batch,
+                                          loss_and_grads, make_optimizer,
+                                          to_device)
     from repro_torch.models import build_model
+    from repro_torch.models.split import make_split
     from repro_torch.optim import adam
 
     if cfg.is_encdec or not cfg.embed_inputs:
@@ -112,6 +158,10 @@ def train_lm(cfg, hg_cfg, *, steps: int, batch: int, seq: int,
             + '; train it through launch.steps.build_train_step and '
             'build_hypergrad_step on batches in make_batch_sds\'s layout')
     dev = resolve_device(device)
+    split = None if mesh is None else make_split(cfg, mesh, batch)
+    speak = mesh is None or mesh.rank == 0
+    rows = ((lambda b: to_device(b, dev)) if split is None
+            else (lambda b: local_batch(b, split, dev)))
 
     def sync():
         if dev.type == 'cuda':
@@ -120,25 +170,54 @@ def train_lm(cfg, hg_cfg, *, steps: int, batch: int, seq: int,
     if params is None:
         params = build_model(cfg, device=dev).init(
             torch.Generator(device=dev).manual_seed(0))
-    inner_loss, outer_loss = domain_losses(cfg)
-    optimizer = make_optimizer(cfg)
+        if split is not None:
+            from repro_torch.models.split import shard_params
+            params = shard_params(params, split.specs, mesh)
+    inner_loss, outer_loss = domain_losses(cfg, split)
+    optimizer = make_optimizer(cfg, split)
     opt_state = optimizer.init(params)
     hparams = {'domain_logits': torch.zeros((N_DOMAINS,), device=dev)}
     outer_opt = adam(1e-2)
     outer_state = outer_opt.init(hparams)
 
     ckpt = CheckpointManager(ckpt_dir) if ckpt_dir else None
+    shardings = None
+    if ckpt and split is not None:
+        from repro_torch.models.transformer import abstract_params
+        whole = abstract_params(cfg)
+        shardings = _whole_state({'params': params, 'opt': opt_state,
+                                  'h': hparams, 'houter': outer_state},
+                                 split, params)
+
+    def save(step):
+        tree = {'params': params, 'opt': opt_state, 'h': hparams,
+                'houter': outer_state}
+        if shardings is not None:
+            tree = _gathered(tree, shardings)
+        if speak:
+            ckpt.save(step, tree)
+
     start_step = 0
     if ckpt and ckpt.latest_step() is not None:
+        template = {'params': params, 'opt': opt_state, 'h': hparams,
+                    'houter': outer_state}
+        if shardings is not None:
+            template = dict(template, params=whole,
+                            opt=optimizer.init(whole))
         tree, manifest = ckpt.restore_latest(
-            {'params': params, 'opt': opt_state, 'h': hparams,
-             'houter': outer_state})
+            template, shardings=shardings,
+            device=None if shardings is None else dev)
         params, opt_state = tree['params'], tree['opt']
         hparams, outer_state = tree['h'], tree['houter']
         start_step = manifest['step']
-        print(f'[train] resumed from step {start_step}')
+        if speak:
+            print(f'[train] resumed from step {start_step}')
 
-    solver = hg_cfg.build()
+    if split is None:
+        solver = hg_cfg.build()
+    else:
+        from repro_torch.launch.steps import split_solver
+        solver = split_solver(mesh, split.specs, hg_cfg)
     if getattr(type(solver), 'amortizable', False):
         policy = SketchPolicy(solver=solver, inner_loss=inner_loss,
                               refresh_every=hg_cfg.sketch_refresh_every)
@@ -184,20 +263,20 @@ def train_lm(cfg, hg_cfg, *, steps: int, batch: int, seq: int,
     with Prefetcher(ShardedLoader(lambda s: stream.batch(s, batch),
                                   start_step=start_step), depth=2) as loader:
         for i in range(start_step, steps):
-            b = to_device(next(loader), dev)
+            b = rows(next(loader))
             sync()
             t0 = time.perf_counter()
             params, opt_state, loss = inner_step(params, opt_state, hparams,
                                                  i, b)
             losses.append(float(loss))
             step_s.append(time.perf_counter() - t0)
-            if log_every and (i + 1) % log_every == 0:
+            if speak and log_every and (i + 1) % log_every == 0:
                 rate = (i + 1 - start_step) / (time.time() - t_start)
                 print(f'[train] step {i+1} loss={float(loss):.4f} '
                       f'({rate:.2f} steps/s)', flush=True)
             if (i + 1) % outer_every == 0:
-                outer_b = to_device(stream.batch(10_000_000 + i, batch,
-                                                 clean_only=True), dev)
+                outer_b = rows(stream.batch(10_000_000 + i, batch,
+                                            clean_only=True))
                 if policy is not None and (sketch_state is None
                                            or policy.due(sketch_state)):
                     # a stale sketch goes before the build of the next one
@@ -213,41 +292,82 @@ def train_lm(cfg, hg_cfg, *, steps: int, batch: int, seq: int,
                                   hypergrad=hg['domain_logits'].detach(),
                                   logits=hparams['domain_logits'].detach(),
                                   noisy_weight=noisy, **secs))
-                print(f'[outer] step {i+1} val(pre-update)={float(val):.4f} '
-                      f'noisy-domain weight={noisy:.3f} '
-                      f'(uniform={len(stream.noisy_domains) / stream.n_domains:.3f})',
-                      flush=True)
+                if speak:
+                    print(f'[outer] step {i+1} val(pre-update)='
+                          f'{float(val):.4f} noisy-domain weight={noisy:.3f} '
+                          f'(uniform={len(stream.noisy_domains) / stream.n_domains:.3f})',
+                          flush=True)
             if ckpt and (i + 1) % ckpt_every == 0:
-                ckpt.save(i + 1, {'params': params, 'opt': opt_state,
-                                  'h': hparams, 'houter': outer_state})
+                save(i + 1)
                 saved = i + 1
     if ckpt:
         if saved != steps:      # the step's directory exists otherwise
-            ckpt.save(steps, {'params': params, 'opt': opt_state,
-                              'h': hparams, 'houter': outer_state})
+            save(steps)
         ckpt.wait()
+        if mesh is not None:    # rank 0's files are whole before any reads
+            import torch.distributed as dist
+            dist.barrier()
     final = 'none' if loss is None else f'{float(loss):.4f}'
-    print(f'[train] done: {steps} steps, final loss {final}')
+    if speak:
+        print(f'[train] done: {steps} steps, final loss {final}')
     return LMRun(params=params, opt_state=opt_state, hparams=hparams,
                  outer_state=outer_state, losses=losses, step_s=step_s,
                  outer=outer)
 
 
-def _run_lm(args):
-    """No ``--problem``: the bilevel LM trainer on ``--arch``."""
-    if args.production_mesh:
-        raise SystemExit(
-            '--production-mesh needs step builders over a model split on '
-            'the mesh, which are ROADMAP item 12, not ported: the LM '
-            'trainer runs on one card')
-    from repro_torch.configs import get_config
+def _lm_mesh(args):
+    """(mesh, device, whether the CLI joined the group) of the LM route.
+    In one process: no mesh, and the card unless ``--device cpu``. In a
+    world of several ranks (``torchrun`` sets ``WORLD_SIZE`` and
+    ``LOCAL_RANK``; the CLI joins the group unless one exists, and leaves
+    it when the run ends): each rank on a card of its own,
+    ``cuda:LOCAL_RANK``, joined over NCCL, or on the CPU over gloo under
+    ``--device cpu``; the mesh is ``make_host_mesh()``, or
+    ``make_production_mesh()`` under ``--production-mesh``."""
+    import os
+
+    import torch.distributed as dist
     from repro_torch.device import resolve_device
+    from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
+    dev = resolve_device(args.device)
+    if not dist.is_initialized() and int(os.environ.get('WORLD_SIZE',
+                                                        '1')) <= 1:
+        if args.production_mesh:
+            raise SystemExit(
+                '--production-mesh needs a world of 256 (512) ranks, '
+                'launched under torchrun; in one process the LM trainer runs '
+                'on one card (a dry run of the production mesh on one host, '
+                'launch/dryrun.py, is ROADMAP item 12, not ported)')
+        return None, dev, False
+    if dev.type == 'cuda' and dev.index is None:
+        local = int(os.environ.get('LOCAL_RANK', '0'))
+        if local >= torch.cuda.device_count():
+            raise SystemExit(
+                f'local rank {local} has no card of its own '
+                f'({torch.cuda.device_count()} on this host): the LM route '
+                'over a mesh runs one rank a card')
+        dev = torch.device('cuda', local)
+        torch.cuda.set_device(dev)
+    joined = not dist.is_initialized()
+    if joined:
+        dist.init_process_group('nccl' if dev.type == 'cuda' else 'gloo')
+    mesh = (make_production_mesh() if args.production_mesh
+            else make_host_mesh())
+    return mesh, dev, joined
+
+
+def _run_lm(args):
+    """No ``--problem``: the bilevel LM trainer on ``--arch``, over the
+    model split on a mesh where the world has several ranks."""
+    from repro_torch.configs import get_config
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    dev = resolve_device(args.device)
-    print(f'[train] arch={cfg.name} params~{cfg.param_count()/1e6:.1f}M '
-          f'device={dev}')
+    mesh, dev, joined = _lm_mesh(args)
+    if mesh is None or mesh.rank == 0:
+        print(f'[train] arch={cfg.name} params~{cfg.param_count()/1e6:.1f}M '
+              f'device={dev}' + ('' if mesh is None
+                                 else f' mesh={dict(mesh.shape)}'))
     # registry-driven flag forwarding: explicitly passed flags the solver
     # does not consume are refused, never silently dropped
     hg_cfg = config_from_cli(
@@ -256,10 +376,15 @@ def _run_lm(args):
                'sketch_refresh_every': args.sketch_refresh_every},
         defaults={'k': 8, 'rho': 1e-2},
         column_chunk=4)
-    return train_lm(cfg, hg_cfg, steps=args.steps, batch=args.batch,
-                    seq=args.seq, outer_every=args.outer_every,
-                    ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
-                    log_every=args.log_every, device=dev)
+    try:
+        return train_lm(cfg, hg_cfg, steps=args.steps, batch=args.batch,
+                        seq=args.seq, outer_every=args.outer_every,
+                        ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
+                        log_every=args.log_every, device=dev, mesh=mesh)
+    finally:
+        if joined:
+            import torch.distributed as dist
+            dist.destroy_process_group()
 
 
 def _run_graph(args):
@@ -430,8 +555,9 @@ def main(argv=None):
     ap.add_argument('--ckpt-dir', default=None)
     ap.add_argument('--ckpt-every', type=int, default=100)
     ap.add_argument('--production-mesh', action='store_true',
-                    help='refused: the sharded step builders are ROADMAP '
-                         'item 12, not ported')
+                    help='the LM route over make_production_mesh() (a world '
+                         'of 256 or 512 ranks under torchrun) instead of '
+                         'make_host_mesh()')
     ap.add_argument('--log-every', type=int, default=10)
     ap.add_argument('--device', default=None,
                     help="where to run: the CUDA card unless 'cpu'")

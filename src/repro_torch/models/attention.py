@@ -61,8 +61,11 @@ def init_attention(cfg: ModelConfig, generator: torch.Generator,
     return p
 
 
-def _project_qkv(params, x: torch.Tensor, cfg: ModelConfig, rope):
-    """q: (B, S, H, hd), k/v: (B, S, KV, hd), RoPE applied to q and k."""
+def _project_qkv(params, x: torch.Tensor, cfg: ModelConfig, rope,
+                 n_heads: int | None = None, n_kv: int | None = None):
+    """q: (B, S, H, hd), k/v: (B, S, KV, hd), RoPE applied to q and k.
+    ``n_heads``/``n_kv``: the heads that ``params`` hold (a rank's share on
+    a split model; default the config's)."""
     ct = cdtype(cfg)
     B, S, _ = x.shape
     q = x @ params['wq'].to(ct)
@@ -72,10 +75,49 @@ def _project_qkv(params, x: torch.Tensor, cfg: ModelConfig, rope):
         q = q + params['bq'].to(ct)
         k = k + params['bk'].to(ct)
         v = v + params['bv'].to(ct)
-    q = q.view(B, S, cfg.n_heads, cfg.head_dim)
-    k = k.view(B, S, cfg.n_kv_heads, cfg.head_dim)
-    v = v.view(B, S, cfg.n_kv_heads, cfg.head_dim)
+    q = q.view(B, S, n_heads or cfg.n_heads, cfg.head_dim)
+    k = k.view(B, S, n_kv or cfg.n_kv_heads, cfg.head_dim)
+    v = v.view(B, S, n_kv or cfg.n_kv_heads, cfg.head_dim)
     return apply_rope(q, rope), apply_rope(k, rope), v
+
+
+def local_kv_heads(cfg: ModelConfig, model: int, rank: int):
+    """The KV heads that rank ``rank``'s q heads read on a 'model' axis of
+    ``model`` ranks where the KV weights stay whole (``KV % model != 0``):
+    ``(lo, hi)`` when those heads are a run that kernel E's GQA rule
+    (query head h reads KV head h // (H_local // KV_local)) maps right, or
+    the list of one KV head per local q head otherwise (then read with a
+    group of 1)."""
+    h_local = cfg.n_heads // model
+    h0, group = rank * h_local, cfg.group_size
+    reads = [(h0 + i) // group for i in range(h_local)]
+    lo, hi = reads[0], reads[-1] + 1
+    n = hi - lo
+    if h_local % n == 0 and all(r - lo == i // (h_local // n)
+                                for i, r in enumerate(reads)):
+        return lo, hi
+    return reads
+
+
+def _split_qkv(params, x: torch.Tensor, cfg: ModelConfig, rope, split):
+    """This rank's q heads and the KV heads they read, from the residual
+    stream entering the rank's heads. Where the KV weights stay whole
+    (``KV % model != 0``) k and v are sliced to those heads, a strided
+    view, so that kernel E reads the right ones."""
+    m = split.model
+    h_local = cfg.n_heads // m
+    kv_split = cfg.n_kv_heads % m == 0
+    n_kv = cfg.n_kv_heads // m if kv_split else cfg.n_kv_heads
+    q, k, v = _project_qkv(params, split.to_model(x), cfg, rope,
+                           n_heads=h_local, n_kv=n_kv)
+    if not kv_split:
+        heads = local_kv_heads(cfg, m, split.model_rank)
+        if isinstance(heads, tuple):
+            k, v = k[:, :, heads[0]:heads[1]], v[:, :, heads[0]:heads[1]]
+        else:
+            at = torch.tensor(heads, device=k.device)
+            k, v = k.index_select(2, at), v.index_select(2, at)
+    return q, k, v
 
 
 # ------------------------------------------------------------- core attention
@@ -138,13 +180,18 @@ def _chunked_attention(q, k, v, causal: bool, scale: float,
 
 def multihead_attention(params, x: torch.Tensor, cfg: ModelConfig, *,
                         rope: tuple[torch.Tensor, torch.Tensor],
-                        causal: bool = True) -> torch.Tensor:
+                        causal: bool = True, split=None) -> torch.Tensor:
     """Self-attention of x (B, S, d) → (B, S, d); ``rope`` is the (cos, sin)
     pair of :func:`~repro_torch.models.layers.rope_for` at x's
-    positions."""
+    positions. ``split`` (a :class:`~repro_torch.models.split.Split`):
+    ``params`` are this rank's heads as read (``Split.use``), H/model q
+    heads, ``wo`` row-parallel and its products summed over 'model'."""
     B, S, _ = x.shape
-    q, k, v = _project_qkv(params, x, cfg, rope)
-    group = cfg.n_heads // cfg.n_kv_heads
+    if split is None:
+        q, k, v = _project_qkv(params, x, cfg, rope)
+    else:
+        q, k, v = _split_qkv(params, x, cfg, rope, split)
+    group = q.shape[2] // k.shape[2]
     scale = cfg.head_dim ** -0.5
     if cfg.use_pallas and S > cfg.attn_chunk:
         out = ops.flash_attention(q, k, v, causal=causal, scale=scale)
@@ -154,7 +201,8 @@ def multihead_attention(params, x: torch.Tensor, cfg: ModelConfig, *,
             out = _chunked_attention(q, k, v, causal, scale, cfg.attn_chunk)
         else:
             out = _full_attention(q, k, v, causal, scale)
-    return out.reshape(B, S, -1) @ params['wo'].to(cdtype(cfg))
+    out = out.reshape(B, S, -1) @ params['wo'].to(cdtype(cfg))
+    return out if split is None else split.model_sum(out)
 
 
 # ------------------------------------------------------------------ decoding

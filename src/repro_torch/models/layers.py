@@ -164,10 +164,18 @@ _ACTS = {'silu': F.silu, 'gelu': lambda x: F.gelu(x, approximate='tanh'),
          'relu': F.relu, 'leaky_relu': lambda x: F.leaky_relu(x, 0.01)}
 
 
-def mlp(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def mlp(params, x: torch.Tensor, cfg: ModelConfig, split=None
+        ) -> torch.Tensor:
+    """SwiGLU. ``split`` (a :class:`~repro_torch.models.split.Split`):
+    ``params`` are this rank's column blocks of ``w1``/``w3`` and row
+    block of ``w2`` as read (``Split.use``), and the partial products are
+    summed over 'model' (Megatron's column- then row-parallel FFN)."""
     ct = cdtype(cfg)
+    if split is not None:
+        x = split.to_model(x)
     h = _ACTS[cfg.act](x @ params['w1'].to(ct)) * (x @ params['w3'].to(ct))
-    return h @ params['w2'].to(ct)
+    out = h @ params['w2'].to(ct)
+    return out if split is None else split.model_sum(out)
 
 
 # ----------------------------------------------------------------- embeddings
@@ -177,21 +185,62 @@ def init_embedding(cfg: ModelConfig, generator: torch.Generator,
                                 dtype, scale=1.0)}
 
 
-def embed(params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    return params['table'].to(cdtype(cfg))[tokens]
+def embed(params, tokens: torch.Tensor, cfg: ModelConfig,
+          split=None) -> torch.Tensor:
+    """The rows of ``tokens``. ``split``: ``params['table']`` is this
+    rank's block [lo, hi) of the padded vocab; the tokens inside it are
+    looked up, the rest give zeros, and the rows are summed over
+    'model'."""
+    table = params['table'].to(cdtype(cfg))
+    if split is None:
+        return table[tokens]
+    n = table.shape[0]
+    local = tokens.long() - split.vocab_offset(n)
+    inside = (local >= 0) & (local < n)
+    rows = table[local.clamp(0, n - 1)]
+    return split.model_sum(torch.where(inside[..., None], rows,
+                                       torch.zeros((), dtype=rows.dtype,
+                                                   device=rows.device)))
 
 
-def unembed(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def unembed(params, x: torch.Tensor, cfg: ModelConfig,
+            split=None) -> torch.Tensor:
     """Logits against the (padded) vocab; pad slots masked to the dtype's
-    lowest value."""
+    lowest value. ``split``: this rank's block of the vocab, (…, V/model)
+    logits, the pad slots found by their global positions."""
+    if split is not None:
+        x = split.to_model(x)
     logits = x @ params['table'].to(cdtype(cfg)).T
     if cfg.padded_vocab != cfg.vocab_size:
-        pad = torch.arange(cfg.padded_vocab, device=x.device) >= cfg.vocab_size
+        n = logits.shape[-1]
+        lo = 0 if split is None else split.vocab_offset(n)
+        pad = torch.arange(lo, lo + n, device=x.device) >= cfg.vocab_size
         logits = logits.masked_fill(pad, torch.finfo(logits.dtype).min)
     return logits
 
 
 # ----------------------------------------------------------------- loss
+def split_token_loss(logits: torch.Tensor, labels: torch.Tensor,
+                     split) -> torch.Tensor:
+    """The reference's token CE (``lse − the label's logit``, (B, S) f32)
+    from this rank's block of the vocab's logits (…, V/model): the max is
+    a ``pmax`` (it only stabilises: no gradient), the sum of exponentials
+    a ``psum``, and the label's logit is taken on the shard that owns it
+    and ``psum``'d, all over 'model'."""
+    from repro_torch.distributed import ctx
+    n = logits.shape[-1]
+    lo = split.vocab_offset(n)
+    is_label = (torch.arange(lo, lo + n, device=logits.device)
+                == labels[..., None].long())
+    m = ctx.pmax(torch.amax(logits, dim=-1).float(), split.mesh, ('model',))
+    sumexp = split.model_sum(torch.sum(
+        torch.exp(logits.float() - m[..., None]), dim=-1))
+    ll = split.model_sum(torch.where(
+        is_label, logits, torch.zeros((), dtype=logits.dtype,
+                                      device=logits.device)).sum(-1).float())
+    return m + torch.log(sumexp) - ll
+
+
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask: torch.Tensor | None = None,
                   z_loss: float = 0.0) -> torch.Tensor:

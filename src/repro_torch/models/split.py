@@ -1,0 +1,210 @@
+"""A dense model split on a mesh: each rank holds its blocks of every
+parameter, as ``distributed.sharding.param_specs(cfg, mesh)`` gives them,
+and runs the reference's GSPMD layout by hand (Megatron's tensor
+parallelism with ZeRO-3 under ``cfg.fsdp``), with the differentiable
+collectives of :mod:`repro_torch.distributed.ctx`:
+
+  * the batch is split over the batch axes ('pod', 'data') where they
+    divide it, else replicated (the reference's ``_maybe_batch_spec``);
+  * the residual stream is whole (replicated over 'model') on each rank's
+    tokens, and RMSNorm runs on the whole d;
+  * attention takes this rank's q heads (and KV heads where ``KV % model
+    == 0``), ``wo`` is row-parallel and followed by a ``psum``; the FFN's
+    ``w1``/``w3`` are column-parallel, ``w2`` row-parallel;
+  * ``embed``/``unembed`` hold a block of the padded vocab;
+  * under ``cfg.fsdp`` each weight is gathered over 'data' on use
+    (:meth:`Split.use`), inside the block's remat.
+
+A :class:`Split` is what the model functions take (``split=``) to run
+split; without one they run whole on one rank. Which family and mesh can
+split is explicit (:func:`check_splittable`): the GQA transformer whose
+heads, d_ff and vocab divide the 'model' axis. The rest raises, naming
+ROADMAP item 12.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+from repro_torch.distributed import ctx
+from repro_torch.distributed.sharding import (P, batch_axes, block_slices,
+                                              param_specs, sanitize_spec,
+                                              spec_axes, spec_leaves)
+from repro_torch.models.config import ModelConfig
+
+
+def check_splittable(cfg: ModelConfig, mesh) -> None:
+    """Raise ``NotImplementedError`` where this family or this mesh has no
+    split path: MoE, Mamba, RWKV-6, encoder-decoder, M-RoPE or embedding
+    inputs, and heads, d_ff or vocab that the 'model' axis does not
+    divide (the reference zero-pads heads there)."""
+    m = mesh.shape.get('model', 1) if 'model' in mesh.axis_names else 1
+    why = []
+    kinds = cfg.layer_kinds()
+    if any(f == 'moe' for _, f in kinds):
+        why.append('MoE experts')
+    if any(mx != 'attn' for mx, _ in kinds):
+        why.append('Mamba or RWKV-6 mixers')
+    if cfg.is_encdec:
+        why.append('an encoder-decoder')
+    if cfg.mrope or not cfg.embed_inputs:
+        why.append('M-RoPE or embedding inputs')
+    if cfg.n_heads % m:
+        why.append(f'n_heads {cfg.n_heads} % model {m} != 0 (the '
+                   'reference zero-pads the heads)')
+    if cfg.d_ff % m:
+        why.append(f'd_ff {cfg.d_ff} % model {m} != 0')
+    if cfg.padded_vocab % m:
+        why.append(f'padded vocab {cfg.padded_vocab} % model {m} != 0')
+    if why:
+        raise NotImplementedError(
+            f'{cfg.name} on {dict(mesh.shape)}: a model split on the mesh '
+            'covers the dense GQA family; ' + ', '.join(why)
+            + ' is ROADMAP item 12, not ported')
+
+
+def split_specs(cfg: ModelConfig, mesh, template: dict | None = None) -> dict:
+    """``param_specs(cfg, mesh)`` sanitized against each leaf's global
+    shape (the spec tree the blocks follow), after
+    :func:`check_splittable`. ``template``: the whole parameter tree (any
+    device, ``meta`` included); default ``abstract_params(cfg)``."""
+    from repro_torch.core.tree_util import tree_flatten
+    from repro_torch.models.transformer import abstract_params
+    check_splittable(cfg, mesh)
+    if template is None:
+        template = abstract_params(cfg)
+    leaves, treedef = tree_flatten(template)
+    specs = spec_leaves(param_specs(cfg, mesh))
+    if len(specs) != len(leaves):
+        raise ValueError(f'{len(specs)} specs for {len(leaves)} leaves')
+    return treedef.unflatten([sanitize_spec(tuple(x.shape), s, mesh)
+                              for x, s in zip(leaves, specs)])
+
+
+def shard_params(params, specs, mesh):
+    """This rank's block of every leaf of the whole tree ``params`` under
+    the spec tree ``specs`` (:func:`split_specs`), each in storage of its
+    own."""
+    from repro_torch.core.tree_util import tree_flatten
+    from repro_torch.distributed.sharding import NamedSharding, shard
+    leaves, treedef = tree_flatten(params)
+    return treedef.unflatten([shard(x, NamedSharding(mesh, s))
+                              for x, s in zip(leaves, spec_leaves(specs))])
+
+
+def state_spec_leaves(state, params, specs) -> list:
+    """One spec a leaf of an optimizer state built from ``params`` (in the
+    state's leaf order): a subtree shaped as ``params`` (Adam's moments)
+    takes their specs leaf by leaf, anything else (a step count)
+    replicates. Matched by structure, not by shape: two leaves of one
+    shape may be split differently (``wq`` and ``wo``)."""
+    from repro_torch.core.tree_util import tree_flatten
+    pdef = tree_flatten(params)[1]
+    pspecs = spec_leaves(specs)
+    out: list = []
+
+    def walk(x):
+        leaves, tdef = tree_flatten(x)
+        if tdef == pdef:
+            out.extend(pspecs)
+        elif isinstance(x, dict):
+            for k in sorted(x):
+                walk(x[k])
+        elif isinstance(x, (list, tuple)):
+            for v in x:
+                walk(v)
+        else:
+            out.extend([P()] * len(leaves))
+
+    walk(state)
+    return out
+
+
+def batch_split_axes(mesh, global_batch: int) -> tuple:
+    """The batch axes that split a batch of ``global_batch`` rows: all of
+    ('pod', 'data') on the mesh where their product divides it, none
+    otherwise (the reference's ``_maybe_batch_spec``)."""
+    axes = batch_axes(mesh)
+    return axes if axes and global_batch % mesh.axes_size(axes) == 0 else ()
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Split:
+    """How a model runs split: the ``mesh``, the sanitized spec tree of
+    its parameters (:func:`split_specs`) and the axes its batch is split
+    over (``()``: every rank holds the whole batch)."""
+    mesh: Any
+    specs: dict
+    batch_axes: tuple = ()
+
+    @property
+    def model(self) -> int:
+        """The 'model' axis' size (1 without one)."""
+        return (self.mesh.shape['model'] if 'model' in self.mesh.axis_names
+                else 1)
+
+    @property
+    def model_rank(self) -> int:
+        return (self.mesh.coords['model'] if 'model' in self.mesh.axis_names
+                else 0)
+
+    def use(self, x: torch.Tensor, spec: P, model_varying: bool):
+        """A parameter block as its work reads it: gathered over the FSDP
+        axes its spec holds besides 'model', and entering work that varies
+        over the batch axes (and over 'model' where ``model_varying``) that
+        it does not vary over itself, so that its cotangent is summed over
+        them (a reduce-scatter where it was gathered)."""
+        axes = spec_axes(spec, self.mesh)
+        fsdp = tuple(a for a in axes if a != 'model')
+        vary = set(self.batch_axes)
+        if model_varying and 'model' not in axes:
+            vary.add('model')
+        vary = tuple(a for a in self.mesh.axis_names if a in vary)
+        if fsdp:
+            return ctx.gather(x, spec, self.mesh, axes=fsdp, vary=vary)
+        return ctx.pvary(x, self.mesh, vary)
+
+    def use_tree(self, tree: dict, specs: dict, model_varying: bool):
+        return {k: (self.use_tree(v, specs[k], model_varying)
+                    if isinstance(v, dict)
+                    else self.use(v, specs[k], model_varying))
+                for k, v in tree.items()}
+
+    def to_model(self, x: torch.Tensor) -> torch.Tensor:
+        """The residual stream (whole on every 'model' rank) entering the
+        rank's heads, FFN columns or vocab block."""
+        return ctx.pvary(x, self.mesh, ('model',))
+
+    def model_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """Σ over 'model' of a row-parallel product's partial sums."""
+        return ctx.psum(x, self.mesh, ('model',))
+
+    def batch_sum(self, x: torch.Tensor) -> torch.Tensor:
+        return ctx.psum(x, self.mesh, self.batch_axes)
+
+    def batch_block(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a whole batch's field (all of them where the
+        batch is replicated)."""
+        if not self.batch_axes:
+            return x
+        return x[block_slices(tuple(x.shape), P(self.batch_axes),
+                              self.mesh)]
+
+    def vocab_offset(self, local_vocab: int) -> int:
+        return self.model_rank * local_vocab
+
+
+def make_split(cfg: ModelConfig, mesh, global_batch: int | None = None,
+               specs: dict | None = None) -> Split:
+    """The :class:`Split` of ``cfg`` on ``mesh`` for a batch of
+    ``global_batch`` rows (None: replicated)."""
+    return Split(mesh=mesh, specs=specs or split_specs(cfg, mesh),
+                 batch_axes=(() if global_batch is None
+                             else batch_split_axes(mesh, global_batch)))
+
+
+__all__ = ['Split', 'batch_split_axes', 'check_splittable',
+           'make_split', 'shard_params', 'split_specs',
+           'state_spec_leaves']

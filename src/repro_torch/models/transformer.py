@@ -60,7 +60,8 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (cdtype, embed, init_embedding,
                                        init_mlp, init_rmsnorm, mlp, pdtype,
                                        records_graph, rmsnorm, rope_for,
-                                       rope_tables, unembed)
+                                       rope_tables, split_token_loss,
+                                       unembed)
 from repro_torch.models.moe import init_moe, moe_ffn
 
 _ENC_KINDS = [('attn', 'dense')]   # the encoder's one slot a block
@@ -132,11 +133,11 @@ def abstract_params(cfg: ModelConfig) -> dict:
 
 
 # ------------------------------------------------------------------- forward
-def _ffn(cfg: ModelConfig, ffn: str, params, h: torch.Tensor):
+def _ffn(cfg: ModelConfig, ffn: str, params, h: torch.Tensor, split=None):
     """The slot's FFN: (out, aux), aux None for a dense one."""
     if ffn == 'moe':
         return moe_ffn(params, h, cfg)
-    return mlp(params, h, cfg), None
+    return mlp(params, h, cfg, split), None
 
 
 def _add_aux(total, aux):
@@ -144,13 +145,26 @@ def _add_aux(total, aux):
     return aux if total is None else (total if aux is None else total + aux)
 
 
+def _used_slot(split, sp: dict, specs: dict) -> dict:
+    """A slot's parameter blocks as a split model's layer reads them
+    (``Split.use``): the norms' scales whole, the mixer's and the FFN's
+    blocks entering the rank's heads and columns."""
+    return {k: split.use_tree(v, specs[k], model_varying=k in ('mixer',
+                                                                 'ffn'))
+            for k, v in sp.items()}
+
+
 def _apply_slot(cfg: ModelConfig, sp: dict, x: torch.Tensor, rope,
                 mixer: str, ffn: str, causal: bool,
-                enc_out: torch.Tensor | None):
+                enc_out: torch.Tensor | None, split=None, specs=None):
     """One pre-norm residual layer: the mixer, cross-attention to
     ``enc_out`` where given, then the FFN. Returns (x, aux), aux None for
     a dense FFN. An RWKV slot starts from a zero state and drops the state
-    it ends in, as in the reference; its norms are plain."""
+    it ends in, as in the reference; its norms are plain. ``split``: the
+    slot's blocks (spec tree ``specs``) are read here, so that under remat
+    the recompute gathers them again."""
+    if split is not None:
+        sp = _used_slot(split, sp, specs)
     if mixer == 'rwkv':
         B = x.shape[0]
         zeros_prev = torch.zeros((B, cfg.d_model), dtype=x.dtype,
@@ -167,7 +181,7 @@ def _apply_slot(cfg: ModelConfig, sp: dict, x: torch.Tensor, rope,
     h = rmsnorm(sp['ln1'], x, cfg.norm_eps, cfg.use_pallas)
     if mixer == 'attn':
         h = attn.multihead_attention(sp['mixer'], h, cfg, rope=rope,
-                                     causal=causal)
+                                     causal=causal, split=split)
     else:
         h = ssm_lib.mamba_scan(sp['mixer'], h, cfg)
     x = x + h
@@ -177,17 +191,19 @@ def _apply_slot(cfg: ModelConfig, sp: dict, x: torch.Tensor, rope,
             sp['cross'], h,
             *attn.cross_attention_cache(sp['cross'], enc_out, cfg), cfg)
     h = rmsnorm(sp['ln2'], x, cfg.norm_eps, cfg.use_pallas)
-    h, aux = _ffn(cfg, ffn, sp['ffn'], h)
+    h, aux = _ffn(cfg, ffn, sp['ffn'], h, split)
     return x + h, aux
 
 
 def _apply_block(cfg: ModelConfig, block: dict, x: torch.Tensor, rope,
-                 kinds, causal: bool, enc_out: torch.Tensor | None):
+                 kinds, causal: bool, enc_out: torch.Tensor | None,
+                 split=None, specs=None):
     """The block's slots in order: (x, the sum of their aux or None)."""
     aux = None
     for i, (mixer, ffn) in enumerate(kinds):
         x, a = _apply_slot(cfg, block[f'slot{i}'], x, rope, mixer, ffn,
-                           causal, enc_out)
+                           causal, enc_out, split,
+                           None if specs is None else specs[f'slot{i}'])
         aux = _add_aux(aux, a)
     return x, aux
 
@@ -209,13 +225,15 @@ def _remat_active(cfg: ModelConfig) -> bool:
 
 
 def _run_blocks(cfg: ModelConfig, blocks: list, x: torch.Tensor, rope,
-                kinds, causal: bool, enc_out: torch.Tensor | None = None):
+                kinds, causal: bool, enc_out: torch.Tensor | None = None,
+                split=None):
     """Every block in order, under remat where :func:`_remat_active`.
     Returns (x, the aux summed over layers, 0 without experts)."""
     remat = _remat_active(cfg)
     aux = None
-    for block in blocks:
-        args = (cfg, block, x, rope, kinds, causal, enc_out)
+    for b, block in enumerate(blocks):
+        args = (cfg, block, x, rope, kinds, causal, enc_out, split,
+                None if split is None else split.specs['blocks'][b])
         if not remat:
             x, a = _apply_block(*args)
         elif cfg.remat == 'dots':
@@ -232,10 +250,13 @@ def _run_blocks(cfg: ModelConfig, blocks: list, x: torch.Tensor, rope,
 
 
 def _inputs(cfg: ModelConfig, params: dict, inputs: torch.Tensor,
-            device: torch.device) -> torch.Tensor:
+            device: torch.device, split=None) -> torch.Tensor:
     """The decoder's input stream on ``device``: token ids through
     ``embed`` (an encoder-decoder's decoder reads text tokens whatever its
     frontend), or (B, S, d) embeddings cast to the compute dtype."""
+    if split is not None:
+        table = split.use_tree(params['embed'], split.specs['embed'], True)
+        return embed(table, inputs.to(device), cfg, split)
     if cfg.is_encdec or cfg.embed_inputs:
         return embed(params['embed'], inputs.to(device), cfg)
     return inputs.to(device=device, dtype=cdtype(cfg))
@@ -243,7 +264,7 @@ def _inputs(cfg: ModelConfig, params: dict, inputs: torch.Tensor,
 
 def forward(cfg: ModelConfig, params: dict, inputs: torch.Tensor,
             positions: torch.Tensor | None = None,
-            enc_inputs: torch.Tensor | None = None):
+            enc_inputs: torch.Tensor | None = None, split=None):
     """inputs: (B, S) int tokens, or (B, S, d) embeddings where
     ``cfg.embed_inputs`` is off (an encoder-decoder's decoder takes tokens
     either way). ``positions``: (B, S), or (B, 3, S) (t, h, w) ids under
@@ -251,8 +272,14 @@ def forward(cfg: ModelConfig, params: dict, inputs: torch.Tensor,
     ``enc_inputs``: the encoder's (B, T, d) frames, which an
     encoder-decoder needs. Returns (logits (B, S, V_padded), aux); aux is
     the reference's MoE router loss summed over layers, 0 without
-    experts."""
-    x = _inputs(cfg, params, inputs, params['final_norm']['scale'].device)
+    experts.
+
+    ``split`` (a :class:`~repro_torch.models.split.Split`): ``params``
+    are this rank's blocks and ``inputs`` its rows of the batch; the
+    logits are this rank's (B_local, S, V_padded / model) block of the
+    vocab."""
+    x = _inputs(cfg, params, inputs, params['final_norm']['scale'].device,
+                split)
     B, S = x.shape[0], x.shape[1]
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32,
@@ -267,10 +294,16 @@ def forward(cfg: ModelConfig, params: dict, inputs: torch.Tensor,
                              'enc_inputs')
         enc_out = encode(cfg, params, enc_inputs)
     x, aux = _run_blocks(cfg, params['blocks'], x, rope, cfg.layer_kinds(),
-                         causal=True, enc_out=enc_out)
-    x = rmsnorm(params['final_norm'], x, cfg.norm_eps)
-    table = params['embed'] if cfg.tie_embeddings else params['unembed']
-    return unembed(table, x, cfg), aux
+                         causal=True, enc_out=enc_out, split=split)
+    name = 'embed' if cfg.tie_embeddings else 'unembed'
+    if split is None:
+        x = rmsnorm(params['final_norm'], x, cfg.norm_eps)
+        return unembed(params[name], x, cfg), aux
+    norm = split.use_tree(params['final_norm'], split.specs['final_norm'],
+                          False)
+    table = split.use_tree(params[name], split.specs[name], True)
+    x = rmsnorm(norm, x, cfg.norm_eps)
+    return unembed(table, x, cfg, split), aux
 
 
 def encode(cfg: ModelConfig, params: dict,
@@ -291,7 +324,8 @@ def encode(cfg: ModelConfig, params: dict,
 
 # ------------------------------------------------------------------- losses
 def train_loss(cfg: ModelConfig, params: dict, batch: dict,
-               example_weights: torch.Tensor | None = None) -> torch.Tensor:
+               example_weights: torch.Tensor | None = None,
+               split=None) -> torch.Tensor:
     """Next-token CE, the bilevel inner objective f.
 
     ``batch``: ``inputs`` ((B, S) ints, or (B, S, d) embeddings where
@@ -304,12 +338,27 @@ def train_loss(cfg: ModelConfig, params: dict, batch: dict,
     the compute dtype, the log-sum-exp and the label's logit (a masked max,
     as the reference picks it) are reduced in f32, and the loss is
     Σ tok·w / max(Σ w, 1e-6) plus ``forward``'s aux (the MoE router's
-    load-balance loss, 0 without experts)."""
+    load-balance loss, 0 without experts).
+
+    ``split``: ``params`` are this rank's blocks and ``batch`` (with
+    ``example_weights``) its rows; the token CE runs over the split vocab
+    (:func:`~repro_torch.models.layers.split_token_loss`) and the masked
+    mean is ``psum(Σ tok·w) / max(psum(Σ w), 1e-6)`` over the batch
+    axes, the whole batch's mean on every rank."""
     logits, aux = forward(cfg, params, batch['inputs'],
                           positions=batch.get('positions'),
-                          enc_inputs=batch.get('enc_inputs'))
+                          enc_inputs=batch.get('enc_inputs'), split=split)
     labels = batch['labels'].to(logits.device)
     mask = batch.get('mask')
+    if split is not None:
+        tok_loss = split_token_loss(logits, labels, split)
+        mask = (torch.ones_like(tok_loss) if mask is None
+                else mask.to(tok_loss.device))
+        if example_weights is not None:
+            mask = mask * example_weights[:, None]
+        total = split.batch_sum((tok_loss * mask).sum())
+        return total / torch.clamp(split.batch_sum(mask.sum()), min=1e-6) \
+            + aux
     V = logits.shape[-1]
     is_label = (torch.arange(V, device=logits.device)
                 == labels[..., None].long())

@@ -207,13 +207,18 @@ def stacked_blocks(base: Optimizer) -> Optimizer:
     return Optimizer(init, update)
 
 
-def clip_by_global_norm(max_norm: float) -> Optimizer:
-    """Rescale grads to global norm ≤ max_norm."""
+def clip_by_global_norm(max_norm: float,
+                        sq_norm: Callable | None = None) -> Optimizer:
+    """Rescale grads to global norm ≤ max_norm. ``sq_norm``: grads → the
+    squared global norm (default the sum over leaves; a split model's sums
+    its blocks over the mesh)."""
     def init(params):
         return ()
 
     def update(grads, state, params, step):
-        sq = sum(torch.sum(torch.square(g.float())) for g in tree_leaves(grads))
+        sq = (sq_norm(grads) if sq_norm is not None else
+              sum(torch.sum(torch.square(g.float()))
+                  for g in tree_leaves(grads)))
         scale = torch.clamp(max_norm / (torch.sqrt(sq) + 1e-12), max=1.0)
         return tree_map(lambda g: g * scale, grads), state
 

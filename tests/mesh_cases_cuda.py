@@ -49,3 +49,44 @@ def one_rank(rank: int, world: int, out_dir) -> dict:
             launches=launches, collectives=dict(ctx.COLLECTIVES),
             same_buffer=bool(torch.equal(op.buf, cop)))
     return out
+
+
+def split_prefill(rank: int, world: int, out_dir) -> dict:
+    """Two gloo ranks sharing ``cuda:0``: reduced Yi-9B with one KV head
+    (f32, ``use_pallas``, S = 64 past its ``attn_chunk`` of 32) split over
+    'model' on 1 × 2, so that the KV weights stay whole and each rank's 2 q
+    heads read KV head 0 through a strided slice, prefilled through kernels
+    D and E on each rank's heads; rank 0 also runs the unsplit plain path
+    on the same weights. No JAX here."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _lib
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import build_prefill_step
+    from repro_torch.models import build_model
+    from repro_torch.models.split import shard_params, split_specs
+    from repro_torch.core.tree_util import tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config('yi_9b').reduced(n_kv_heads=1),
+                              use_pallas=True)
+    mesh = make_host_mesh(1, 2)
+    whole = build_model(cfg, device='cpu').init(
+        torch.Generator().manual_seed(0))
+    blocks = tree_map(lambda x: x.cuda(),
+                      shard_params(whole, split_specs(cfg, mesh), mesh))
+    tokens = torch.randint(0, cfg.vocab_size, (2, 64),
+                           generator=torch.Generator().manual_seed(1))
+    _lib.reset_launches()
+    got = build_prefill_step(cfg, mesh=mesh)(blocks, {'inputs': tokens})
+    torch.cuda.synchronize()
+    out = {'got': got.cpu(), 'launches': {n: c for n, c in
+                                         _lib.LAUNCHES.items() if c}}
+    if rank == 0:
+        plain = dataclasses.replace(cfg, use_pallas=False)
+        out['want'] = build_prefill_step(plain)(
+            tree_map(lambda x: x.cuda(), whole), {'inputs': tokens}).cpu()
+    return out

@@ -1192,3 +1192,23 @@ def test_flat_sharded_on_one_nccl_rank(cuda, tmp_path):
             got = out['got'][k]
             atol = 1e-5 * float(want.abs().max().clamp(min=1e-30))
             torch.testing.assert_close(got, want, rtol=1e-5, atol=atol)
+
+
+def test_split_prefill_on_two_gloo_ranks(cuda, tmp_path):
+    """The seventeenth slice: reduced Yi-9B with one KV head split over
+    'model' on two gloo ranks sharing the card (``tests/mesh_cases_cuda.py``):
+    the KV weights stay whole, and kernel E reads the rank's slice of the
+    KV heads (its 2 of 4 q heads share KV head 0). Each rank launches D
+    twice a layer and E once, and the gathered last-position logits are
+    the unsplit plain path's within 1e-4 relative L2 (f32, phase 10's
+    gate), equal on both ranks."""
+    import torch_mesh
+    ranks, _ = torch_mesh.run_both('mesh_cases_cuda', 'split_prefill', None,
+                                   tmp_path, world=2, backend='gloo')
+    want = ranks[0]['want']
+    for r in ranks:
+        assert r['launches'].get('rmsnorm') == 4, r['launches']
+        assert r['launches'].get('flash_attention') == 2, r['launches']
+        err = float((r['got'] - want).norm() / want.norm())
+        assert err <= 1e-4, err
+        assert torch.equal(r['got'], ranks[0]['got'])
