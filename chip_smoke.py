@@ -286,16 +286,18 @@ The model zoo's last four families (the twelfth slice), random bf16
 weights from a seed, ``use_pallas=True`` on the prefills; kernels A–E must
 launch 0 times in every decode run:
 
-21. (a) Qwen2-VL-7B at full depth (28 layers, M-RoPE, embedding inputs):
-    3 prefills of 4 × 4096 seeded bf16 embeddings with an image's (t, h,
-    w) ids after a warm-up, each launching D 56 and E 28 times, all on
+21. (a) Qwen2-VL-7B at half depth (14 of 28 layers, cut for the
+    script's time, ``FAMILY_HALF_DEPTH``; M-RoPE, embedding inputs): 3
+    prefills of 4 × 4096 seeded bf16 embeddings with an image's (t, h,
+    w) ids after a warm-up, each launching D 28 and E 14 times, all on
     ``flash_fwd_tc`` (a GQA group of 7, hd 128); decode against
     ``forward`` (B = 4, T = 32, as phase 19 (a)); serving at B = 32 in a
     4096-entry cache, fed seeded embeddings a step. (b)
-    SeamlessM4T-large-v2 at full depth (24 encoder + 24 decoder layers,
-    hd 64): 3 prefills of 4 × 4096 tokens against 4 × 4096 encoder
-    frames, each launching D 96 and E 48 times (24 non-causal in the
-    encoder, 24 causal in the decoder, tallied by mask; cross-attention is
+    SeamlessM4T-large-v2 at half depth (12 encoder + 12 decoder layers
+    of 24 + 24, cut as (a); hd 64): 3 prefills of 4 × 4096 tokens against
+    4 × 4096 encoder frames, each launching D 48 and E 24 times (12
+    non-causal in the encoder, 12 causal in the decoder, tallied by mask;
+    cross-attention is
     plain, as in the reference); decode against ``forward`` through
     decode's table (its decode unembeds through ``embed``, its forward
     through ``unembed``) with 64 encoder frames; serving at B = 32 in a
@@ -394,9 +396,9 @@ The mesh (the sixteenth slice):
     over gloo (NCCL refuses two ranks on one GPU; gloo stages every
     all-reduce through the host, so nothing here measures NCCL), each
     capped at its share of the card's memory, loading phase 2's build;
-    phases 25 and 26 run as two worlds of ranks (``MESH_WORLDS``: 4 ranks
-    for 25 (a)–(b) and 26 (a)–(b), 2 for 25 (c) and 26 (c)), each rank
-    started once and running its parts in turn.
+    phases 25–27 run as three worlds of ranks (``MESH_WORLDS``: 4 ranks
+    for 25 (a)–(b), 26 (a)–(b) and 27 (a)–(b), 2 for 25 (c) and 26 (c),
+    8 for 27 (c)), each rank started once and running its parts in turn.
     (a) 4 ranks on a 2×2 ('data', 'model') mesh: ``flat_sharded`` at
     p = 2²⁴ (leaves sharded over both axes, over one, replicated,
     non-divisible, a scalar), k = 64, m = 32, f32 and bf16 sketches,
@@ -441,6 +443,31 @@ A model split on the mesh (the seventeenth slice):
     2 × 2 does not fit (c) on one card). Each rank prints its parameter
     bytes, seconds and peak; the ranks must agree.
 
+Serving a split model (the eighteenth slice):
+
+27. ``build_serve_step(mesh=)``: decode over the rank's block of the KV
+    cache's sequence (flash-decoding: the softmax's max a ``pmax``, its
+    sum and P·V ``psum``s), ranks spawned as in phase 25, full width,
+    bf16, 8 teacher-forced steps (cut from 16 for the script's time)
+    from a cache drawn from a seed up to 3/4 (1/8 short on 1 × 8) of its
+    length less 4 (the steps cross into the last rank's block), each
+    step's gathered logits held against one rank's ``decode_step`` on
+    rank 0 (≤ 2e-2). (a) Yi-9B on 1 × 4, depth 4, B = 32, Smax = 8192.
+    (b) SeamlessM4T on 1 × 4, depth 2 + 2 (cut from 4 + 4 for the
+    script's time): a 1 × 4096 prefill over 4096 frames (each rank
+    launches D 8 and E 4: 2 encoder calls non-causal, hd 64), then
+    decode at B = 8, Smax = 4096 over a cross cache filled by
+    ``encode``/``fill_cross_cache`` with its encoder positions over
+    'model'. (c) Qwen2-VL-7B on 1 × 8,
+    depth 2: its 28 heads padded per KV group to 32 (4 q heads and 1 KV
+    head a rank; the projections row-parallel, ``wo`` replicated), a
+    1 × 4096 prefill of embeddings with an image's (t, h, w) ids (D 4
+    and E 2 a rank), then decode at B = 8, Smax = 4096. Both prefills
+    are held against one rank's (≤ 2e-2). Each rank prints its cache
+    bytes, the collectives a step by kind and the largest one's entries
+    against a layer's cache block (it must be smaller), seconds a step
+    against one rank's, and peak memory; the ranks must agree.
+
 The line before the last is the kernels' JSON record (seven rows, kernel
 E's the tensor-core variant at the prefill's own call; rows 1–5 also
 carry their p = 2²⁴ f32 and bf16 times under ``p24`` and the p = 2²⁰
@@ -462,7 +489,8 @@ phases 19–21's decode runs under ``decode_launches``, all 0; rows 1–5
 phase 25 (a)'s and (c)'s launches by rank, rows 6–7 (b)'s, under
 ``mesh_launches``; rows 1–4 phase 26 (c)'s launches by rank (row 1's
 gram runs as a cross, row 2's) and rows 6–7 (a)'s, under
-``split_launches``);
+``split_launches``; rows 6–7 phase 27's prefill and decode launches by
+part and rank under ``serve_split_launches``);
 the last
 line is ``{"ok": true, "device": {...}}``; standard error ends with the
 seconds each phase took, the seconds of its timed steps and the whole
@@ -479,6 +507,7 @@ import math
 import os
 import re
 import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -3252,12 +3281,22 @@ def run_moe(torch, dev, smi: str) -> dict:
     return out
 
 
+# the third of the time budget's cuts: these families' runs at half their
+# depth, since the whole script took 942.0 s on one host (NVIDIA H100
+# 80GB HBM3, 700.00 W) with the first two cuts alone
+FAMILY_HALF_DEPTH = ('qwen2_vl_7b', 'seamless_m4t_large_v2')
+FAMILY_CUT_WHY = ('with phase 27 cut, the whole script took 942.0 s on one '
+                  'host, past the 900 s that keeps a slower host inside its '
+                  '1200 s limit')
+
+
 def run_families(torch, dev, smi: str) -> dict:
     """Phase 21: the model zoo's last four families at full width, random
     bf16 weights, ``use_pallas=True``: (a) Qwen2-VL-7B (M-RoPE, embedding
-    inputs) at full depth; (b) SeamlessM4T-large-v2 (encoder-decoder) at
-    full depth; (c) Jamba-v0.1 at depth ``JAMBA_DEPTH`` (one period) and
-    (d) RWKV-6 1.6B at full depth, then both at ``long_500k``'s Smax with
+    inputs) and (b) SeamlessM4T-large-v2 (encoder-decoder) at half depth
+    (``FAMILY_HALF_DEPTH``: cut for the script's time); (c) Jamba-v0.1 at
+    depth ``JAMBA_DEPTH`` (one period) and (d) RWKV-6 1.6B at full depth,
+    then both at ``long_500k``'s Smax with
     B = 1. Each: prefills through D and E with exact launch counts and one
     profiled prefill by family, decode against ``forward``, serving decode
     (no kernel), and for (a)–(c) the kernel path against the plain path.
@@ -3272,6 +3311,12 @@ def run_families(torch, dev, smi: str) -> dict:
         cfg = dataclasses.replace(get_config(arch), use_pallas=True)
         if depth is not None:
             cfg = dataclasses.replace(cfg, n_layers=depth)
+        if arch in FAMILY_HALF_DEPTH:
+            cfg = dataclasses.replace(cfg, n_layers=cfg.n_layers // 2,
+                                      n_enc_layers=cfg.n_enc_layers // 2)
+            print(f'{label}: depth cut to {cfg.n_layers}'
+                  + (f' + {cfg.n_enc_layers}' if cfg.is_encdec else '')
+                  + f', half: {FAMILY_CUT_WHY}', flush=True)
         torch.cuda.reset_peak_memory_stats()
         params = _model_params(torch, cfg, 0)
         out['prefill'][arch] = _prefill(torch, cfg, params, label, B,
@@ -4429,9 +4474,9 @@ MESH_YI_DEPTH = 1     # (c): the whole HVP columns on every rank
 MESH_SHAPE = {'ab': (2, 2), 'c': (1, 2)}   # (c) on 2 ranks: 4 did not fit
 MESH_CAP = {'ab': 0.23, 'c': 0.45}   # each rank's share of the card
 MESH_TIMEOUT = 300    # s for one spawn of ranks, their start included
-# the parts of phases 25 and 26 by world size, each world's ranks spawned
+# the parts of phases 25-27 by world size, each world's ranks spawned
 # once and running its parts in turn (a spawn took some 10 s to start)
-MESH_WORLDS = {4: ('ab', 'a4', 'b'), 2: ('c', 'c2')}
+MESH_WORLDS = {4: ('ab', 'a4', 'b', 'd', 'e'), 2: ('c', 'c2'), 8: ('f',)}
 
 
 def _rank_print(rank: int, *parts) -> None:
@@ -4882,7 +4927,7 @@ def _mesh_hypergrad(torch, dev, rank: int, smi: str) -> dict:
 
 
 def mesh_rank_main(parts: str, rank: int, world: int, out_dir: str) -> None:
-    """One rank of phases 25 and 26: joins a gloo group (several ranks
+    """One rank of phases 25-27: joins a gloo group (several ranks
     share the card: NCCL refuses two ranks on one GPU, and gloo
     all-reduces CUDA tensors through the host) through a ``file://`` store
     in ``out_dir``, loads phase 2's kernel build (never ``nvcc``), runs
@@ -4908,7 +4953,8 @@ def mesh_rank_main(parts: str, rank: int, world: int, out_dir: str) -> None:
     try:
         for part in parts.split(','):
             torch.cuda.set_per_process_memory_fraction(
-                MESH_CAP[part] if part in MESH_CAP else SPLIT_PARTS[part][1])
+                MESH_CAP[part] if part in MESH_CAP else
+                {**SPLIT_PARTS, **SERVE_PARTS}[part][1])
             dist.barrier()                # every rank has let the last go
             t0 = time.perf_counter()
             if part == 'ab':
@@ -4920,6 +4966,8 @@ def mesh_rank_main(parts: str, rank: int, world: int, out_dir: str) -> None:
                 res = _split_prefill(torch, dev, rank, smi, part)
             elif part == 'b':
                 res = _split_train(torch, dev, rank, smi)
+            elif part in SERVE_PARTS:
+                res = _serve_split(torch, dev, rank, smi, part)
             else:
                 res = _split_hypergrad(torch, dev, rank, smi, part)
             out[part] = dict(res=res, secs=time.perf_counter() - t0)
@@ -4979,7 +5027,7 @@ def _spawn_world(parts: tuple, world: int, smi: str) -> dict:
 
 
 def run_worlds(torch, smi: str) -> dict:
-    """Phases 25 and 26 as two worlds of spawned ranks sharing ``cuda:0``
+    """Phases 25-27 as three worlds of spawned ranks sharing ``cuda:0``
     over gloo: ``MESH_WORLDS``' parts, each world's ranks starting after
     phase 2's build and loading it. Returns each part's results by
     rank."""
@@ -4991,6 +5039,8 @@ def run_worlds(torch, smi: str) -> dict:
           'all_reduce is staged through the host', flush=True)
     for part, why in SPLIT_CUTS.items():
         print(f'split {part}: cut: {why}', flush=True)
+    for what, cut in SERVE_CUTS.items():
+        print(f'serve {what}: {cut}: {TIME_CUT_WHY}', flush=True)
     out = {}
     for world, parts in MESH_WORLDS.items():
         out.update(_spawn_world(parts, world, smi))
@@ -5406,6 +5456,280 @@ def run_split(torch, smi: str, mesh25: dict, out: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 27. Decode over a split model; Qwen2-VL and Seamless split on the mesh
+# ---------------------------------------------------------------------------
+SERVE_PARTS = {   # part: (mesh shape, each rank's share of the card)
+    'd': ((1, 4), 0.2), 'e': ((1, 4), 0.2), 'f': ((1, 8), 0.1)}
+SERVE_STEPS = 8      # teacher-forced decode steps a part (cut from 16)
+# With phase 27 whole, the script took 1,086.1 s on one host (NVIDIA H100
+# 80GB HBM3, 700.00 W), past the 900 s that keeps a slower host inside the
+# 1200 s limit; the cuts, in the order the time budget takes them, each
+# printed with its reason when the run starts
+TIME_CUT_WHY = ('the whole script took 1,086.1 s on one host, past the 900 s '
+                'that keeps a slower host inside its 1200 s limit')
+SERVE_CUTS = {'decode steps': 'cut from 16 to 8 a part',
+              '(b) SeamlessM4T': 'depth cut from 4 + 4 to 2 + 2'}
+# (a) Yi-9B: phase 26 (a)'s depth; (b) Seamless: 2 + 2 layers (cut from
+# 4 + 4), a 1 x 4096 prefill over 4096 frames, decode over 4096 frames; (c)
+# Qwen2-VL: 28 heads padded to 32 over 8 ranks, a 1 x 4096 prefill of
+# embeddings with an image's (t, h, w) ids
+SERVE_CASES = {
+    'd': dict(arch='yi_9b', label='(a) Yi-9B', depth=4, B=32, smax=8192),
+    'e': dict(arch='seamless_m4t_large_v2', label='(b) SeamlessM4T',
+              depth=2, B=8, smax=4096, prefill=4096),
+    'f': dict(arch='qwen2_vl_7b', label='(c) Qwen2-VL-7B', depth=2, B=8,
+              smax=4096, prefill=4096)}
+
+
+def _serve_inputs(torch, cfg, B: int, steps: int) -> list:
+    """One decode step's (B, 1) tokens, or (B, 1, d) bf16 embeddings on
+    the card, for each of ``steps`` teacher-forced steps, drawn from a
+    seed (every rank draws the same)."""
+    if cfg.embed_inputs or cfg.is_encdec:
+        gen = torch.Generator().manual_seed(5)
+        return [torch.randint(0, cfg.vocab_size, (B, 1), generator=gen)
+                for _ in range(steps)]
+    gen = torch.Generator('cuda').manual_seed(5)
+    return [torch.randn((B, 1, cfg.d_model), dtype=torch.bfloat16,
+                        device='cuda', generator=gen) for _ in range(steps)]
+
+
+def _seeded_cache(torch, cfg, B: int, smax: int, pos: int):
+    """The whole decode cache with every self-attention k and v drawn
+    from a seed on the card (as a prompt of ``pos`` tokens and more would
+    have left it) and ``pos`` set: the decode's steps cross from the
+    second-last rank's block of the sequence into the last one's."""
+    from repro_torch.models.transformer import init_cache
+    cache = init_cache(cfg, B, smax)
+    gen = torch.Generator('cuda').manual_seed(7)
+    for sc in cache['slots'].values():
+        for t in sc.values():
+            t.normal_(generator=gen)
+    cache['pos'].fill_(pos)
+    return cache
+
+
+def _timed_decode(torch, step, params, inputs, cache, sizes=None):
+    """Every teacher-forced step: (each step's logits, the cache, each
+    step's seconds); ``sizes`` collects every all-reduce's entries."""
+    import torch.distributed as dist
+    logits, secs, reduce = [], [], dist.all_reduce
+
+    def recorded(t, *args, **kwargs):
+        sizes.append(t.numel())
+        return reduce(t, *args, **kwargs)
+
+    if sizes is not None:
+        dist.all_reduce = recorded
+    try:
+        for inp in inputs:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, cache = step(params, inp, cache)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            logits.append(out)
+    finally:
+        dist.all_reduce = reduce
+    return logits, cache, secs
+
+
+def _serve_split(torch, dev, rank: int, smi: str, part: str) -> dict:
+    """Phase 27, on each rank of ``SERVE_PARTS[part]``'s mesh: a model
+    split on it serves. Where ``SERVE_CASES`` gives a prefill, one
+    1 × S prefill through kernels D and E on the rank's (padded) heads
+    (Seamless: its encoder non-causal over as many frames), gathered and
+    held against one rank's unsplit prefill (2e-2); then ``SERVE_STEPS``
+    teacher-forced decode steps through ``build_serve_step(mesh=)`` over
+    the rank's block of the KV cache's sequence (filled from a seed up to
+    ``pos`` = 3/4 or 7/8 of the cache, less half the steps: they cross
+    into the last rank's block; Seamless's cross cache filled by ``encode`` and
+    ``fill_cross_cache`` with its encoder positions over 'model'), each
+    step's gathered logits held against one rank's ``decode_step`` on the
+    same tokens (2e-2, the bf16 decode gate). Prints the cache's bytes a
+    rank, the collectives a step by kind and their largest size against a
+    layer's cache block, seconds a step against one rank's, and peak
+    memory."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import ctx
+    from repro_torch.kernels import _lib
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import build_prefill_step, build_serve_step
+    from repro_torch.models.split import (cache_split_specs, make_split,
+                                          shard_cache)
+    from repro_torch.models.transformer import encode, fill_cross_cache
+    case = SERVE_CASES[part]
+    base = get_config(case['arch'])
+    cfg = dataclasses.replace(base, n_layers=case['depth'], use_pallas=True,
+                              param_dtype='bfloat16',
+                              n_enc_layers=(case['depth'] if base.is_encdec
+                                            else 0))
+    mesh = make_host_mesh(*SERVE_PARTS[part][0])
+    m = mesh.shape['model']
+    whole, blocks, specs, nbytes, whole_bytes = _split_blocks(
+        torch, dev, cfg, mesh)
+    V, label, out = cfg.vocab_size, case['label'], {}
+    lay = make_split(cfg, mesh).heads(cfg)
+    line = (f'serve {label} on 1 x {m}: {smi} | full width, depth '
+            f'{cfg.n_layers}' + (f' + {cfg.n_enc_layers}' if cfg.is_encdec
+                                 else '') + ', bf16, heads '
+            f'{cfg.n_heads}/{cfg.n_kv_heads}, {lay.n_local} q heads a rank'
+            + (f' (padded per KV group to {lay.group}: the projections '
+               'row-parallel, wo replicated)' if lay.padded else ''))
+    frames = None
+    if 'prefill' in case:
+        S = case['prefill']
+        batch = _batch(torch, cfg, 1, S, 11, enc_len=S, vision=True)
+        pstep = build_prefill_step(cfg, mesh=mesh)
+        pstep(blocks, batch)                       # first call: set-up
+        _lib.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = pstep(blocks, batch)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {n: c for n, c in _lib.LAUNCHES.items() if c}
+        n_attn = cfg.n_layers + cfg.n_enc_layers
+        want = {'rmsnorm': 2 * n_attn, 'flash_attention': n_attn,
+                'flash_attention_tc': n_attn}
+        got = {k: _lib.LAUNCHES[k] for k in want}
+        if got != want:
+            raise AssertionError(f'serve {label}: prefill launches {got}, '
+                                 f'want {want}')
+        out.update(launches=launches, prefill_secs=secs,
+                   prefill_sum=float(logits[:, :V].float().sum()))
+        line += (f'; prefill 1 x {S} {secs * 1e3:.3f} ms, launches '
+                 f'{launches}')
+        if rank == 0:
+            one = build_prefill_step(cfg)
+            one(whole, batch)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ref = one(whole, batch)
+            torch.cuda.synchronize()
+            one_secs = time.perf_counter() - t0
+            err = _rel_l2(logits[:, :V], ref[:, :V])
+            if not err <= 2e-2:
+                raise AssertionError(f'serve {label}: prefill against one '
+                                     f'rank rel L2 {err:.3e}')
+            out.update(prefill_err=err, one_rank_prefill_secs=one_secs)
+            line += (f' (one rank\'s {one_secs * 1e3:.3f} ms; against it '
+                     f'rel L2 {err:.3e} <= 2e-2)')
+        del batch, logits
+    B, smax = case['B'], case['smax']
+    pos = smax - smax // m - SERVE_STEPS // 2
+    inputs = _serve_inputs(torch, cfg, B, SERVE_STEPS)
+    split = make_split(cfg, mesh, B)
+    cache_whole = _seeded_cache(torch, cfg, B, smax, pos)
+    cache = shard_cache(cache_whole, cache_split_specs(cfg, mesh, B, smax),
+                        mesh)
+    if cfg.is_encdec:
+        frames = torch.randn((B, cfg.cross_len, cfg.d_model),
+                             dtype=torch.bfloat16,
+                             device='cuda',
+                             generator=torch.Generator('cuda').manual_seed(13))
+        with torch.inference_mode():
+            enc = encode(cfg, blocks, split.batch_block(frames), split)
+            cache = fill_cross_cache(cfg, blocks, cache, enc, split)
+        del enc
+    if rank != 0:
+        del whole, cache_whole
+    cache_bytes = sum(t.numel() * t.element_size() for sc in
+                      cache['slots'].values() for t in sc.values())
+    whole_cache = cache_bytes * m
+    if cfg.is_encdec:
+        cross = sum(t.numel() * t.element_size()
+                    for t in cache['cross'].values())
+        cache_bytes += cross
+        whole_cache += cross * m
+    block = cache['slots']['slot0']['k'][0].numel()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step = build_serve_step(cfg, mesh=mesh)
+    sizes = []
+    ctx.reset_collectives()
+    _lib.reset_launches()
+    logits, cache, secs = _timed_decode(torch, step, blocks, inputs, cache,
+                                        sizes)
+    counts = {k: v / SERVE_STEPS for k, v in ctx.COLLECTIVES.items()}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if max(sizes) >= block:
+        raise AssertionError(f'serve {label}: an all-reduce of {max(sizes)} '
+                             f'entries, a layer\'s cache block holds {block}')
+    step_s = statistics.median(secs[1:])
+    line += (f'; decode B={B}, Smax={smax}, {SERVE_STEPS} steps from pos '
+             f'{pos}: cache {cache_bytes / 1e9:.3f} GB a rank of '
+             f'{whole_cache / 1e9:.3f} GB, collectives a step {counts}, '
+             f'largest {max(sizes)} entries (a layer\'s cache block '
+             f'{block}), {step_s * 1e3:.3f} ms a step (median of '
+             f'{SERVE_STEPS - 1} after the first), peak {peak:.2f} GB')
+    out.update(cache_gb=cache_bytes / 1e9, whole_cache_gb=whole_cache / 1e9,
+               counts=counts, largest=max(sizes), block=block,
+               step_secs=step_s, peak_gb=peak,
+               decode_launches={n: c for n, c in _lib.LAUNCHES.items() if c},
+               logits_sum=float(sum(x[..., :V].float().sum()
+                                    for x in logits)))
+    if rank == 0:
+        if cfg.is_encdec:
+            with torch.inference_mode():
+                cache_whole = fill_cross_cache(cfg, whole, cache_whole,
+                                               encode(cfg, whole, frames))
+        ref, _, one_secs = _timed_decode(torch, build_serve_step(cfg),
+                                         whole, inputs, cache_whole)
+        errs = [_rel_l2(a[..., :V], b[..., :V])
+                for a, b in zip(logits, ref)]
+        if not max(errs) <= 2e-2:
+            raise AssertionError(f'serve {label}: decode against one rank '
+                                 f'rel L2 {max(errs):.3e}')
+        one_s = statistics.median(one_secs[1:])
+        out.update(decode_err=max(errs), one_rank_step_secs=one_s)
+        line += (f'; one rank\'s decode {one_s * 1e3:.3f} ms a step, each '
+                 f'step\'s gathered logits against it rel L2 <= '
+                 f'{max(errs):.3e} (<= 2e-2)')
+        del whole, cache_whole, ref
+    _rank_print(rank, line)
+    del blocks, cache, logits
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_serve_split(torch, smi: str, out: dict) -> dict:
+    """Phase 27: a model split on the mesh serves, as spawned ranks
+    sharing ``cuda:0`` over gloo (phase 25's way), from
+    :func:`run_worlds`' results ``out``: (a) Yi-9B's decode on 1 × 4,
+    (b) SeamlessM4T's prefill and decode on 1 × 4, (c) Qwen2-VL-7B's on
+    1 × 8 with its heads padded. Each part was held against one rank's
+    on rank 0; the ranks must agree. Returns each part's per-rank
+    results."""
+    del torch
+    out = {part: out[part] for part in SERVE_PARTS}
+    for part, ranks in out.items():
+        for key in ('logits_sum', 'prefill_sum'):
+            vals = {r.get(key) for r in ranks}
+            if len(vals) != 1:
+                raise AssertionError(f'serve {part}: ranks disagree on '
+                                     f'{key}: {vals}')
+        r0 = ranks[0]
+        prefill = ''
+        if 'prefill_secs' in r0:
+            prefill = (f'prefill a rank '
+                       f'{[round(r["prefill_secs"], 4) for r in ranks]} s, '
+                       f'one rank {r0["one_rank_prefill_secs"]:.4f} s, '
+                       f'against it rel L2 {r0["prefill_err"]:.3e}, '
+                       f'launches a rank {r0["launches"]}; ')
+        print(f'serve {SERVE_CASES[part]["label"]}: {smi} | {prefill}'
+              f'cache {r0["cache_gb"]:.4f} GB a rank of '
+              f'{r0["whole_cache_gb"]:.4f} GB; collectives a step '
+              f'{r0["counts"]}, the largest {r0["largest"]} entries against '
+              f'a layer\'s cache block of {r0["block"]}; seconds a step a '
+              f'rank {[round(r["step_secs"], 5) for r in ranks]}, one '
+              f'rank {r0["one_rank_step_secs"]:.5f}; peak a rank '
+              f'{[round(r["peak_gb"], 2) for r in ranks]} GB; decode '
+              f'against one rank rel L2 {r0["decode_err"]:.3e}', flush=True)
+    return out
+
+
 def _phase(label: str) -> None:
     """Mark where a phase of ``main`` starts, for the seconds by phase that
     the script prints to stderr when it ends."""
@@ -5624,12 +5948,13 @@ def main() -> None:
     train_launches.update(run_train_recurrent(torch, dev, smi))
     torch.cuda.empty_cache()
 
-    # 25-26. the mesh: ranks sharing the card over gloo, kernels A-E; a
-    # model split on it: prefill, train, hypergradient -------------------
-    _phase('25-26')
+    # 25-27. the mesh: ranks sharing the card over gloo, kernels A-E; a
+    # model split on it: prefill, train, hypergradient; serving it -------
+    _phase('25-27')
     worlds = run_worlds(torch, smi)
     mesh = run_mesh(worlds)
     split = run_split(torch, smi, mesh, worlds)
+    serve = run_serve_split(torch, smi, worlds)
 
     # records -----------------------------------------------------------------
     _phase('records')
@@ -5700,6 +6025,14 @@ def main() -> None:
             rec['split_launches'] = {   # phase 26 (a), each rank's heads
                 f'(a) rank {r}': a['launches'].get(key, 0)
                 for r, a in enumerate(split['a4'])}
+            rec['serve_split_launches'] = {   # phase 27: prefill, decode
+                f'{SERVE_CASES[part]["label"].split()[0]} {stage} rank {r}':
+                    x[field].get(key, 0)
+                for part in SERVE_PARTS
+                for stage, field in (('prefill', 'launches'),
+                                     ('decode', 'decode_launches'))
+                for r, x in enumerate(serve[part])
+                if field in x}    # (a) has no prefill: no count for it
         if kname in ('nystrom_gram', 'nystrom_cross', 'woodbury_ctv',
                      'woodbury_apply'):       # phase 26 (c), rank's blocks
             rec['split_launches'] = {   # row 1: the gram runs as a cross

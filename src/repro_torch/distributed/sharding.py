@@ -264,6 +264,31 @@ def cache_specs(cfg: ModelConfig, mesh) -> dict:
     return cache
 
 
+def sanitize_cache_specs(cfg: ModelConfig, mesh, template: dict,
+                         batch: int) -> dict:
+    """:func:`cache_specs` for the whole cache ``template`` of ``batch``
+    rows (a tree of tensors, ``meta`` ones included): where the batch
+    axes do not divide ``batch`` they are dropped from every spec, as the
+    reference's ``build_serve_step`` does for the B = 1 long-context case;
+    then each spec is sanitized against its leaf's shape."""
+    specs = cache_specs(cfg, mesh)
+    axes = batch_axes(mesh)
+    size = 1
+    for a in axes:
+        size *= _axis_size(mesh, a)
+    if batch % size:
+        specs = spec_map(lambda s: P(*[
+            None if set(_entry_axes(e)) & set(axes) else e for e in s]),
+            specs)
+
+    def walk(x, s):
+        if isinstance(x, dict):
+            return {k: walk(x[k], s[k]) for k in x}
+        return sanitize_spec(tuple(x.shape), s, mesh)
+
+    return walk(template, specs)
+
+
 # --------------------------------------------------- per-leaf shard queries
 def _entry_axes(e) -> tuple:
     return () if e is None else (e if isinstance(e, tuple) else (e,))

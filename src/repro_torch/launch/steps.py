@@ -15,17 +15,21 @@ its parameters' device. ``build_step`` picks one of the four by kind.
 All ten architectures serve and train; the recurrent ones (Jamba's Mamba,
 RWKV-6) take their HVP columns through the Python time loops.
 
-``mesh=`` (a :class:`~repro_torch.launch.mesh.Mesh`) builds the train,
-prefill and hypergradient steps over a model split on it, as the
+``mesh=`` (a :class:`~repro_torch.launch.mesh.Mesh`) builds every step
+over a model split on it, as the
 reference's builders take ``param_specs(cfg, mesh)`` for their input
 shardings: ``params`` (and the optimizer state) are this rank's blocks
 (:func:`repro_torch.models.split.shard_params`), batches are whole and
 each rank takes its rows (over ('pod', 'data') where they divide the
 batch, else all), and what a step returns is whole on every rank (the
 loss, the norm, the last position's logits, the hyperparameters) or this
-rank's blocks (parameters, optimizer state). The dense GQA family splits;
-the rest raises (:func:`~repro_torch.models.split.check_splittable`).
-With ``mesh=None`` each builder is the one-card step.
+rank's blocks (parameters, optimizer state, the decode cache). The
+attention families split (dense GQA, Qwen2's heads zero-padded where
+'model' does not divide them, M-RoPE with embedding inputs, the
+encoder-decoder), and serve over the KV cache's sequence split over
+'model'; MoE, Mamba and RWKV-6 raise
+(:func:`~repro_torch.models.split.check_splittable`). With ``mesh=None``
+each builder is the one-card step.
 """
 from __future__ import annotations
 
@@ -360,19 +364,29 @@ def build_serve_step(cfg: ModelConfig, device=None, mesh=None) -> Callable:
     unless ``device='cpu'``), under ``torch.inference_mode()``; returns
     (logits (B, 1, V_padded), cache). The cache comes from ``init_cache``
     (an encoder-decoder's filled by ``fill_cross_cache``) and is consumed:
-    its k, v and recurrent states are written in place. Decode under a
-    mesh (the KV cache's sequence over 'model') is not ported: ``mesh``
-    raises."""
-    if mesh is not None:
-        raise NotImplementedError(
-            'decode over a split model (cache_specs\' KV sequence over '
-            '\'model\', the flash-decoding reduction) is ROADMAP item 12, '
-            'not ported')
+    its k, v and recurrent states are written in place.
+
+    ``mesh``: over a model split on it (module doc): ``params`` are this
+    rank's blocks, ``inputs`` the whole batch (each rank takes its rows),
+    and ``cache`` this rank's blocks, made by ``init_cache(cfg, B, Smax,
+    split=make_split(cfg, mesh, B))`` (the KV and cross caches' sequence
+    over 'model'); the logits come back gathered whole on every rank.
+    MoE, Mamba and RWKV-6 raise (ROADMAP item 12)."""
     device = resolve_device(device)
+    splits = None if mesh is None else _splits(cfg, mesh)
 
     def serve_step(params: dict, inputs: torch.Tensor, cache: dict):
         with torch.inference_mode():
-            return decode_step(cfg, params, inputs.to(device), cache)
+            if splits is None:
+                return decode_step(cfg, params, inputs.to(device), cache)
+            split = splits(inputs.shape[0])
+            logits, cache = decode_step(
+                cfg, params, split.batch_block(inputs).to(device), cache,
+                split=split)
+            from repro_torch.distributed import ctx
+            from repro_torch.distributed.sharding import P
+            return ctx.gather(logits, P(split.batch_axes or None, None,
+                                        'model'), mesh), cache
 
     return serve_step
 

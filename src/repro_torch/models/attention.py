@@ -61,11 +61,8 @@ def init_attention(cfg: ModelConfig, generator: torch.Generator,
     return p
 
 
-def _project_qkv(params, x: torch.Tensor, cfg: ModelConfig, rope,
-                 n_heads: int | None = None, n_kv: int | None = None):
-    """q: (B, S, H, hd), k/v: (B, S, KV, hd), RoPE applied to q and k.
-    ``n_heads``/``n_kv``: the heads that ``params`` hold (a rank's share on
-    a split model; default the config's)."""
+def _project_qkv(params, x: torch.Tensor, cfg: ModelConfig, rope):
+    """q: (B, S, H, hd), k/v: (B, S, KV, hd), RoPE applied to q and k."""
     ct = cdtype(cfg)
     B, S, _ = x.shape
     q = x @ params['wq'].to(ct)
@@ -75,49 +72,136 @@ def _project_qkv(params, x: torch.Tensor, cfg: ModelConfig, rope,
         q = q + params['bq'].to(ct)
         k = k + params['bk'].to(ct)
         v = v + params['bv'].to(ct)
-    q = q.view(B, S, n_heads or cfg.n_heads, cfg.head_dim)
-    k = k.view(B, S, n_kv or cfg.n_kv_heads, cfg.head_dim)
-    v = v.view(B, S, n_kv or cfg.n_kv_heads, cfg.head_dim)
+    q = q.view(B, S, cfg.n_heads, cfg.head_dim)
+    k = k.view(B, S, cfg.n_kv_heads, cfg.head_dim)
+    v = v.view(B, S, cfg.n_kv_heads, cfg.head_dim)
     return apply_rope(q, rope), apply_rope(k, rope), v
 
 
-def local_kv_heads(cfg: ModelConfig, model: int, rank: int):
-    """The KV heads that rank ``rank``'s q heads read on a 'model' axis of
-    ``model`` ranks where the KV weights stay whole (``KV % model != 0``):
-    ``(lo, hi)`` when those heads are a run that kernel E's GQA rule
-    (query head h reads KV head h // (H_local // KV_local)) maps right, or
-    the list of one KV head per local q head otherwise (then read with a
-    group of 1)."""
-    h_local = cfg.n_heads // model
-    h0, group = rank * h_local, cfg.group_size
-    reads = [(h0 + i) // group for i in range(h_local)]
-    lo, hi = reads[0], reads[-1] + 1
-    n = hi - lo
-    if h_local % n == 0 and all(r - lo == i // (h_local // n)
-                                for i, r in enumerate(reads)):
-        return lo, hi
-    return reads
+def _kv_of(lay, k, v):
+    """k, v (B, T, KV, hd) cut to the KV heads the rank's q heads read
+    (``lay``: its :class:`~repro_torch.models.split.HeadLayout`): a view
+    where they are a run, else one KV head per q head."""
+    if lay.kv_run:
+        lo, hi = lay.kv[0], lay.kv[-1] + 1
+        return k[:, :, lo:hi], v[:, :, lo:hi]
+    at = torch.tensor(lay.kv, device=k.device)
+    return k.index_select(2, at), v.index_select(2, at)
+
+
+def _rows(params, names: tuple, x: torch.Tensor, cfg: ModelConfig,
+          split) -> list:
+    """The products of x (B, S, d) with the weights ``names`` for every
+    head, whole on every rank, under the padded layout's row-parallel
+    QKV (the reference's fallback specs): this rank's rows of d_model meet
+    its rows of each weight, the partial products are summed over 'model'
+    in one ``psum``, and each bias is added after the sum."""
+    ct = cdtype(cfg)
+    n = params[names[0]].shape[0]
+    r0 = split.model_rank * n
+    xr = split.to_model(x)[..., r0:r0 + n]
+    outs = [xr @ params[w].to(ct) for w in names]
+    sizes = [o.shape[-1] for o in outs]
+    outs = list(split.model_sum(torch.cat(outs, -1)).split(sizes, -1))
+    for i, w in enumerate(names):
+        if 'b' + w[1:] in params:
+            outs[i] = outs[i] + params['b' + w[1:]].to(ct)
+    return outs
+
+
+def _heads(t: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    return t.reshape(t.shape[0], t.shape[1], -1, cfg.head_dim)
+
+
+def _pad_groups(q: torch.Tensor, cfg: ModelConfig, group: int
+                ) -> torch.Tensor:
+    """q (B, S, H, hd) → (B, S, KV·group, hd): each KV group's heads, then
+    ``group − H/KV`` zero heads."""
+    B, S = q.shape[0], q.shape[1]
+    KV, g = cfg.n_kv_heads, cfg.group_size
+    qg = q.reshape(B, S, KV, g, cfg.head_dim)
+    qg = torch.cat([qg, qg.new_zeros(B, S, KV, group - g, cfg.head_dim)], 3)
+    return qg.reshape(B, S, KV * group, cfg.head_dim)
+
+
+def _local_q(q: torch.Tensor, cfg: ModelConfig, split) -> torch.Tensor:
+    """The rank's share of the padded heads of the whole q (B, S, H, hd)."""
+    lay = split.heads(cfg)
+    n0 = split.model_rank * lay.n_local
+    q = split.to_model(_pad_groups(q, cfg, lay.group))
+    return q[:, :, n0:n0 + lay.n_local]
+
+
+def _split_q(params, x: torch.Tensor, cfg: ModelConfig, split):
+    """This rank's q heads (B, S, n_local, hd), without RoPE."""
+    if split.heads(cfg).padded:
+        q, = _rows(params, ('wq',), x, cfg, split)
+        return _local_q(_heads(q, cfg), cfg, split)
+    ct = cdtype(cfg)
+    q = split.to_model(x) @ params['wq'].to(ct)
+    if 'bq' in params:
+        q = q + params['bq'].to(ct)
+    return _heads(q, cfg)
+
+
+def _split_kv(params, xkv: torch.Tensor, cfg: ModelConfig, split):
+    """The KV heads (B, T, ·, hd) that this rank's q heads read, without
+    RoPE: the column blocks' products where 'model' divides the KV heads,
+    else the whole heads (from whole weights, or the padded layout's
+    rows) cut to those."""
+    lay = split.heads(cfg)
+    if lay.padded:
+        k, v = (split.to_model(_heads(t, cfg))
+                for t in _rows(params, ('wk', 'wv'), xkv, cfg, split))
+        return _kv_of(lay, k, v)
+    ct = cdtype(cfg)
+    xkv = split.to_model(xkv)
+    k, v = xkv @ params['wk'].to(ct), xkv @ params['wv'].to(ct)
+    if 'bk' in params:
+        k, v = k + params['bk'].to(ct), v + params['bv'].to(ct)
+    k, v = _heads(k, cfg), _heads(v, cfg)
+    if cfg.n_kv_heads % split.model:
+        k, v = _kv_of(lay, k, v)
+    return k, v
 
 
 def _split_qkv(params, x: torch.Tensor, cfg: ModelConfig, rope, split):
-    """This rank's q heads and the KV heads they read, from the residual
-    stream entering the rank's heads. Where the KV weights stay whole
-    (``KV % model != 0``) k and v are sliced to those heads, a strided
-    view, so that kernel E reads the right ones."""
-    m = split.model
-    h_local = cfg.n_heads // m
-    kv_split = cfg.n_kv_heads % m == 0
-    n_kv = cfg.n_kv_heads // m if kv_split else cfg.n_kv_heads
-    q, k, v = _project_qkv(params, split.to_model(x), cfg, rope,
-                           n_heads=h_local, n_kv=n_kv)
-    if not kv_split:
-        heads = local_kv_heads(cfg, m, split.model_rank)
-        if isinstance(heads, tuple):
-            k, v = k[:, :, heads[0]:heads[1]], v[:, :, heads[0]:heads[1]]
-        else:
-            at = torch.tensor(heads, device=k.device)
-            k, v = k.index_select(2, at), v.index_select(2, at)
-    return q, k, v
+    """This rank's q heads (:meth:`~repro_torch.models.split.Split.heads`)
+    and the KV heads they read, RoPE applied, from the residual stream
+    entering them. Split heads: the column blocks' products, k and v
+    sliced to the heads read where the KV weights stay whole (``KV %
+    model != 0``). The padded layout: the whole heads from the
+    row-parallel QKV (:func:`_rows`, one ``psum`` for the three), q padded
+    per KV group, and this rank's share of the padded heads and the KV
+    heads they read."""
+    lay = split.heads(cfg)
+    if lay.padded:
+        q, k, v = (_heads(t, cfg)
+                   for t in _rows(params, ('wq', 'wk', 'wv'), x, cfg, split))
+        q = _local_q(q, cfg, split)
+        k, v = _kv_of(lay, split.to_model(k), split.to_model(v))
+    else:
+        q = _split_q(params, x, cfg, split)
+        k, v = _split_kv(params, x, cfg, split)
+    return apply_rope(q, rope), apply_rope(k, rope), v
+
+
+def _split_out(out: torch.Tensor, wo: torch.Tensor, cfg: ModelConfig,
+               split) -> torch.Tensor:
+    """The rank's heads' outputs (B, S, n_local·hd) through their rows of
+    ``wo``, summed over 'model': ``wo`` is the rank's row block where the
+    heads split, and the whole (replicated) ``wo`` under the padded
+    layout, whose pad heads meet no row (zero rows, as the reference pads
+    ``wo``)."""
+    lay = split.heads(cfg)
+    if lay.padded:
+        B, S, hd = out.shape[0], out.shape[1], cfg.head_dim
+        real = [(i, h) for i, h in enumerate(lay.q_heads) if h is not None]
+        out = out.reshape(B, S, -1, hd)[:, :, [i for i, _ in real]]
+        out = out.reshape(B, S, -1)
+        wo = wo.reshape(cfg.n_heads, hd, -1)[[h for _, h in real]]
+        wo = wo.reshape(len(real) * hd, -1)
+    return split.model_sum(out @ wo.to(cdtype(cfg)))
 
 
 # ------------------------------------------------------------- core attention
@@ -201,8 +285,9 @@ def multihead_attention(params, x: torch.Tensor, cfg: ModelConfig, *,
             out = _chunked_attention(q, k, v, causal, scale, cfg.attn_chunk)
         else:
             out = _full_attention(q, k, v, causal, scale)
-    out = out.reshape(B, S, -1) @ params['wo'].to(cdtype(cfg))
-    return out if split is None else split.model_sum(out)
+    if split is not None:
+        return _split_out(out.reshape(B, S, -1), params['wo'], cfg, split)
+    return out.reshape(B, S, -1) @ params['wo'].to(cdtype(cfg))
 
 
 # ------------------------------------------------------------------ decoding
@@ -229,15 +314,32 @@ def decode_rope(cfg: ModelConfig, pos: torch.Tensor, batch: int):
 
 def decode_attention(params, x: torch.Tensor, cache_k: torch.Tensor,
                      cache_v: torch.Tensor, pos: torch.Tensor,
-                     cfg: ModelConfig, rope=None):
+                     cfg: ModelConfig, rope=None, split=None):
     """One decode token. x: (B, 1, d); cache_k/v: (B, Smax, KV, hd), written
     in place at ``pos`` (a 0-d device tensor; past the end the write lands
     on the last entry, as ``dynamic_update_slice`` clamps); ``rope``: the
     (cos, sin) tables at ``pos`` (made here when not given). Returns
-    (out (B, 1, d), cache_k, cache_v)."""
+    (out (B, 1, d), cache_k, cache_v).
+
+    ``split``: ``params`` are this rank's blocks as read, and cache_k/v
+    its block (B, Smax/model, KV, hd) of the cache's sequence, every KV
+    head: flash-decoding (:func:`_decode_core_split`) over the blocks.
+    The new token's q, k and v are made for every head on every rank
+    (gathered over 'model' where the rank made its heads only: (B, 1, ·)
+    vectors, never the cache); the rank whose block holds ``pos`` writes
+    the new entry, with no host sync."""
     B, Smax = x.shape[0], cache_k.shape[1]
     if rope is None:
         rope = decode_rope(cfg, pos, B)
+    if split is not None:
+        q, k_new, v_new = _whole_new_qkv(params, x, cfg, split)
+        q, k_new = apply_rope(q, rope), apply_rope(k_new, rope)
+        _write_block(cache_k, k_new, pos, split)
+        _write_block(cache_v, v_new, pos, split)
+        out = _decode_core_split(q, cache_k.to(q.dtype), cache_v.to(q.dtype),
+                                 pos, cfg, split)
+        return (_decode_out(out.reshape(B, 1, -1), params['wo'], cfg, split),
+                cache_k, cache_v)
     q, k_new, v_new = _project_qkv(params, x, cfg, rope)
     at = torch.clamp(pos.long(), max=Smax - 1).reshape(1)
     cache_k.index_copy_(1, at, k_new.to(cache_k.dtype))
@@ -265,10 +367,107 @@ def _decode_core(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
     return torch.stack([w[:, j] @ vc[:, :, j] for j in range(KV)], dim=1)
 
 
+# ------------------------------------------------------- decode, split model
+def _gather_heads(parts: list, split) -> list:
+    """Whole tensors (B, 1, n) from each rank's column blocks (B, 1, n /
+    model) of each of ``parts``, in one all-reduce."""
+    from repro_torch.distributed import ctx
+    from repro_torch.distributed.sharding import P
+    B = parts[0].shape[0]
+    flat = [t.reshape(B, 1, -1) for t in parts]
+    sizes = [t.shape[-1] for t in flat]
+    whole = ctx.gather(torch.cat(flat, -1)[:, :, None], P(None, None, 'model'),
+                       split.mesh, axes=('model',))
+    return [t.reshape(B, 1, -1) for t in whole.split(sizes, -1)]
+
+
+def _whole_new_qkv(params, x: torch.Tensor, cfg: ModelConfig, split):
+    """The new token's q (B, 1, H, hd), k, v (B, 1, KV, hd) for every head,
+    whole on every rank, without RoPE: the padded layout's row-parallel
+    products (:func:`_rows`), or the rank's heads gathered over 'model'
+    (k and v computed whole where their weights are)."""
+    if split.heads(cfg).padded:
+        return [_heads(t, cfg)
+                for t in _rows(params, ('wq', 'wk', 'wv'), x, cfg, split)]
+    ct = cdtype(cfg)
+    q = x @ params['wq'].to(ct)
+    k, v = x @ params['wk'].to(ct), x @ params['wv'].to(ct)
+    if 'bq' in params:
+        q = q + params['bq'].to(ct)
+        k, v = k + params['bk'].to(ct), v + params['bv'].to(ct)
+    if cfg.n_kv_heads % split.model == 0:
+        q, k, v = _gather_heads([q, k, v], split)
+    else:
+        q, = _gather_heads([q], split)
+    return _heads(q, cfg), _heads(k, cfg), _heads(v, cfg)
+
+
+def _write_block(cache: torch.Tensor, new: torch.Tensor, pos: torch.Tensor,
+                 split) -> None:
+    """Write the new entry (B, 1, KV, hd) at ``pos`` into this rank's
+    block (B, Sl, KV, hd) of the cache's sequence, in place: the rank
+    whose block holds ``pos`` (clamped to the last entry of the last
+    block, as the one-rank path clamps) writes it; the others write back
+    what their block holds at the clamped local index. No host sync."""
+    Sl = cache.shape[1]
+    at = (torch.clamp(pos.long(), max=Sl * split.model - 1)
+          - split.model_rank * Sl)
+    mine = (at >= 0) & (at < Sl)
+    at = at.clamp(0, Sl - 1).reshape(1)
+    cache.index_copy_(1, at, torch.where(mine, new.to(cache.dtype),
+                                         cache.index_select(1, at)))
+
+
+def _decode_core_split(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
+                       pos, cfg: ModelConfig, split) -> torch.Tensor:
+    """Flash-decoding over the 'model' axis: q (B, 1, H, hd), every head,
+    against this rank's block kc/vc (B, Sl, KV, hd) of the sequence,
+    entries past ``pos`` masked (``pos`` None: no mask, a cross cache).
+    The scores in the compute dtype, then f32 times the scale; the row
+    max a ``pmax`` over 'model'; the local sum of exponentials a
+    ``psum``; the probabilities normalised by that global sum and cast to
+    the compute dtype (as the reference casts its f32 softmax); the local
+    P·V in f32, a ``psum`` in f32, rounded once. Returns (B, KV, group,
+    hd), whole on every rank."""
+    from repro_torch.distributed import ctx
+    B, Sl, KV = q.shape[0], kc.shape[1], kc.shape[2]
+    qg = q.view(B, KV, q.shape[2] // KV, cfg.head_dim)
+    logits = torch.stack([qg[:, j] @ kc[:, :, j].transpose(1, 2)
+                          for j in range(KV)], dim=1).float()
+    logits = logits * cfg.head_dim ** -0.5
+    if pos is not None:
+        at = torch.arange(Sl, device=q.device) + split.model_rank * Sl
+        logits = logits.masked_fill(~(at <= pos), NEG_INF)
+    m = ctx.pmax(logits.amax(-1), split.mesh, ('model',))
+    p = torch.exp(logits - m[..., None])
+    w = (p / split.model_sum(p.sum(-1))[..., None]).to(q.dtype)
+    acc = torch.stack([w[:, j].float() @ vc[:, :, j].float()
+                       for j in range(KV)], dim=1)
+    return split.model_sum(acc).to(q.dtype)
+
+
+def _decode_out(out: torch.Tensor, wo: torch.Tensor, cfg: ModelConfig,
+                split) -> torch.Tensor:
+    """The whole heads' outputs (B, 1, H·hd) through ``wo``: the rank's
+    heads through its row block and a ``psum`` where the heads split;
+    the replicated ``wo`` whole under the padded layout."""
+    ct = cdtype(cfg)
+    if split.heads(cfg).padded:
+        return out @ wo.to(ct)
+    n = wo.shape[0]
+    r0 = split.model_rank * n
+    return split.model_sum(out[..., r0:r0 + n] @ wo.to(ct))
+
+
 # ------------------------------------------------------------ cross-attention
-def cross_attention_cache(params, enc_out: torch.Tensor, cfg: ModelConfig):
+def cross_attention_cache(params, enc_out: torch.Tensor, cfg: ModelConfig,
+                          split=None):
     """The encoder side's K and V, (B, T, KV, hd) each, computed once for a
-    whole decode."""
+    whole decode. ``split``: the KV heads this rank's q heads read
+    (:func:`_split_kv`), for a prefill or a training pass; a decode's
+    cross cache is :func:`cross_cache_block`."""
+    if split is not None:
+        return _split_kv(params, enc_out, cfg, split)
     ct = cdtype(cfg)
     B, T, _ = enc_out.shape
     k = (enc_out @ params['wk'].to(ct)).view(B, T, cfg.n_kv_heads,
@@ -278,18 +477,62 @@ def cross_attention_cache(params, enc_out: torch.Tensor, cfg: ModelConfig):
     return k, v
 
 
+def cross_cache_block(params, specs: dict, enc_out: torch.Tensor,
+                      cfg: ModelConfig, split):
+    """This rank's block of a decode's cross cache: K and V (B, T/model,
+    KV, hd), every KV head, of its block of the encoder states enc_out
+    (B, T, d). The rank's blocks of ``wk``/``wv`` (spec tree ``specs``)
+    are gathered whole (d × KV·hd each: smaller than the cache)."""
+    from repro_torch.distributed import ctx
+    from repro_torch.distributed.sharding import spec_axes
+    ct = cdtype(cfg)
+    B, T = enc_out.shape[0], enc_out.shape[1]
+    n = T // split.model
+    x = enc_out[:, split.model_rank * n:(split.model_rank + 1) * n]
+    out = []
+    for name in ('wk', 'wv'):
+        w = ctx.gather(params[name], specs[name], split.mesh,
+                       axes=spec_axes(specs[name], split.mesh))
+        out.append((x @ w.to(ct)).view(B, n, cfg.n_kv_heads, cfg.head_dim))
+    return tuple(out)
+
+
 def cross_attention(params, x: torch.Tensor, k: torch.Tensor,
-                    v: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+                    v: torch.Tensor, cfg: ModelConfig, split=None,
+                    decode: bool = False) -> torch.Tensor:
     """Decoder → encoder attention of x (B, S, d) over k, v (B, T, KV, hd):
-    no mask, no RoPE; the plain paths, chunked past ``attn_chunk``."""
+    no mask, no RoPE; the plain paths, chunked past ``attn_chunk``.
+
+    ``split``: ``params`` are this rank's blocks as read. In a prefill or
+    a training pass k, v are the KV heads the rank's q heads read
+    (:func:`cross_attention_cache`) and the rank attends with its heads,
+    ``wo`` as in :func:`multihead_attention`. In ``decode`` they are the
+    rank's block (B, T/model, KV, hd) of the cross cache's sequence
+    (:func:`cross_cache_block`), and the one token's every head takes
+    :func:`decode_attention`'s reduction over the blocks, without the
+    mask."""
     ct = cdtype(cfg)
     B, S, _ = x.shape
-    q = (x @ params['wq'].to(ct)).view(B, S, cfg.n_heads, cfg.head_dim)
-    kx = expand_kv(k.to(q.dtype), cfg.group_size)
-    vx = expand_kv(v.to(q.dtype), cfg.group_size)
+    if split is not None and decode:
+        if split.heads(cfg).padded:
+            q, = _rows(params, ('wq',), x, cfg, split)
+        else:
+            q, = _gather_heads([x @ params['wq'].to(ct)], split)
+        out = _decode_core_split(_heads(q, cfg), k.to(ct), v.to(ct), None,
+                                 cfg, split)
+        return _decode_out(out.reshape(B, 1, -1), params['wo'], cfg, split)
+    if split is not None:
+        q = _split_q(params, x, cfg, split)
+    else:
+        q = (x @ params['wq'].to(ct)).view(B, S, cfg.n_heads, cfg.head_dim)
+    group = q.shape[2] // k.shape[2]
+    kx = expand_kv(k.to(q.dtype), group)
+    vx = expand_kv(v.to(q.dtype), group)
     scale = cfg.head_dim ** -0.5
     if S > cfg.attn_chunk or kx.shape[1] > cfg.attn_chunk:
         out = _chunked_attention(q, kx, vx, False, scale, cfg.attn_chunk)
     else:
         out = _full_attention(q, kx, vx, False, scale)
+    if split is not None:
+        return _split_out(out.reshape(B, S, -1), params['wo'], cfg, split)
     return out.reshape(B, S, -1) @ params['wo'].to(ct)

@@ -145,13 +145,24 @@ def _add_aux(total, aux):
     return aux if total is None else (total if aux is None else total + aux)
 
 
-def _used_slot(split, sp: dict, specs: dict) -> dict:
+def _used_slot(cfg: ModelConfig, split, sp: dict, specs: dict) -> dict:
     """A slot's parameter blocks as a split model's layer reads them
-    (``Split.use``): the norms' scales whole, the mixer's and the FFN's
-    blocks entering the rank's heads and columns."""
-    return {k: split.use_tree(v, specs[k], model_varying=k in ('mixer',
-                                                                 'ffn'))
-            for k, v in sp.items()}
+    (``Split.use``): the norms' scales whole, the mixer's, the
+    cross-attention's and the FFN's blocks entering the rank's heads and
+    columns. Under the padded head layout the q/k/v biases are added to
+    the whole heads after the row-parallel ``psum``, outside the rank's
+    heads, so they do not vary over 'model'."""
+    padded = split.heads(cfg).padded
+    out = {}
+    for k, v in sp.items():
+        if padded and k in ('mixer', 'cross'):
+            out[k] = {n: split.use(w, specs[k][n], n not in ('bq', 'bk',
+                                                              'bv'))
+                      for n, w in v.items()}
+        else:
+            out[k] = split.use_tree(v, specs[k],
+                                    k in ('mixer', 'cross', 'ffn'))
+    return out
 
 
 def _apply_slot(cfg: ModelConfig, sp: dict, x: torch.Tensor, rope,
@@ -164,7 +175,7 @@ def _apply_slot(cfg: ModelConfig, sp: dict, x: torch.Tensor, rope,
     slot's blocks (spec tree ``specs``) are read here, so that under remat
     the recompute gathers them again."""
     if split is not None:
-        sp = _used_slot(split, sp, specs)
+        sp = _used_slot(cfg, split, sp, specs)
     if mixer == 'rwkv':
         B = x.shape[0]
         zeros_prev = torch.zeros((B, cfg.d_model), dtype=x.dtype,
@@ -189,7 +200,8 @@ def _apply_slot(cfg: ModelConfig, sp: dict, x: torch.Tensor, rope,
         h = rmsnorm(sp['ln_cross'], x, cfg.norm_eps)
         x = x + attn.cross_attention(
             sp['cross'], h,
-            *attn.cross_attention_cache(sp['cross'], enc_out, cfg), cfg)
+            *attn.cross_attention_cache(sp['cross'], enc_out, cfg, split),
+            cfg, split)
     h = rmsnorm(sp['ln2'], x, cfg.norm_eps, cfg.use_pallas)
     h, aux = _ffn(cfg, ffn, sp['ffn'], h, split)
     return x + h, aux
@@ -226,14 +238,15 @@ def _remat_active(cfg: ModelConfig) -> bool:
 
 def _run_blocks(cfg: ModelConfig, blocks: list, x: torch.Tensor, rope,
                 kinds, causal: bool, enc_out: torch.Tensor | None = None,
-                split=None):
+                split=None, specs: list | None = None):
     """Every block in order, under remat where :func:`_remat_active`.
-    Returns (x, the aux summed over layers, 0 without experts)."""
+    ``specs``: the blocks' spec trees under ``split``. Returns (x, the
+    aux summed over layers, 0 without experts)."""
     remat = _remat_active(cfg)
     aux = None
     for b, block in enumerate(blocks):
         args = (cfg, block, x, rope, kinds, causal, enc_out, split,
-                None if split is None else split.specs['blocks'][b])
+                None if split is None else specs[b])
         if not remat:
             x, a = _apply_block(*args)
         elif cfg.remat == 'dots':
@@ -254,12 +267,12 @@ def _inputs(cfg: ModelConfig, params: dict, inputs: torch.Tensor,
     """The decoder's input stream on ``device``: token ids through
     ``embed`` (an encoder-decoder's decoder reads text tokens whatever its
     frontend), or (B, S, d) embeddings cast to the compute dtype."""
+    if not (cfg.is_encdec or cfg.embed_inputs):
+        return inputs.to(device=device, dtype=cdtype(cfg))
     if split is not None:
         table = split.use_tree(params['embed'], split.specs['embed'], True)
         return embed(table, inputs.to(device), cfg, split)
-    if cfg.is_encdec or cfg.embed_inputs:
-        return embed(params['embed'], inputs.to(device), cfg)
-    return inputs.to(device=device, dtype=cdtype(cfg))
+    return embed(params['embed'], inputs.to(device), cfg)
 
 
 def forward(cfg: ModelConfig, params: dict, inputs: torch.Tensor,
@@ -275,9 +288,9 @@ def forward(cfg: ModelConfig, params: dict, inputs: torch.Tensor,
     experts.
 
     ``split`` (a :class:`~repro_torch.models.split.Split`): ``params``
-    are this rank's blocks and ``inputs`` its rows of the batch; the
-    logits are this rank's (B_local, S, V_padded / model) block of the
-    vocab."""
+    are this rank's blocks and ``inputs`` (with ``positions`` and
+    ``enc_inputs``) its rows of the batch; the logits are this rank's
+    (B_local, S, V_padded / model) block of the vocab."""
     x = _inputs(cfg, params, inputs, params['final_norm']['scale'].device,
                 split)
     B, S = x.shape[0], x.shape[1]
@@ -292,9 +305,11 @@ def forward(cfg: ModelConfig, params: dict, inputs: torch.Tensor,
         if enc_inputs is None:
             raise ValueError(f'{cfg.name}: an encoder-decoder needs '
                              'enc_inputs')
-        enc_out = encode(cfg, params, enc_inputs)
+        enc_out = encode(cfg, params, enc_inputs, split)
     x, aux = _run_blocks(cfg, params['blocks'], x, rope, cfg.layer_kinds(),
-                         causal=True, enc_out=enc_out, split=split)
+                         causal=True, enc_out=enc_out, split=split,
+                         specs=None if split is None
+                         else split.specs['blocks'])
     name = 'embed' if cfg.tie_embeddings else 'unembed'
     if split is None:
         x = rmsnorm(params['final_norm'], x, cfg.norm_eps)
@@ -306,20 +321,25 @@ def forward(cfg: ModelConfig, params: dict, inputs: torch.Tensor,
     return unembed(table, x, cfg, split), aux
 
 
-def encode(cfg: ModelConfig, params: dict,
-           enc_inputs: torch.Tensor) -> torch.Tensor:
+def encode(cfg: ModelConfig, params: dict, enc_inputs: torch.Tensor,
+           split=None) -> torch.Tensor:
     """The encoder stack over precomputed frame or patch embeddings
     (B, T, d): period-1 dense attention blocks, non-causal, RoPE at
     0..T−1, then ``enc_final_norm``. Returns (B, T, d) in the compute
-    dtype."""
+    dtype. ``split``: this rank's blocks and rows, the whole d and T."""
     dev = params['enc_final_norm']['scale'].device
     x = enc_inputs.to(device=dev, dtype=cdtype(cfg))
     B, T = x.shape[0], x.shape[1]
     positions = torch.arange(T, dtype=torch.int32, device=dev).expand(B, T)
     rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
     x, _ = _run_blocks(cfg, params['enc_blocks'], x, rope, _ENC_KINDS,
-                       causal=False)
-    return rmsnorm(params['enc_final_norm'], x, cfg.norm_eps)
+                       causal=False, split=split,
+                       specs=None if split is None
+                       else split.specs['enc_blocks'])
+    norm = params['enc_final_norm']
+    if split is not None:
+        norm = split.use_tree(norm, split.specs['enc_final_norm'], False)
+    return rmsnorm(norm, x, cfg.norm_eps)
 
 
 # ------------------------------------------------------------------- losses
@@ -379,13 +399,33 @@ def train_loss(cfg: ModelConfig, params: dict, batch: dict,
 
 # -------------------------------------------------------------------- decode
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               dtype: torch.dtype | None = None, device=None) -> dict:
+               dtype: torch.dtype | None = None, device=None,
+               split=None) -> dict:
     """The zeroed decode cache on ``device`` (the card unless the caller
     passes ``device='cpu'``) in the reference's layout: ``{'pos': 0-d
     int32, 'slots': {'slot{i}': ...}}`` with attention's k, v (n_blocks,
     B, max_len, KV, hd) in ``dtype`` (default the compute dtype), Mamba's
     and RWKV's states in f32, and for an encoder-decoder ``'cross'``'s k,
-    v (n_blocks, B, cross_len, KV, hd) in ``dtype``."""
+    v (n_blocks, B, cross_len, KV, hd) in ``dtype``.
+
+    ``split`` (a :class:`~repro_torch.models.split.Split` for ``batch``
+    rows): this rank's block of each leaf of that whole cache, under
+    :func:`~repro_torch.models.split.cache_split_specs` (the sequence
+    over 'model', the batch over the batch axes where they divide it)."""
+    if split is not None:
+        from repro_torch.distributed.sharding import local_shape
+        from repro_torch.models.split import cache_split_specs
+        specs = cache_split_specs(cfg, split.mesh, batch, max_len)
+        whole = init_cache(cfg, batch, max_len, dtype, 'meta')
+        dev = resolve_device(device)
+
+        def local(x, s):
+            if isinstance(x, dict):
+                return {k: local(x[k], s[k]) for k in x}
+            return torch.zeros(local_shape(tuple(x.shape), s, split.mesh),
+                               dtype=x.dtype, device=dev)
+
+        return local(whole, specs)
     dev = resolve_device(device)
     dtype = dtype or cdtype(cfg)
     nb = cfg.n_blocks
@@ -415,21 +455,38 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def fill_cross_cache(cfg: ModelConfig, params: dict, cache: dict,
-                     enc_out: torch.Tensor) -> dict:
+                     enc_out: torch.Tensor, split=None) -> dict:
     """Every decoder block's cross-attention K and V of ``enc_out``
     (B, T, d), written into ``cache['cross']`` in place (a new pair where
     (B, T) differ from the cache's), in the cache's dtype: the reference's
     ``scan_layers`` branch, which gives each block its own. Returns the
-    cache."""
+    cache.
+
+    ``split``: ``params`` are this rank's blocks, ``enc_out`` its rows
+    (whole T, as :func:`encode` gives them) and ``cache`` its blocks; the
+    rank fills its block of T, every KV head
+    (:func:`~repro_torch.models.attention.cross_cache_block`)."""
     k_all, v_all = cache['cross']['k'], cache['cross']['v']
     B, T = enc_out.shape[0], enc_out.shape[1]
+    if split is not None:
+        if T % split.model:
+            raise NotImplementedError(
+                f'{T} encoder states over model {split.model}: the cross '
+                'cache\'s sequence needs \'model\' to divide it')
+        T //= split.model
     if tuple(k_all.shape[1:3]) != (B, T):
         shape = (cfg.n_blocks, B, T) + tuple(k_all.shape[3:])
         k_all = torch.empty(shape, dtype=k_all.dtype, device=k_all.device)
         v_all = torch.empty(shape, dtype=v_all.dtype, device=v_all.device)
     for b, block in enumerate(params['blocks']):
-        k, v = attn.cross_attention_cache(block['slot0']['cross'], enc_out,
-                                          cfg)
+        if split is None:
+            k, v = attn.cross_attention_cache(block['slot0']['cross'],
+                                              enc_out, cfg)
+        else:
+            k, v = attn.cross_cache_block(
+                block['slot0']['cross'],
+                split.specs['blocks'][b]['slot0']['cross'], enc_out, cfg,
+                split)
         k_all[b].copy_(k)
         v_all[b].copy_(v)
     return dict(cache, cross={'k': k_all, 'v': v_all})
@@ -460,7 +517,7 @@ def _decode_recurrent(cfg: ModelConfig, sp: dict, sc: dict, b: int,
 
 
 def decode_step(cfg: ModelConfig, params: dict, inputs: torch.Tensor,
-                cache: dict):
+                cache: dict, split=None):
     """One token for every sequence. inputs: (B, 1) int tokens, or (B, 1,
     d) embeddings where ``cfg.embed_inputs`` is off and there is no
     encoder. Returns (logits (B, 1, V_padded), cache) with ``pos + 1``.
@@ -471,19 +528,29 @@ def decode_step(cfg: ModelConfig, params: dict, inputs: torch.Tensor,
     plain, as in the reference's decode; a MoE layer reads its group sizes
     on the host. An encoder-decoder attends to ``cache['cross']`` (see
     :func:`fill_cross_cache`) and unembeds through ``embed``, as the
-    reference's decode does (its ``forward`` uses ``unembed``)."""
+    reference's decode does (its ``forward`` uses ``unembed``).
+
+    ``split``: ``params`` are this rank's blocks, ``inputs`` its rows and
+    ``cache`` its blocks (:func:`init_cache`'s ``split=``): every
+    attention, self and cross, runs flash-decoding over the rank's block
+    of the cache's sequence
+    (:func:`~repro_torch.models.attention.decode_attention`); the logits
+    are this rank's (B_local, 1, V_padded / model) block."""
     pos = cache['pos']
-    x = _inputs(cfg, params, inputs, pos.device)
+    x = _inputs(cfg, params, inputs, pos.device, split)
     rope = attn.decode_rope(cfg, pos, x.shape[0])
     cross = cache.get('cross')
     for b, block in enumerate(params['blocks']):
         for i, (mixer, ffn) in enumerate(cfg.layer_kinds()):
             sp, sc = block[f'slot{i}'], cache['slots'][f'slot{i}']
+            if split is not None:
+                sp = _used_slot(cfg, split, sp,
+                                split.specs['blocks'][b][f'slot{i}'])
             h = rmsnorm(sp['ln1'], x, cfg.norm_eps)
             if mixer == 'attn':
                 h, _, _ = attn.decode_attention(sp['mixer'], h, sc['k'][b],
                                                 sc['v'][b], pos, cfg,
-                                                rope=rope)
+                                                rope=rope, split=split)
                 x = x + h
             else:
                 x = _decode_recurrent(cfg, sp, sc, b, mixer, x, h)
@@ -492,10 +559,14 @@ def decode_step(cfg: ModelConfig, params: dict, inputs: torch.Tensor,
             if cross is not None:
                 h = rmsnorm(sp['ln_cross'], x, cfg.norm_eps)
                 x = x + attn.cross_attention(sp['cross'], h, cross['k'][b],
-                                             cross['v'][b], cfg)
+                                             cross['v'][b], cfg, split,
+                                             decode=True)
             h = rmsnorm(sp['ln2'], x, cfg.norm_eps)
-            x = x + _ffn(cfg, ffn, sp['ffn'], h)[0]
-    x = rmsnorm(params['final_norm'], x, cfg.norm_eps)
-    table = (params['embed'] if (cfg.tie_embeddings or cfg.is_encdec)
-             else params['unembed'])
-    return unembed(table, x, cfg), dict(cache, pos=pos + 1)
+            x = x + _ffn(cfg, ffn, sp['ffn'], h, split)[0]
+    name = 'embed' if (cfg.tie_embeddings or cfg.is_encdec) else 'unembed'
+    norm, table = params['final_norm'], params[name]
+    if split is not None:
+        norm = split.use_tree(norm, split.specs['final_norm'], False)
+        table = split.use_tree(table, split.specs[name], True)
+    x = rmsnorm(norm, x, cfg.norm_eps)
+    return unembed(table, x, cfg, split), dict(cache, pos=pos + 1)

@@ -332,3 +332,147 @@ def leaf_block(t, spec, mesh_shape: tuple, coords: dict, lead: int = 0):
             i = i * sizes[a] + coords[a]
         idx.append(slice(i * (n // size), (i + 1) * (n // size)))
     return t[tuple(idx)]
+
+
+# ------------------------------------------------ decode and the families
+SMAX = 16           # the cache's length: 12 steps cross three 1 x 4 blocks
+DECODE_STEPS = 12   # teacher-forced steps from 0, then one at pos = SMAX
+
+
+def _family_setup(out_dir):
+    """(inputs, the port's config, the mesh, this rank's blocks) of a
+    family's run: ``inputs.pt`` names the arch, its ``reduced()``
+    overrides and the mesh's shape."""
+    from repro_torch.configs import get_config
+    from repro_torch.convert import model_params_from_jax
+    from repro_torch.launch.mesh import make_host_mesh
+    x = inputs(out_dir)
+    cfg = get_config(x['arch']).reduced(**x['over'])
+    mesh = make_host_mesh(*x['shape'])
+    return x, cfg, mesh, model_params_from_jax(x['params'], cfg, mesh=mesh)
+
+
+def _serve(cfg, mesh, blocks, x) -> dict:
+    """``build_serve_step(mesh=)`` over ``x['steps']`` (whole inputs, one
+    a step) from an empty cache of ``SMAX`` (an encoder-decoder's cross
+    cache filled from ``x['frames']`` first), ``pos`` set to ``SMAX``
+    before the last step; every all-reduce's size is recorded while the
+    steps run."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed import ctx
+    from repro_torch.launch.steps import build_serve_step
+    from repro_torch.models.split import make_split
+    from repro_torch.models.transformer import (encode, fill_cross_cache,
+                                                init_cache)
+    steps = x['steps']
+    B = steps[0].shape[0]
+    split = make_split(cfg, mesh, B)
+    cache = init_cache(cfg, B, SMAX, device='cpu', split=split)
+    if cfg.is_encdec:
+        with torch.no_grad():
+            enc = encode(cfg, blocks, split.batch_block(x['frames']), split)
+            cache = fill_cross_cache(cfg, blocks, cache, enc, split)
+    step = build_serve_step(cfg, device='cpu', mesh=mesh)
+    sizes, reduce = [], dist.all_reduce
+
+    def recorded(t, *args, **kwargs):
+        sizes.append(t.numel())
+        return reduce(t, *args, **kwargs)
+
+    logits = []
+    dist.all_reduce = recorded
+    ctx.reset_collectives()
+    try:
+        for t, inp in enumerate(steps):
+            if t == len(steps) - 1:
+                cache['pos'] = torch.tensor(SMAX, dtype=torch.int32)
+            out, cache = step(blocks, inp, cache)
+            logits.append(out)
+    finally:
+        dist.all_reduce = reduce
+    return {'coords': mesh.coords, 'batch_axes': split.batch_axes,
+            'logits': torch.stack(logits), 'cache': cache,
+            'sizes': sizes, 'counts': dict(ctx.COLLECTIVES)}
+
+
+def decode(rank: int, world: int, out_dir) -> dict:
+    """Reduced Yi-9B's teacher-forced decode over the model split on the
+    mesh (:func:`_serve`)."""
+    x, cfg, mesh, blocks = _family_setup(out_dir)
+    return _serve(cfg, mesh, blocks, x)
+
+
+def family(rank: int, world: int, out_dir) -> dict:
+    """A family split on the mesh: the gathered logits, the prefill step,
+    ``train_loss`` and its gradient, one ``build_train_step`` step, this
+    rank's blocks of the HVP columns at the injected draw, the first
+    layer's split self-attention of ``x['attn_in']`` (whole on every
+    rank) and the decode (:func:`_serve`), on ``x['params']``; and the
+    hypergradient (``lm_hypergrad`` through ``flat_sharded(split=True)``
+    at the draw) and one ``build_hypergrad_step``, on the reference's
+    init ``x['params_init']``."""
+    import torch
+
+    from repro_torch.convert import (model_indices_from_jax,
+                                     model_params_from_jax)
+    from repro_torch.core import HypergradConfig
+    from repro_torch.core.hvp import extract_columns, make_hvp
+    from repro_torch.distributed import ctx
+    from repro_torch.distributed.sharding import P
+    from repro_torch.launch.steps import (build_hypergrad_step,
+                                          build_prefill_step,
+                                          build_train_step, domain_losses,
+                                          lm_hypergrad, local_batch,
+                                          loss_and_grads, make_optimizer,
+                                          split_solver)
+    from repro_torch.models import attention as attn
+    from repro_torch.models.layers import rope_for
+    from repro_torch.models.split import make_split
+    from repro_torch.models.transformer import _used_slot, forward, train_loss
+    x, cfg, mesh, blocks = _family_setup(out_dir)
+    batch = x['batch']
+    split = make_split(cfg, mesh, batch['labels'].shape[0])
+    local = local_batch(batch, split, 'cpu')
+    with torch.no_grad():
+        logits, _ = forward(cfg, blocks, local['inputs'],
+                            positions=local.get('positions'),
+                            enc_inputs=local.get('enc_inputs'), split=split)
+        logits = ctx.gather(logits, P(split.batch_axes or None, None,
+                                      'model'), mesh)
+        h = x['attn_in']
+        sp = _used_slot(cfg, split, blocks['blocks'][0]['slot0'],
+                        split.specs['blocks'][0]['slot0'])
+        rope = rope_for(cfg, torch.from_numpy(x['attn_pos']))
+        attn_out = attn.multihead_attention(sp['mixer'], h, cfg, rope=rope,
+                                            split=split)
+    prefill = build_prefill_step(cfg, device='cpu', mesh=mesh)(
+        blocks, {k: v for k, v in batch.items()
+                 if k in ('inputs', 'positions', 'enc_inputs')})
+    loss, grads = loss_and_grads(
+        lambda p, b: train_loss(cfg, p, b, split=split), blocks, local)
+    new, _, _, metrics = build_train_step(cfg, mesh=mesh)(
+        blocks, make_optimizer(cfg, split).init(blocks), 0, batch)
+    h0 = {'domain_logits': torch.from_numpy(x['h0'])}
+    idx = model_indices_from_jax(x['draw'], cfg)
+    solver = split_solver(mesh, split.specs, HypergradConfig(
+        k=K, rho=RHO, column_chunk=CHUNK))
+    ib, ob = (local_batch(x[k], split, 'cpu') for k in ('inner', 'outer'))
+    inner, outer = domain_losses(cfg, split)
+    indexer = solver.backend.indexer(blocks)
+    cols = extract_columns(make_hvp(inner, blocks, h0, ib), indexer,
+                           indexer.check(idx), CHUNK)
+    init = model_params_from_jax(x['params_init'], cfg, mesh=mesh)
+    _, hg = lm_hypergrad(solver, inner, outer, init, h0, ib, ob,
+                         indices=idx)
+    new_h = build_hypergrad_step(cfg, k=K, rho=RHO, mesh=mesh)(
+        init, h0, x['inner'], x['outer'], indices=idx)
+    return {'coords': mesh.coords, 'logits': logits, 'prefill': prefill,
+            'attn': attn_out, 'loss': loss, 'grads': grads,
+            'step': {'params': new, 'loss': metrics['loss'],
+                     'grad_norm': metrics['grad_norm']},
+            'columns': cols, 'hypergrad': hg['domain_logits'],
+            'hg_step': new_h['domain_logits'],
+            'serve': _serve(cfg, mesh, blocks, x)}
+

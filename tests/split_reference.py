@@ -116,3 +116,110 @@ def assert_blocks_close(got_tree, want_tree, cfg, shape, coords, tol,
             assert not np.any(g), i
             continue
         assert rel(g, w) <= tol, (i, sp, rel(g, w))
+
+
+# ------------------------------------------------ decode and the families
+def family_configs(arch: str, over: dict):
+    """(the reference's, the port's) ``reduced(**over)`` config, f32."""
+    return jget_config(arch).reduced(**over), get_config(arch).reduced(**over)
+
+
+def family_params(arch: str, over: dict, biases: bool = True) -> dict:
+    """``init(PRNGKey(0))`` of the reduced config as numpy (stacked
+    blocks); with ``biases``, its q/k/v biases (zeros at init) drawn from
+    a seed so that the bias path counts."""
+    from repro.models import build_model as jbuild_model
+    jcfg = family_configs(arch, over)[0]
+    params = jax.tree.map(np.asarray, jax.jit(jbuild_model(jcfg).init)(
+        jax.random.PRNGKey(0)))
+    r = np.random.RandomState(9)
+
+    def draw(path, x):
+        name = getattr(path[-1], 'key', None)
+        if biases and name in ('bq', 'bk', 'bv'):
+            return (0.3 * r.randn(*x.shape)).astype(x.dtype)
+        return x
+
+    return jax.tree_util.tree_map_with_path(draw, params)
+
+
+def decode_inputs(cfg, batch: int, seed: int) -> list:
+    """The teacher-forced inputs of ``cases.DECODE_STEPS`` + 1 steps: (B,
+    1) tokens, or (B, 1, d) f32 embeddings where the model takes
+    embeddings."""
+    r = np.random.RandomState(seed)
+    n = cases.DECODE_STEPS + 1
+    if cfg.embed_inputs or cfg.is_encdec:
+        return [r.randint(0, cfg.vocab_size, (batch, 1)).astype(np.int32)
+                for _ in range(n)]
+    return [r.randn(batch, 1, cfg.d_model).astype(np.float32)
+            for _ in range(n)]
+
+
+def reference_decode(jcfg, params, steps, frames=None) -> dict:
+    """The reference's unsplit ``decode_step`` over ``steps`` from an empty
+    cache of ``cases.SMAX`` (an encoder-decoder's cross cache filled from
+    ``frames`` by its ``encode`` and ``fill_cross_cache``), ``pos`` set to
+    ``cases.SMAX`` before the last step: each step's logits and the final
+    cache, as numpy."""
+    from repro.models import build_model as jbuild_model
+    from repro.models.transformer import encode as jencode
+    from repro.models.transformer import fill_cross_cache as jfill
+    model = jbuild_model(jcfg)
+    jp = jax.tree.map(jnp.asarray, params)
+    cache = model.init_cache(steps[0].shape[0], cases.SMAX)
+    if frames is not None:
+        enc = jax.jit(lambda p, f: jencode(jcfg, p, f))(jp, frames)
+        cache = jfill(jcfg, jp, cache, enc)
+    step = jax.jit(model.decode_step)
+    logits = []
+    for t, inp in enumerate(steps):
+        if t == len(steps) - 1:
+            cache = dict(cache, pos=jnp.int32(cases.SMAX))
+        out, cache = step(jp, jnp.asarray(inp), cache)
+        logits.append(np.asarray(out))
+    return {'logits': np.stack(logits),
+            'cache': jax.tree.map(np.asarray, cache)}
+
+
+def start_family_ranks(tmp_path_factory, func: str, label: str, **x):
+    """Start the ranks of ``x['shape']`` on ``func`` with the inputs ``x``
+    (numpy and torch only: the ranks never load JAX); returns (their
+    processes, their output directory) for :func:`family_results`."""
+    tmp = tmp_path_factory.mktemp(f'{func}_{label}')
+    torch.save(x, tmp / 'inputs.pt')
+    world = x['shape'][0] * x['shape'][1]
+    return (torch_mesh.start_ranks('mesh_cases_split', func, tmp / 'ranks',
+                                   world), tmp / 'ranks')
+
+
+def family_results(started, timeout: float = 300.0) -> list:
+    """What each rank of :func:`start_family_ranks` returned."""
+    procs, out_dir = started
+    torch_mesh.join(procs, timeout)
+    return torch_mesh.results(out_dir, len(procs))
+
+
+def run_family_ranks(tmp_path_factory, func: str, label: str, **x):
+    """:func:`start_family_ranks`, then :func:`family_results`."""
+    return family_results(start_family_ranks(tmp_path_factory, func, label,
+                                             **x))
+
+
+def cache_block(t, spec, shape, coords):
+    """The block at ``coords`` of a whole cache leaf under ``spec``."""
+    return t[block_slices(tuple(t.shape), spec, mesh_at(shape, coords))]
+
+
+def port_columns(jcols, cfg):
+    """The reference's HVP columns (leading with the column) in the port's
+    layout: each stacked tree of blocks (``blocks``, and an
+    encoder-decoder's ``enc_blocks``) becomes a list, one entry a block,
+    the column kept first."""
+    from repro_torch.convert import to_torch
+    cols = dict(jax.tree.map(np.asarray, jcols))
+    for key, n in (('blocks', cfg.n_blocks), ('enc_blocks', cfg.n_enc_layers)):
+        if key in cols:
+            cols[key] = [jax.tree.map(lambda x, i=i: x[:, i], cols[key])
+                         for i in range(n)]
+    return to_torch(cols)
