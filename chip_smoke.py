@@ -396,9 +396,10 @@ The mesh (the sixteenth slice):
     over gloo (NCCL refuses two ranks on one GPU; gloo stages every
     all-reduce through the host, so nothing here measures NCCL), each
     capped at its share of the card's memory, loading phase 2's build;
-    phases 25–27 run as three worlds of ranks (``MESH_WORLDS``: 4 ranks
-    for 25 (a)–(b), 26 (a)–(b) and 27 (a)–(b), 2 for 25 (c) and 26 (c),
-    8 for 27 (c)), each rank started once and running its parts in turn.
+    phases 25–28 run as three worlds of ranks (``MESH_WORLDS``: 4 ranks
+    for 25 (a)–(b), 26 (a)–(b), 27 (a)–(b) and 28 (a), (b), (d), 2 for 25
+    (c), 26 (c) and 28 (c), 8 for 27 (c)), each rank started once and
+    running its parts in turn.
     (a) 4 ranks on a 2×2 ('data', 'model') mesh: ``flat_sharded`` at
     p = 2²⁴ (leaves sharded over both axes, over one, replicated,
     non-divisible, a scalar), k = 64, m = 32, f32 and bf16 sketches,
@@ -468,6 +469,32 @@ Serving a split model (the eighteenth slice):
     against a layer's cache block (it must be smaller), seconds a step
     against one rank's, and peak memory; the ranks must agree.
 
+MoE on a split model (the nineteenth slice):
+
+28. Phi-3.5-MoE and Llama-4 Maverick split on the mesh, in the worlds of
+    phases 25-27: the experts' d_ff over 'model', the router whole, the
+    ``capacity`` path on each rank's tokens (``moe_split``). Rank 0's
+    oracle is one rank's run of the same weights with the MoE layer
+    replaced, in this script only, by ``_moe_local(impl='capacity')`` on
+    the same token shards (the reference's ``shard_map`` drops; one
+    rank's ``ragged`` path is dropless); each part prints the replicas
+    dropped by layer. (a) Phi-3.5-MoE on 1 × 4, full width, depth 2, bf16:
+    a 1 × 4096 prefill (D 4 and E 2 a rank; 2e-2), then 8 decode steps at
+    B = 32, Smax = 4096 (N·k <= 8·E: nothing drops, one rank's plain
+    ``decode_step`` is the oracle; 2e-2); the expert and cache bytes a
+    rank against the whole, collectives a step, seconds a step against
+    one rank's, peak memory. (b) Phi-3.5-MoE on 2 × 2 with FSDP: two
+    ``build_train_step(mesh=)`` steps, depth 1, 8 of 16 experts (cut,
+    ``MOE_CUTS``), 8 × 128, the drops on each data shard; losses and
+    norms against one rank's (2e-2). (c) Phi-3.5-MoE on 1 × 2:
+    ``build_hypergrad_step(mesh=)``, depth 1, 4 of 16 experts (cut), f32
+    compute, k = 8 bf16, the HVP columns through the capacity path and
+    the collectives, kernels A–C on each rank's blocks (1e-3). (d) One
+    Llama-4 Maverick block (a dense layer, a MoE layer with its shared
+    expert, top-1) on 1 × 4, full width, bf16, 16 of 128 experts (cut):
+    a 1 × 4096 prefill, then 8 decode steps at B = 8, Smax = 4096 (2e-2
+    each).
+
 The line before the last is the kernels' JSON record (seven rows, kernel
 E's the tensor-core variant at the prefill's own call; rows 1–5 also
 carry their p = 2²⁴ f32 and bf16 times under ``p24`` and the p = 2²⁰
@@ -490,7 +517,8 @@ phase 25 (a)'s and (c)'s launches by rank, rows 6–7 (b)'s, under
 ``mesh_launches``; rows 1–4 phase 26 (c)'s launches by rank (row 1's
 gram runs as a cross, row 2's) and rows 6–7 (a)'s, under
 ``split_launches``; rows 6–7 phase 27's prefill and decode launches by
-part and rank under ``serve_split_launches``);
+part and rank under ``serve_split_launches``; rows 6–7 phase 28 (a)'s
+and (d)'s and rows 1–4 (c)'s by rank under ``moe_split_launches``);
 the last
 line is ``{"ok": true, "device": {...}}``; standard error ends with the
 seconds each phase took, the seconds of its timed steps and the whole
@@ -4473,10 +4501,11 @@ MESH_PHI_IDS = 8      # distinct token ids of (b)'s prompt: a repetitive one
 MESH_YI_DEPTH = 1     # (c): the whole HVP columns on every rank
 MESH_SHAPE = {'ab': (2, 2), 'c': (1, 2)}   # (c) on 2 ranks: 4 did not fit
 MESH_CAP = {'ab': 0.23, 'c': 0.45}   # each rank's share of the card
-MESH_TIMEOUT = 300    # s for one spawn of ranks, their start included
-# the parts of phases 25-27 by world size, each world's ranks spawned
+MESH_TIMEOUT = 600    # s for one spawn of ranks, their start included
+# the parts of phases 25-28 by world size, each world's ranks spawned
 # once and running its parts in turn (a spawn took some 10 s to start)
-MESH_WORLDS = {4: ('ab', 'a4', 'b', 'd', 'e'), 2: ('c', 'c2'), 8: ('f',)}
+MESH_WORLDS = {4: ('ab', 'a4', 'b', 'd', 'e', 'ma', 'mb', 'md'),
+               2: ('c', 'c2', 'mc'), 8: ('f',)}
 
 
 def _rank_print(rank: int, *parts) -> None:
@@ -4927,7 +4956,7 @@ def _mesh_hypergrad(torch, dev, rank: int, smi: str) -> dict:
 
 
 def mesh_rank_main(parts: str, rank: int, world: int, out_dir: str) -> None:
-    """One rank of phases 25-27: joins a gloo group (several ranks
+    """One rank of phases 25-28: joins a gloo group (several ranks
     share the card: NCCL refuses two ranks on one GPU, and gloo
     all-reduces CUDA tensors through the host) through a ``file://`` store
     in ``out_dir``, loads phase 2's kernel build (never ``nvcc``), runs
@@ -4954,7 +4983,7 @@ def mesh_rank_main(parts: str, rank: int, world: int, out_dir: str) -> None:
         for part in parts.split(','):
             torch.cuda.set_per_process_memory_fraction(
                 MESH_CAP[part] if part in MESH_CAP else
-                {**SPLIT_PARTS, **SERVE_PARTS}[part][1])
+                {**SPLIT_PARTS, **SERVE_PARTS, **MOE_PARTS}[part][1])
             dist.barrier()                # every rank has let the last go
             t0 = time.perf_counter()
             if part == 'ab':
@@ -4968,6 +4997,12 @@ def mesh_rank_main(parts: str, rank: int, world: int, out_dir: str) -> None:
                 res = _split_train(torch, dev, rank, smi)
             elif part in SERVE_PARTS:
                 res = _serve_split(torch, dev, rank, smi, part)
+            elif part in MOE_SERVE:
+                res = _moe_serve(torch, dev, rank, smi, part)
+            elif part == 'mb':
+                res = _moe_train(torch, dev, rank, smi)
+            elif part == 'mc':
+                res = _moe_hypergrad(torch, dev, rank, smi)
             else:
                 res = _split_hypergrad(torch, dev, rank, smi, part)
             out[part] = dict(res=res, secs=time.perf_counter() - t0)
@@ -5027,7 +5062,7 @@ def _spawn_world(parts: tuple, world: int, smi: str) -> dict:
 
 
 def run_worlds(torch, smi: str) -> dict:
-    """Phases 25-27 as three worlds of spawned ranks sharing ``cuda:0``
+    """Phases 25-28 as three worlds of spawned ranks sharing ``cuda:0``
     over gloo: ``MESH_WORLDS``' parts, each world's ranks starting after
     phase 2's build and loading it. Returns each part's results by
     rank."""
@@ -5041,6 +5076,8 @@ def run_worlds(torch, smi: str) -> dict:
         print(f'split {part}: cut: {why}', flush=True)
     for what, cut in SERVE_CUTS.items():
         print(f'serve {what}: {cut}: {TIME_CUT_WHY}', flush=True)
+    for what, why in MOE_CUTS.items():
+        print(f'moe {what}: cut: {why}', flush=True)
     out = {}
     for world, parts in MESH_WORLDS.items():
         out.update(_spawn_world(parts, world, smi))
@@ -5730,6 +5767,566 @@ def run_serve_split(torch, smi: str, out: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 28. MoE on a split model: Phi-3.5-MoE and Llama-4 Maverick on the mesh
+# ---------------------------------------------------------------------------
+MOE_PARTS = {   # part: (mesh shape, each rank's share of the card)
+    'ma': ((1, 4), 0.2), 'mb': ((2, 2), 0.2), 'mc': ((1, 2), 0.45),
+    'md': ((1, 4), 0.2)}
+MOE_STEPS = 8          # teacher-forced decode steps of (a) and (d)
+MOE_PREFILL_S = 4096   # (a) and (d): one 1 x 4096 prompt
+# (a) Phi-3.5-MoE at depth 2; (d) one Llama-4 Maverick block (a dense
+# layer, then a MoE layer with its shared expert, top-1). Their decode
+# batches hold N·k <= 8·E replicas: the capacity is N·k, nothing drops,
+# and one rank's plain decode_step is their oracle
+MOE_SERVE = {
+    'ma': dict(arch='phi35_moe_42b_a66b', label='(a) Phi-3.5-MoE', depth=2,
+               B=32, smax=4096),
+    'md': dict(arch='llama4_maverick_400b_a17b',
+               label='(d) Llama-4 Maverick block', depth=2, experts=16,
+               B=8, smax=4096)}
+MOE_TRAIN_DEPTH, MOE_TRAIN_EXPERTS = 1, 8     # (b)
+MOE_HG_DEPTH, MOE_HG_EXPERTS = 1, 4           # (c)
+MOE_CUTS = {
+    '(b) 8 of 16 experts': 'rank 0 holds the whole one-rank step\'s '
+    'parameters, gradients and Adam state for its check: about 25 GB at '
+    '16 experts, over its 18.4 GB, about 15 GB at 8 (phase 23 (c)\'s cut)',
+    '(c) 4 of 16 experts': 'C and B take 32 bytes a parameter: p = 0.62 B '
+    'at 4 experts is about 20 GB whole plus 10 GB a block on rank 0, within '
+    'its share of 0.45; 8 experts would be about 45 GB',
+    '(d) 16 of 128 experts': 'rank 0 holds the whole block beside its '
+    'blocks within its share of 16 GB: about 37 GB at 128 experts, 8.9 GB '
+    'whole plus 2.2 GB a rank at 16'}
+
+
+def _sharded_capacity(torch, shards: int):
+    """A stand-in for ``moe_ffn`` on one rank, phase 28's oracle:
+    ``_moe_local(impl='capacity')`` on each of ``shards`` shards of the
+    batch's rows, as a split model's data shards route them (all the rows
+    where ``shards`` does not divide B), the outputs joined and the aux
+    loss from the routing statistics averaged over the shards: the drops
+    of the reference's ``shard_map``, which one rank's dropless ``ragged``
+    path does not make."""
+    from repro_torch.models import moe
+
+    def moe_ffn(params, x, cfg):
+        B, S, d = x.shape
+        n = shards if B % shards == 0 else 1
+        E, k = cfg.n_experts, cfg.top_k
+        outs, fracs, means = [], [], []
+        for xt in x.reshape(n, B // n * S, d):
+            outs.append(moe._moe_local(params, xt, cfg, impl='capacity')[0])
+            probs, _, _, counts, _ = moe.route(params, xt, cfg)
+            fracs.append(counts.float() / (xt.shape[0] * k))
+            means.append(probs.mean(0))
+        aux = (E * torch.sum(torch.stack(fracs).mean(0)
+                             * torch.stack(means).mean(0))
+               * cfg.router_aux_coef)
+        return torch.cat(outs).reshape(B, S, d), aux
+    return moe_ffn
+
+
+@contextlib.contextmanager
+def _moe_swapped(name: str, fn):
+    """``models.transformer``'s MoE entry ``name`` (``moe_ffn`` or
+    ``moe_split``) replaced by ``fn`` inside the block."""
+    from repro_torch.models import transformer
+    old = getattr(transformer, name)
+    setattr(transformer, name, fn)
+    try:
+        yield
+    finally:
+        setattr(transformer, name, old)
+
+
+def _split_drops(torch, cfg, fn):
+    """(what ``fn()`` returns, the replicas each split MoE layer's
+    ``capacity`` path dropped on this rank's tokens, by layer): the
+    layers' inputs are kept while ``fn`` runs and counted after it under
+    the port's routing (no sync inside ``fn``)."""
+    from repro_torch.models import moe
+    seen = []
+
+    def keeping(params, h, cfg_, split):
+        seen.append((params['router'], h))
+        return moe.moe_split(params, h, cfg_, split)
+
+    with _moe_swapped('moe_split', keeping):
+        out = fn()
+    with torch.inference_mode():
+        drops = [int(_capacity_drops(torch, moe, {'router': r}, h, cfg, 1)
+                     .sum()) for r, h in seen]
+    return out, drops
+
+
+def _expert_bytes(cfg, tree) -> int:
+    """Bytes of the MoE layers' experts (and shared expert) in ``tree``."""
+    from repro_torch.core import tree_leaves
+    return sum(t.numel() * t.element_size()
+               for block in tree['blocks']
+               for i, (_, ffn) in enumerate(cfg.layer_kinds()) if ffn == 'moe'
+               for n, sub in block[f'slot{i}']['ffn'].items() if n != 'router'
+               for t in tree_leaves(sub))
+
+
+def _moe_serve(torch, dev, rank: int, smi: str, part: str) -> dict:
+    """Phase 28 (a) and (d), on each rank of 1 × 4: a MoE model split on
+    the mesh serves, at full width, bf16, random weights from a seed. A
+    1 × ``MOE_PREFILL_S`` prefill through ``build_prefill_step(mesh=)``
+    (kernels D and E on the rank's heads, the experts' d_ff over 'model'
+    on the rank's tokens through the ``capacity`` path), its gathered
+    logits held on rank 0 against one rank's prefill of the same weights
+    with the MoE layers replaced by ``_moe_local(impl='capacity')`` on the
+    same tokens (:func:`_sharded_capacity`, 2e-2); the replicas dropped,
+    by layer. Then ``MOE_STEPS`` teacher-forced decode steps through
+    ``build_serve_step(mesh=)`` over the rank's block of the cache's
+    sequence, crossing into the last rank's block, held against one
+    rank's plain ``decode_step`` (2e-2: N·k <= 8·E, nothing drops).
+    Prints the expert and cache bytes a rank against the whole, the
+    collectives a step by kind, seconds a step a rank against one rank's,
+    and peak memory."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import ctx
+    from repro_torch.kernels import _lib
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import build_prefill_step, build_serve_step
+    from repro_torch.models import moe
+    from repro_torch.models.split import cache_split_specs, shard_cache
+    case = MOE_SERVE[part]
+    base = get_config(case['arch'])
+    cfg = dataclasses.replace(base, n_layers=case['depth'], use_pallas=True,
+                              param_dtype='bfloat16',
+                              n_experts=case.get('experts', base.n_experts))
+    mesh = make_host_mesh(*MOE_PARTS[part][0])
+    m = mesh.shape['model']
+    whole, blocks, specs, nbytes, whole_bytes = _split_blocks(
+        torch, dev, cfg, mesh)
+    V, label, S = cfg.vocab_size, case['label'], MOE_PREFILL_S
+    ex, ex_whole = _expert_bytes(cfg, blocks), _expert_bytes(cfg, whole)
+    ffn = specs['blocks'][0][f'slot{cfg.moe_every - 1}']['ffn']
+    tokens = torch.randint(0, V, (1, S),
+                           generator=torch.Generator().manual_seed(11))
+    pstep = build_prefill_step(cfg, mesh=mesh)
+    _, drops = _split_drops(torch, cfg,
+                            lambda: pstep(blocks, {'inputs': tokens}))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _lib.reset_launches()
+    ctx.reset_collectives()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits = pstep(blocks, {'inputs': tokens})
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {n: c for n, c in _lib.LAUNCHES.items() if c}
+    pcolls = dict(ctx.COLLECTIVES)
+    ppeak = torch.cuda.max_memory_allocated() / 1e9
+    want = {'rmsnorm': 2 * cfg.n_layers, 'flash_attention': cfg.n_layers,
+            'flash_attention_tc': cfg.n_layers}
+    got = {k: _lib.LAUNCHES[k] for k in want}
+    if got != want:
+        raise AssertionError(f'moe {label}: prefill launches {got}, want '
+                             f'{want}')
+    if not bool(torch.isfinite(logits[:, :V]).all()):
+        raise AssertionError(f'moe {label}: prefill logits not finite')
+    Nk = S * cfg.top_k
+    out = dict(launches=launches, prefill_secs=secs, prefill_peak_gb=ppeak,
+               prefill_collectives=pcolls, drops=drops,
+               capacity=moe.capacity(Nk, cfg.n_experts),
+               expert_gb=ex / 1e9, whole_expert_gb=ex_whole / 1e9,
+               param_gb=nbytes / 1e9, whole_gb=whole_bytes / 1e9,
+               prefill_sum=float(logits[:, :V].float().sum()))
+    line = (f'moe {label} on 1 x {m}: {smi} | full width, depth '
+            f'{cfg.n_layers} {cfg.layer_kinds()}, bf16, {cfg.n_experts} '
+            f'experts top-{cfg.top_k} (w1 {tuple(ffn["w1"])}, w2 '
+            f'{tuple(ffn["w2"])}, router {tuple(ffn["router"])}), heads '
+            f'{cfg.n_heads}/{cfg.n_kv_heads}: experts {ex / 1e9:.4f} GB a '
+            f'rank of {ex_whole / 1e9:.4f} GB, parameters {nbytes / 1e9:.4f}'
+            f' of {whole_bytes / 1e9:.4f} GB; prefill 1 x {S} '
+            f'{secs * 1e3:.3f} ms, capacity {out["capacity"]} of {Nk} '
+            f'replicas, dropped by layer {drops}, collectives {pcolls}, '
+            f'peak {ppeak:.2f} GB, launches {launches}')
+    if rank == 0:
+        one = build_prefill_step(cfg)
+        with _moe_swapped('moe_ffn', _sharded_capacity(torch, 1)):
+            one(whole, {'inputs': tokens})
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ref = one(whole, {'inputs': tokens})
+            torch.cuda.synchronize()
+            one_secs = time.perf_counter() - t0
+        err = _rel_l2(logits[:, :V], ref[:, :V])
+        if not err <= 2e-2:
+            raise AssertionError(f'moe {label}: prefill against one rank '
+                                 f'rel L2 {err:.3e}')
+        out.update(prefill_err=err, one_rank_prefill_secs=one_secs)
+        line += (f' (one rank\'s capacity-path prefill {one_secs * 1e3:.3f}'
+                 f' ms; against it rel L2 {err:.3e} <= 2e-2)')
+        del ref
+    del logits
+    B, smax = case['B'], case['smax']
+    if B * cfg.top_k > 8 * cfg.n_experts:
+        raise AssertionError(f'moe {label}: decode B={B} would drop '
+                             'replicas; one rank\'s decode_step would not '
+                             'be its oracle')
+    pos = smax - smax // m - MOE_STEPS // 2
+    inputs = _serve_inputs(torch, cfg, B, MOE_STEPS)
+    cache_whole = _seeded_cache(torch, cfg, B, smax, pos)
+    cache = shard_cache(cache_whole, cache_split_specs(cfg, mesh, B, smax),
+                        mesh)
+    if rank != 0:
+        del whole, cache_whole
+    cache_bytes = sum(t.numel() * t.element_size() for sc in
+                      cache['slots'].values() for t in sc.values())
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step = build_serve_step(cfg, mesh=mesh)
+    ctx.reset_collectives()
+    _lib.reset_launches()
+    logits, cache, secs = _timed_decode(torch, step, blocks, inputs, cache)
+    counts = {k: v / MOE_STEPS for k, v in ctx.COLLECTIVES.items()}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    step_s = statistics.median(secs[1:])
+    line += (f'; decode B={B}, Smax={smax}, {MOE_STEPS} steps from pos '
+             f'{pos}: cache {cache_bytes / 1e9:.4f} GB a rank of '
+             f'{cache_bytes * m / 1e9:.4f} GB, collectives a step {counts}, '
+             f'{step_s * 1e3:.3f} ms a step (median of {MOE_STEPS - 1} after '
+             f'the first), peak {peak:.2f} GB')
+    out.update(cache_gb=cache_bytes / 1e9,
+               whole_cache_gb=cache_bytes * m / 1e9, counts=counts,
+               step_secs=step_s, peak_gb=max(peak, ppeak),
+               decode_launches={n: c for n, c in _lib.LAUNCHES.items() if c},
+               logits_sum=float(sum(x[..., :V].float().sum()
+                                    for x in logits)))
+    if rank == 0:
+        ref, _, one_secs = _timed_decode(torch, build_serve_step(cfg), whole,
+                                         inputs, cache_whole)
+        errs = [_rel_l2(a[..., :V], b[..., :V]) for a, b in zip(logits, ref)]
+        if not max(errs) <= 2e-2:
+            raise AssertionError(f'moe {label}: decode against one rank '
+                                 f'rel L2 {max(errs):.3e}')
+        one_s = statistics.median(one_secs[1:])
+        out.update(decode_err=max(errs), one_rank_step_secs=one_s)
+        line += (f'; one rank\'s decode {one_s * 1e3:.3f} ms a step, each '
+                 f'step\'s gathered logits against it rel L2 <= '
+                 f'{max(errs):.3e} (<= 2e-2)')
+        del whole, cache_whole, ref
+    _rank_print(rank, line)
+    del blocks, cache, logits
+    torch.cuda.empty_cache()
+    return out
+
+
+def _moe_train(torch, dev, rank: int, smi: str) -> dict:
+    """Phase 28 (b), on each rank of 2 × 2 with ``fsdp``: two
+    ``build_train_step(mesh=)`` steps on Phi-3.5-MoE at full width, depth
+    ``MOE_TRAIN_DEPTH``, ``MOE_TRAIN_EXPERTS`` of its 16 experts (cut,
+    ``MOE_CUTS``), f32 parameters, bf16 compute, remat 'full', 8 × 128
+    tokens (4 rows a data shard, the capacity from each shard's 512
+    tokens). The replicas each data shard drops are counted on both
+    steps' batches first. Rank 0 then runs one rank's unsplit steps on the
+    same weights and batches with the MoE layer replaced by
+    :func:`_sharded_capacity` on the same 2 data shards: losses and
+    gradient norms within 2e-2 relative (phase 26 (b)'s gate)."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.core import tree_leaves
+    from repro_torch.data import TokenStream
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import (build_train_step, local_batch,
+                                          make_optimizer)
+    from repro_torch.models import build_model, moe
+    from repro_torch.models.split import make_split
+    from repro_torch.models.transformer import forward
+    cfg = dataclasses.replace(get_config('phi35_moe_42b_a66b'),
+                              n_layers=MOE_TRAIN_DEPTH, remat='full',
+                              fsdp=True, n_experts=MOE_TRAIN_EXPERTS)
+    mesh = make_host_mesh(*MOE_PARTS['mb'][0])
+    whole, blocks, specs, nbytes, whole_bytes = _split_blocks(
+        torch, dev, cfg, mesh)
+    del whole                 # rank 0 draws it again for one rank's steps
+    torch.cuda.empty_cache()
+    stream = TokenStream(vocab_size=cfg.vocab_size, seq_len=LM_FULL['seq'])
+    batches = [stream.batch(i, LM_FULL['batch']) for i in range(2)]
+    split = make_split(cfg, mesh, LM_FULL['batch'], specs)
+    drops = []
+    for b in batches:
+        rows = local_batch(b, split, dev)
+        with torch.inference_mode():
+            drops.append(_split_drops(torch, cfg, lambda: forward(
+                cfg, blocks, rows['inputs'], split=split))[1])
+    step = build_train_step(cfg, mesh=mesh)
+    opt = make_optimizer(cfg)
+    state = opt.init(blocks)
+    opt_bytes = sum(t.numel() * t.element_size()
+                    for t in tree_leaves(state))
+    torch.cuda.reset_peak_memory_stats()
+    losses, norms, secs = [], [], []
+    for i, b in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        blocks, state, _, m = step(blocks, state, i, b)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(m['loss']))
+        norms.append(float(m['grad_norm']))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if not all(map(math.isfinite, losses + norms)):
+        raise AssertionError(f'moe (b): losses {losses}, norms {norms}')
+    out = dict(losses=losses, norms=norms, secs=secs, peak_gb=peak,
+               param_gb=nbytes / 1e9, opt_gb=opt_bytes / 1e9,
+               whole_gb=whole_bytes / 1e9, drops=drops,
+               data=mesh.coords['data'])
+    _rank_print(rank, f'moe (b): {smi} | Phi-3.5-MoE d={cfg.d_model}, depth '
+                f'{cfg.n_layers}, {cfg.n_experts} experts top-{cfg.top_k}, '
+                f'f32 parameters, bf16 compute, remat full, fsdp on 2x2 '
+                f'({mesh.coords}), {LM_FULL["batch"]} x {LM_FULL["seq"]}: '
+                f'capacity {moe.capacity(LM_FULL["batch"] // 2 * LM_FULL["seq"] * cfg.top_k, cfg.n_experts)}'
+                f' a data shard, dropped by step and layer {drops}; steps '
+                f'{[round(s, 4) for s in secs]} s, losses {losses}, grad '
+                f'norms {norms}; this rank\'s parameters {nbytes / 1e9:.3f} '
+                f'GB (whole {whole_bytes / 1e9:.3f} GB), optimizer state '
+                f'{opt_bytes / 1e9:.3f} GB, peak {peak:.2f} GB')
+    del blocks, state
+    torch.cuda.empty_cache()
+    dist.barrier()                          # the other ranks have let go
+    if rank == 0:
+        torch.cuda.set_per_process_memory_fraction(SPLIT_ONE_RANK_CAP)
+        whole = build_model(cfg, device=dev).init(
+            torch.Generator(device=dev).manual_seed(0))
+        one = build_train_step(cfg)
+        ostate = opt.init(whole)
+        torch.cuda.reset_peak_memory_stats()
+        one_l, one_n, one_s = [], [], []
+        with _moe_swapped('moe_ffn', _sharded_capacity(
+                torch, mesh.shape['data'])):
+            for i, b in enumerate(batches):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                whole, ostate, _, m = one(whole, ostate, i, b)
+                torch.cuda.synchronize()
+                one_s.append(time.perf_counter() - t0)
+                one_l.append(float(m['loss']))
+                one_n.append(float(m['grad_norm']))
+        errs = [abs(a / b - 1) for a, b in zip(losses + norms, one_l + one_n)]
+        one_peak = torch.cuda.max_memory_allocated() / 1e9
+        _rank_print(rank, f'moe (b) against one rank (unsplit, the same '
+                    f'weights and batches, the capacity path on the same 2 '
+                    f'data shards): losses {one_l}, grad norms {one_n}, '
+                    f'steps {[round(s, 4) for s in one_s]} s, peak '
+                    f'{one_peak:.2f} GB; largest relative gap '
+                    f'{max(errs):.3e} (<= 2e-2)')
+        if not max(errs) <= 2e-2:
+            raise AssertionError(f'moe (b): against one rank {errs}')
+        out.update(one_rank=dict(losses=one_l, norms=one_n, secs=one_s,
+                                 peak_gb=one_peak), err=max(errs))
+        del whole, ostate
+        torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def _moe_hypergrad(torch, dev, rank: int, smi: str) -> dict:
+    """Phase 28 (c), on each rank of 1 × 2: ``build_hypergrad_step(mesh=)``
+    on Phi-3.5-MoE at full width, depth ``MOE_HG_DEPTH``,
+    ``MOE_HG_EXPERTS`` of its 16 experts (cut, ``MOE_CUTS``), f32 compute,
+    a k = 8 bf16 sketch through ``flat_sharded`` over the rank's blocks:
+    the HVP columns through the capacity path and the collectives, kernels
+    A–C on the rank's (p_local, k) buffer, and no gather in the apply.
+    Rank 0 then runs one rank's unsplit hypergradient ('cuda', the whole
+    bf16 sketch) with the MoE layer replaced by :func:`_sharded_capacity`
+    on the same tokens (the batch is whole on both ranks of 1 × 2); the
+    parent holds the two within 1e-3 (phase 26 (c)'s gate)."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.core import HypergradConfig, PyTreeIndexer, make_hvp
+    from repro_torch.data import TokenStream
+    from repro_torch.distributed import ctx
+    from repro_torch.kernels import _lib
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import (N_DOMAINS, build_hypergrad_step,
+                                          domain_losses, lm_hypergrad,
+                                          local_batch, loss_and_grads,
+                                          split_solver, to_device)
+    from repro_torch.models import moe
+    from repro_torch.models.split import make_split
+    from repro_torch.models.transformer import forward
+    cfg = dataclasses.replace(get_config('phi35_moe_42b_a66b'),
+                              n_layers=MOE_HG_DEPTH, compute_dtype='float32',
+                              n_experts=MOE_HG_EXPERTS)
+    mesh = make_host_mesh(*MOE_PARTS['mc'][0])
+    whole, blocks, specs, nbytes, whole_bytes = _split_blocks(
+        torch, dev, cfg, mesh)
+    if rank != 0:
+        del whole
+    torch.cuda.empty_cache()
+    h = {'domain_logits': 0.1 * torch.randn(
+        N_DOMAINS, generator=torch.Generator().manual_seed(1)).to(dev)}
+    stream = TokenStream(vocab_size=cfg.vocab_size, seq_len=LM_FULL['seq'])
+    ib = stream.batch(3, LM_FULL['batch'])
+    ob = stream.batch(10_000_003, LM_FULL['batch'], clean_only=True)
+    hg_cfg = HypergradConfig(k=LM_K, rho=RHO, sketch_dtype='bfloat16',
+                             column_chunk=2)
+    step = build_hypergrad_step(cfg, mesh=mesh, hg_cfg=hg_cfg)
+    split = make_split(cfg, mesh, LM_FULL['batch'], specs)
+    solver = split_solver(mesh, specs, hg_cfg)   # the step's, for its pieces
+    indexer = solver.backend.indexer(blocks)
+    idx = indexer.sample_indices(torch.Generator().manual_seed(3), LM_K)
+    inner, outer = domain_losses(cfg, split)
+    ib_l, ob_l = (local_batch(b, split, dev) for b in (ib, ob))
+    with torch.inference_mode():
+        _, drops = _split_drops(torch, cfg, lambda: forward(
+            cfg, blocks, ib_l['inputs'], split=split))
+    sk = solver.prepare(make_hvp(inner, blocks, h, ib_l), indexer, None,
+                        indices=idx)
+    _, g_theta = loss_and_grads(lambda p: outer(p, h, ob_l), blocks)
+    _lib.reset_launches()
+    ctx.reset_collectives()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    solver.apply(sk, g_theta)
+    torch.cuda.synchronize()
+    apply_s = time.perf_counter() - t1
+    apply_colls = dict(ctx.COLLECTIVES)
+    passes = _lib.LAUNCHES['woodbury_ctv'] + _lib.LAUNCHES['nystrom_cross']
+    if apply_colls != {'psum': passes}:
+        raise AssertionError(f'moe (c): one apply ran {apply_colls}, want '
+                             f'one psum for each of its {passes} k-output '
+                             'passes and no gather')
+    c_gb = sk.C.buf.numel() * sk.C.buf.element_size() / 1e9
+    b_gb = sk.B.buf.numel() * sk.B.buf.element_size() / 1e9
+    p_local = int(sk.C.buf.shape[0])
+    del sk, g_theta
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _lib.reset_launches()
+    ctx.reset_collectives()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    new_h = step(blocks, h, ib, ob, indices=idx)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {n: c for n, c in _lib.LAUNCHES.items() if c}
+    colls = dict(ctx.COLLECTIVES)
+    for name in ('nystrom_cross_tc', 'woodbury_ctv', 'woodbury_apply'):
+        if not launches.get(name):
+            raise AssertionError(f'moe (c): {name} never launched: '
+                                 f'{launches}')
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    hg = (h['domain_logits'] - new_h['domain_logits']) / 1e-2
+    out = dict(secs=secs, launches=launches, collectives=colls,
+               apply_collectives=apply_colls, apply_s=apply_s,
+               p_local=p_local, p=indexer.total, c_gb=c_gb, b_gb=b_gb,
+               peak_gb=peak, param_gb=nbytes / 1e9, drops=drops,
+               hg=hg.cpu().tolist())
+    _rank_print(rank, f'moe (c): {smi} | Phi-3.5-MoE d={cfg.d_model}, depth '
+                f'{cfg.n_layers}, {cfg.n_experts} experts, f32 compute, on '
+                f'{dict(mesh.shape)} ({mesh.coords}), k={LM_K} bf16 sketch: '
+                f'capacity {moe.capacity(LM_FULL["batch"] * LM_FULL["seq"] * cfg.top_k, cfg.n_experts)}'
+                f', dropped by layer {drops}; outer step {secs:.4f} s, this '
+                f'rank\'s p_local {p_local:,} of {indexer.total:,}, C '
+                f'{c_gb:.3f} GB, B {b_gb:.3f} GB, parameters '
+                f'{nbytes / 1e9:.3f} GB, peak {peak:.2f} GB, launches '
+                f'{launches}, collectives {colls}; one apply {apply_s:.4f} s '
+                f'with {apply_colls} ({passes} k-output passes, no gather)')
+    dist.barrier()
+    del blocks
+    torch.cuda.empty_cache()
+    dist.barrier()                          # the other rank has let go
+    if rank == 0:
+        torch.cuda.set_per_process_memory_fraction(SPLIT_ONE_RANK_CAP)
+        torch.cuda.reset_peak_memory_stats()
+        one = _lm_config('cuda', sketch_dtype='bfloat16').build()
+        il, ol = domain_losses(cfg)
+        ib_w, ob_w = to_device(ib, dev), to_device(ob, dev)
+
+        def one_step():
+            sk1 = one.prepare(make_hvp(il, whole, h, ib_w),
+                              PyTreeIndexer(whole), None, indices=idx)
+            return lm_hypergrad(one, il, ol, whole, h, ib_w, ob_w,
+                                state=sk1)[1]['domain_logits']
+        with _moe_swapped('moe_ffn', _sharded_capacity(torch, 1)):
+            one_step()                            # first call: set-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            hg1 = one_step()
+            torch.cuda.synchronize()
+        out.update(one_rank_secs=time.perf_counter() - t0,
+                   one_rank_hg=hg1.cpu().tolist(),
+                   one_rank_peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        del whole
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_moe_split(torch, smi: str, out: dict) -> dict:
+    """Phase 28: MoE on a split model, as spawned ranks sharing ``cuda:0``
+    over gloo (phase 25's way), from :func:`run_worlds`' results ``out``:
+    (a) Phi-3.5-MoE's prefill and decode on 1 × 4, (b) its two train steps
+    on 2 × 2 with FSDP, (c) its hypergradient on 1 × 2, (d) one Llama-4
+    Maverick block's prefill and decode on 1 × 4. Each part was held
+    against one rank's on rank 0, the MoE layer on the capacity path of
+    the same token shards; the ranks must agree (the ranks of a data shard
+    on its drops). Returns each part's per-rank results."""
+    out = {part: out[part] for part in MOE_PARTS}
+    for part in ('ma', 'md'):
+        ranks, label = out[part], MOE_SERVE[part]['label']
+        for key in ('logits_sum', 'prefill_sum'):
+            if len({r[key] for r in ranks}) != 1:
+                raise AssertionError(f'moe {label}: ranks disagree on {key}')
+        if any(r['drops'] != ranks[0]['drops'] for r in ranks):
+            raise AssertionError(f'moe {label}: ranks disagree on the drops')
+        r0 = ranks[0]
+        print(f'moe {label}: {smi} | experts {r0["expert_gb"]:.4f} GB a rank '
+              f'of {r0["whole_expert_gb"]:.4f} GB; prefill a rank '
+              f'{[round(r["prefill_secs"], 4) for r in ranks]} s, one rank '
+              f'{r0["one_rank_prefill_secs"]:.4f} s, against it rel L2 '
+              f'{r0["prefill_err"]:.3e}, dropped by layer {r0["drops"]} '
+              f'(capacity {r0["capacity"]}), launches a rank '
+              f'{r0["launches"]}; cache {r0["cache_gb"]:.4f} GB a rank of '
+              f'{r0["whole_cache_gb"]:.4f} GB; collectives a step '
+              f'{r0["counts"]}; seconds a step a rank '
+              f'{[round(r["step_secs"], 5) for r in ranks]}, one rank '
+              f'{r0["one_rank_step_secs"]:.5f}; peak a rank '
+              f'{[round(r["peak_gb"], 2) for r in ranks]} GB; decode against '
+              f'one rank rel L2 {r0["decode_err"]:.3e}', flush=True)
+    b = out['mb']
+    if any(r['losses'] != b[0]['losses'] or r['norms'] != b[0]['norms']
+           for r in b):
+        raise AssertionError('moe (b): ranks disagree on losses or norms')
+    by_shard = {}
+    for r in b:
+        by_shard.setdefault(r['data'], []).append(r['drops'])
+    if any(len({str(d) for d in ds}) != 1 for ds in by_shard.values()):
+        raise AssertionError(f'moe (b): the ranks of a data shard disagree '
+                             f'on the drops: {by_shard}')
+    print(f'moe (b): {smi} | steps a rank '
+          f'{[[round(s, 4) for s in r["secs"]] for r in b]} s, one rank '
+          f'{[round(s, 4) for s in b[0]["one_rank"]["secs"]]} s; dropped by '
+          f'data shard, step and layer '
+          f'{ {k: v[0] for k, v in sorted(by_shard.items())} }; peak a rank '
+          f'{[round(r["peak_gb"], 2) for r in b]} GB, one rank '
+          f'{b[0]["one_rank"]["peak_gb"]:.2f} GB; against one rank '
+          f'{b[0]["err"]:.3e} (<= 2e-2)', flush=True)
+    c = out['mc']
+    if any(r['hg'] != c[0]['hg'] for r in c):
+        raise AssertionError('moe (c): ranks disagree on the hypergradient')
+    err = _rel_l2(torch.tensor(c[0]['hg']), torch.tensor(
+        c[0]['one_rank_hg']), True)
+    if not err <= 1e-3:
+        raise AssertionError(f'moe (c): hypergradient against one rank rel '
+                             f'L2 {err:.3e}')
+    c[0]['err'] = err
+    print(f'moe (c): {smi} | hypergradient against one rank\'s unsplit one '
+          f'(cuda, whole bf16 sketch, the capacity path on the same tokens) '
+          f'rel L2 {err:.3e} (<= 1e-3); outer step a rank '
+          f'{[round(r["secs"], 4) for r in c]} s, one rank '
+          f'{c[0]["one_rank_secs"]:.4f} s (peak '
+          f'{c[0]["one_rank_peak_gb"]:.2f} GB); dropped by layer '
+          f'{c[0]["drops"]}', flush=True)
+    return out
+
+
 def _phase(label: str) -> None:
     """Mark where a phase of ``main`` starts, for the seconds by phase that
     the script prints to stderr when it ends."""
@@ -5948,13 +6545,14 @@ def main() -> None:
     train_launches.update(run_train_recurrent(torch, dev, smi))
     torch.cuda.empty_cache()
 
-    # 25-27. the mesh: ranks sharing the card over gloo, kernels A-E; a
-    # model split on it: prefill, train, hypergradient; serving it -------
-    _phase('25-27')
+    # 25-28. the mesh: ranks sharing the card over gloo, kernels A-E; a
+    # model split on it: prefill, train, hypergradient; serving it; MoE --
+    _phase('25-28')
     worlds = run_worlds(torch, smi)
     mesh = run_mesh(worlds)
     split = run_split(torch, smi, mesh, worlds)
     serve = run_serve_split(torch, smi, worlds)
+    moe_split = run_moe_split(torch, smi, worlds)
 
     # records -----------------------------------------------------------------
     _phase('records')
@@ -6033,11 +6631,21 @@ def main() -> None:
                                      ('decode', 'decode_launches'))
                 for r, x in enumerate(serve[part])
                 if field in x}    # (a) has no prefill: no count for it
+            rec['moe_split_launches'] = {   # phase 28 (a), (d)
+                f'{MOE_SERVE[part]["label"].split()[0]} {stage} rank {r}':
+                    x[field].get(key, 0)
+                for part in MOE_SERVE
+                for stage, field in (('prefill', 'launches'),
+                                     ('decode', 'decode_launches'))
+                for r, x in enumerate(moe_split[part])}
         if kname in ('nystrom_gram', 'nystrom_cross', 'woodbury_ctv',
                      'woodbury_apply'):       # phase 26 (c), rank's blocks
             rec['split_launches'] = {   # row 1: the gram runs as a cross
                 f'(c) rank {r}': c['launches'].get(kname, 0)
                 for r, c in enumerate(split['c2'])}
+            rec['moe_split_launches'] = {   # phase 28 (c), the same
+                f'(c) rank {r}': c['launches'].get(kname, 0)
+                for r, c in enumerate(moe_split['mc'])}
         if kname in large['float32']:   # rows 1-5 at p = 2^24 and 2^20
             for key, runs in (('p24', large), ('p20', f1)):
                 rec[key] = {dt: _p24(recs[kname])

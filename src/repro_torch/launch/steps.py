@@ -26,9 +26,12 @@ loss, the norm, the last position's logits, the hyperparameters) or this
 rank's blocks (parameters, optimizer state, the decode cache). The
 attention families split (dense GQA, Qwen2's heads zero-padded where
 'model' does not divide them, M-RoPE with embedding inputs, the
-encoder-decoder), and serve over the KV cache's sequence split over
-'model'; MoE, Mamba and RWKV-6 raise
-(:func:`~repro_torch.models.split.check_splittable`). With ``mesh=None``
+encoder-decoder), with dense or MoE FFNs (the experts' d_ff over 'model',
+the ``capacity`` path on each rank's tokens), and serve over the KV
+cache's sequence split over 'model'; Mamba and RWKV-6 raise
+(:func:`~repro_torch.models.split.check_splittable`), and so does the
+training of a model above 100B parameters (Llama-4 Maverick), whose
+optimizer is Adafactor. With ``mesh=None``
 each builder is the one-card step.
 """
 from __future__ import annotations
@@ -371,7 +374,7 @@ def build_serve_step(cfg: ModelConfig, device=None, mesh=None) -> Callable:
     and ``cache`` this rank's blocks, made by ``init_cache(cfg, B, Smax,
     split=make_split(cfg, mesh, B))`` (the KV and cross caches' sequence
     over 'model'); the logits come back gathered whole on every rank.
-    MoE, Mamba and RWKV-6 raise (ROADMAP item 12)."""
+    Mamba and RWKV-6 raise (ROADMAP item 12)."""
     device = resolve_device(device)
     splits = None if mesh is None else _splits(cfg, mesh)
 

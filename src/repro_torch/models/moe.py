@@ -20,13 +20,25 @@ of them while N·k ≤ 8·E, else about 1.25·N·k/E rounded up to 8), a
 replica's slot is its place among its expert's replicas (a cumsum), the
 kept ones are scattered into an (E, cap, d) buffer, the experts run as
 three batched products, and the outputs are gathered back, the dropped
-replicas giving 0. No host sync. Under :func:`~repro_torch.distributed.
-ctx.activation_mesh`, ``moe_ffn`` splits the tokens over the batch axes
-and the experts on d_ff over 'model' (the router replicated), averages the
-aux statistics over the batch axes, sums the row-parallel output over
-'model', and gathers the tokens back: the rest of the port's model is
-replicated. The collectives differentiate in reverse mode
-(:mod:`repro_torch.distributed.ctx`); no HVP column passes through them.
+replicas giving 0. No host sync. The body runs on a rank's tokens and its
+d_ff slice of the experts (the router whole) in two settings:
+
+  * a replicated model under :func:`~repro_torch.distributed.ctx.
+    activation_mesh`: ``moe_ffn`` takes the rank's blocks of the whole
+    weights and tokens (the tokens over the batch axes, the experts on
+    d_ff over 'model'), and gathers the tokens back;
+  * a model split on the mesh (:mod:`repro_torch.models.split`):
+    :func:`moe_split` runs on the rank's rows of the batch and its blocks
+    as ``Split.use`` hands them, and returns the rank's rows; nothing is
+    gathered.
+
+Either way the aux statistics are averaged over the batch axes and the
+row-parallel output is built in f32, summed over 'model' in f32, and cast
+once. The collectives differentiate in reverse and forward mode and under
+``vmap`` (:mod:`repro_torch.distributed.ctx`), so HVP columns
+(``vmap(jvp(grad))``) pass through the capacity path: its routing is
+integer and carries no tangent, and the scatter is a ``scatter_add`` over
+a flat E·cap index.
 """
 from __future__ import annotations
 
@@ -117,7 +129,7 @@ def capacity(Nk: int, E: int) -> int:
 
 
 def _moe_local(params, xt: torch.Tensor, cfg: ModelConfig, axis_names=(),
-               impl: str = 'ragged'):
+               impl: str = 'ragged', mesh=None):
     """xt (N, d) → (out (N, d) in the compute dtype, aux). ``'ragged'``: the
     reference's dropless path op for op (replicas sorted by expert, the
     expert products in the compute dtype, ``act(h) * g``, unsorted,
@@ -125,30 +137,27 @@ def _moe_local(params, xt: torch.Tensor, cfg: ModelConfig, axis_names=(),
     path (see the module doc). Both add the shared expert in f32.
 
     ``axis_names`` = (model axes, batch axes) when the body runs on a
-    rank's blocks under the current mesh (``moe_ffn``): the weights are
-    the rank's d_ff slice, the aux statistics are averaged over the batch
-    axes and the output summed over the model axes; where an invariant
-    value meets work that varies over an axis, :func:`~repro_torch.
-    distributed.ctx.pvary` sums its cotangent over that axis, as the
-    reference's ``shard_map`` transposes it."""
+    rank's blocks of ``mesh``: the weights are the rank's d_ff slice,
+    already entering work that varies over the batch axes (the caller's
+    ``pvary``, or ``Split.use``'s), the aux statistics are averaged over
+    the batch axes and the output summed over the model axes. The
+    residual ``xt`` and the router are invariant over the model axes;
+    where they meet the rank's d_ff slice (the dispatched tokens, the
+    gates, the shared expert's input), :func:`~repro_torch.distributed.
+    ctx.pvary` sums their cotangents over 'model' once, as the
+    reference's ``shard_map`` transposes them."""
     ct = cdtype(cfg)
     N, d = xt.shape
     E, k = cfg.n_experts, cfg.top_k
     act = _ACTS[cfg.act]
     model_axes, batch_axes = axis_names or ((), ())
-    mesh = None
-    if model_axes or batch_axes:
+    if (model_axes or batch_axes) and mesh is None:
+        raise ValueError(f'axis_names {axis_names} need the mesh')
+    if mesh is not None:
         from repro_torch.distributed import ctx
-        mesh = ctx.current_mesh()
 
-        def vary(x, axes):
-            return ctx.pvary(x, mesh, axes)
-
-        params = dict(params, **{n: vary(params[n], batch_axes)
-                                 for n in ('router', 'w1', 'w3', 'w2')})
-        if cfg.shared_expert:
-            params['shared'] = {n: vary(w, batch_axes)
-                                for n, w in params['shared'].items()}
+    def to_model(x):
+        return ctx.pvary(x, mesh, model_axes) if model_axes else x
     probs, gate, expert, counts, aux = route(params, xt, cfg)
     if batch_axes:
         frac = ctx.pmean(counts.float() / (N * k), mesh, batch_axes)
@@ -174,30 +183,28 @@ def _moe_local(params, xt: torch.Tensor, cfg: ModelConfig, axis_names=(),
         slot = torch.gather(pos, 1, flat[:, None])[:, 0].long()
         keep = slot < cap
         # a dropped replica adds zeros to its expert's last slot
-        slot = torch.clamp(slot, max=cap - 1)
+        where = flat * cap + torch.clamp(slot, max=cap - 1)    # (Nk,) in E·cap
         token_of = torch.arange(Nk, device=xt.device) // k
         xs = xt[token_of].to(ct) * keep[:, None].to(ct)
-        buf = torch.zeros((E, cap, d), dtype=ct, device=xt.device)
-        buf = buf.index_put((flat, slot), xs, accumulate=True)
-        if mesh is not None:
-            buf = vary(buf, model_axes)
-            gate = vary(gate, model_axes)
+        buf = torch.zeros((E * cap, d), dtype=ct, device=xt.device)
+        buf = buf.scatter_add(0, where[:, None].expand(Nk, d), xs)
+        buf = to_model(buf.view(E, cap, d))
+        gate = to_model(gate)
         h = torch.bmm(buf, params['w1'].to(ct))
         g = torch.bmm(buf, params['w3'].to(ct))
         y = torch.bmm(act(h) * g, params['w2'].to(ct))         # (E, cap, d)
-        picked = y[flat, slot].float() * keep[:, None].float()
+        picked = (y.reshape(E * cap, d)[where].float()
+                  * keep[:, None].float())
         out = torch.einsum('nkd,nk->nd', picked.reshape(N, k, d), gate)
     else:
         raise ValueError(f"impl must be 'ragged' or 'capacity', got {impl!r}")
     if cfg.shared_expert:
         sp = params['shared']
-        x = xt.to(ct)
-        if mesh is not None:
-            x = vary(x, model_axes)
+        x = to_model(xt.to(ct))
         hs = act(x @ sp['w1'].to(ct)) * (x @ sp['w3'].to(ct))
         out = out + (hs @ sp['w2'].to(ct)).float()
     if model_axes:
-        # the row-parallel second product: one sum over the model axes
+        # the row-parallel second product: one sum over the model axes, f32
         out = ctx.psum(out, mesh, model_axes)
     return out.to(ct), aux
 
@@ -211,6 +218,7 @@ def moe_ffn(params, x: torch.Tensor, cfg: ModelConfig):
     the tokens over the batch axes where N divides, the experts on d_ff
     over 'model' where d_ff divides, the router replicated — and the
     tokens gathered back whole."""
+    from repro_torch.core.tree_util import tree_map
     from repro_torch.distributed.ctx import current_mesh
     B, S, d = x.shape
     N = B * S
@@ -234,9 +242,35 @@ def moe_ffn(params, x: torch.Tensor, cfg: ModelConfig):
     if cfg.shared_expert:
         pspec['shared'] = {'w1': P(None, m0), 'w3': P(None, m0),
                            'w2': P(m0, None)}
-    out, aux = ctx.shard_map(
-        lambda p_, x_: _moe_local(p_, x_, cfg, (model_axes, batch_axes),
-                                  impl='capacity'),
-        mesh, in_specs=(pspec, tok_spec), out_specs=(tok_spec, P()))(
-            params, xt)
+
+    def body(p_, x_):
+        # the blocks of the whole weights are invariant over the batch axes
+        p_ = tree_map(lambda w: ctx.pvary(w, mesh, batch_axes), p_)
+        return _moe_local(p_, x_, cfg, (model_axes, batch_axes),
+                          impl='capacity', mesh=mesh)
+
+    out, aux = ctx.shard_map(body, mesh, in_specs=(pspec, tok_spec),
+                             out_specs=(tok_spec, P()))(params, xt)
     return ctx.gather(out, tok_spec, mesh).reshape(B, S, d), aux
+
+
+def moe_split(params, x: torch.Tensor, cfg: ModelConfig, split):
+    """x (B_local, S, d), this rank's rows of the batch with the whole d →
+    (this rank's rows of the output, the aux loss), over a model split on
+    the mesh (``split``, a :class:`~repro_torch.models.split.Split`).
+
+    ``params`` are the rank's blocks as ``Split.use`` reads them: the
+    router whole (gathered over 'data' under FSDP), entering the batch
+    axes only; the experts' and the shared expert's d_ff slices over
+    'model'. The ``capacity`` body runs on the rank's B_local·S tokens
+    (the capacity comes from that N), as the reference's ``shard_map``
+    body runs on its token shard: replicas past it drop, the aux
+    statistics are averaged over ``split.batch_axes`` and the output is
+    summed over 'model' in f32. Nothing is gathered, and nothing reads
+    the host."""
+    B, S, d = x.shape
+    model_axes = ('model',) if 'model' in split.mesh.axis_names else ()
+    out, aux = _moe_local(params, x.reshape(B * S, d), cfg,
+                          (model_axes, split.batch_axes), impl='capacity',
+                          mesh=split.mesh)
+    return out.reshape(B, S, d), aux

@@ -18,15 +18,20 @@ collectives of :mod:`repro_torch.distributed.ctx`:
   * ``embed``/``unembed`` hold a block of the padded vocab;
   * under ``cfg.fsdp`` each weight is gathered over 'data' on use
     (:meth:`Split.use`), inside the block's remat;
+  * a MoE layer (:func:`~repro_torch.models.moe.moe_split`) runs the
+    reference's ``capacity`` path on the rank's tokens: the router whole
+    and model-invariant, the experts' and the shared expert's d_ff over
+    'model', the output summed over 'model' in f32; no all-to-all and no
+    gather of the tokens;
   * decode holds each rank's block of the KV cache's (and the cross
     cache's) sequence, over 'model' (:func:`cache_split_specs`).
 
 A :class:`Split` is what the model functions take (``split=``) to run
 split; without one they run whole on one rank. Which family and mesh can
 split is explicit (:func:`check_splittable`): the attention families
-(dense GQA, M-RoPE with embedding inputs, the encoder-decoder) whose d_ff
-and vocab divide the 'model' axis. MoE, Mamba and RWKV-6 raise, naming
-ROADMAP item 12.
+(dense GQA, M-RoPE with embedding inputs, the encoder-decoder) with a
+dense or MoE FFN, whose d_ff (the experts' too) and vocab divide the
+'model' axis. Mamba and RWKV-6 raise, naming ROADMAP item 12.
 """
 from __future__ import annotations
 
@@ -45,15 +50,12 @@ from repro_torch.models.config import ModelConfig
 
 def check_splittable(cfg: ModelConfig, mesh) -> None:
     """Raise ``NotImplementedError`` where this family or this mesh has no
-    split path: MoE, Mamba, RWKV-6, and d_ff or vocab that the 'model'
-    axis does not divide. Heads that it does not divide take the padded
-    layout (:func:`head_layout`)."""
+    split path: Mamba, RWKV-6, and d_ff (a dense FFN's or the experts') or
+    vocab that the 'model' axis does not divide. Heads that it does not
+    divide take the padded layout (:func:`head_layout`)."""
     m = mesh.shape.get('model', 1) if 'model' in mesh.axis_names else 1
     why = []
-    kinds = cfg.layer_kinds()
-    if any(f == 'moe' for _, f in kinds):
-        why.append('MoE experts (d_ff over \'model\', the shared expert)')
-    if any(mx != 'attn' for mx, _ in kinds):
+    if any(mx != 'attn' for mx, _ in cfg.layer_kinds()):
         why.append('Mamba or RWKV-6 mixers (d_inner, d_model and their '
                    'caches over \'model\')')
     if cfg.n_heads % m and cfg.d_model % m:
@@ -67,8 +69,8 @@ def check_splittable(cfg: ModelConfig, mesh) -> None:
     if why:
         raise NotImplementedError(
             f'{cfg.name} on {dict(mesh.shape)}: a model split on the mesh '
-            'covers the attention families; ' + ', '.join(why)
-            + ' is ROADMAP item 12, not ported')
+            'covers the attention families with dense or MoE FFNs; '
+            + ', '.join(why) + ' is ROADMAP item 12, not ported')
 
 
 def padded_group(n_heads: int, n_kv: int, model: int) -> int:

@@ -27,13 +27,13 @@ example: the bilevel inner objective of §5.4's data reweighting.
 block under ``torch.utils.checkpoint`` in a plain autograd pass; inside
 ``torch.func`` transforms (the HVP columns, the mixed term), which refuse
 checkpoint's saved-tensor hooks, the blocks run plainly. Remat moves
-memory, not values; a MoE layer's routing, and its host sync, runs again
-in the recompute. Every family trains. The Mamba and RWKV time loops
-checkpoint their chunks of 64 steps in such a pass, as the reference
-does, whatever ``cfg.remat`` says; under ``'full'`` and ``'dots'`` that
-checkpoint nests inside the block's (for ``'dots'``, inside its
-selective-checkpoint context), and the gradients stay those without
-remat.
+memory, not values; a MoE layer's routing (on one rank, with its host
+sync) runs again in the recompute. Every family trains. The Mamba and
+RWKV time loops checkpoint their chunks of 64 steps in such a pass, as
+the reference does, whatever ``cfg.remat`` says; under ``'full'`` and
+``'dots'`` that checkpoint nests inside the block's (for ``'dots'``,
+inside its selective-checkpoint context), and the gradients stay those
+without remat.
 
 Decode keeps the reference's cache layout: ``{'pos': 0-d int32, 'slots':
 {'slot{i}': state}}`` (and ``'cross': {'k', 'v'}`` for an
@@ -62,7 +62,7 @@ from repro_torch.models.layers import (cdtype, embed, init_embedding,
                                        records_graph, rmsnorm, rope_for,
                                        rope_tables, split_token_loss,
                                        unembed)
-from repro_torch.models.moe import init_moe, moe_ffn
+from repro_torch.models.moe import init_moe, moe_ffn, moe_split
 
 _ENC_KINDS = [('attn', 'dense')]   # the encoder's one slot a block
 
@@ -134,8 +134,13 @@ def abstract_params(cfg: ModelConfig) -> dict:
 
 # ------------------------------------------------------------------- forward
 def _ffn(cfg: ModelConfig, ffn: str, params, h: torch.Tensor, split=None):
-    """The slot's FFN: (out, aux), aux None for a dense one."""
+    """The slot's FFN: (out, aux), aux None for a dense one. ``split``: a
+    MoE layer runs :func:`~repro_torch.models.moe.moe_split` on the rank's
+    rows and blocks, never ``moe_ffn``, which would take blocks of them
+    again."""
     if ffn == 'moe':
+        if split is not None:
+            return moe_split(params, h, cfg, split)
         return moe_ffn(params, h, cfg)
     return mlp(params, h, cfg, split), None
 
@@ -151,7 +156,10 @@ def _used_slot(cfg: ModelConfig, split, sp: dict, specs: dict) -> dict:
     cross-attention's and the FFN's blocks entering the rank's heads and
     columns. Under the padded head layout the q/k/v biases are added to
     the whole heads after the row-parallel ``psum``, outside the rank's
-    heads, so they do not vary over 'model'."""
+    heads, so they do not vary over 'model'; a MoE layer's router routes
+    the whole residual alike on every 'model' rank, so it does not vary
+    over 'model' either (its gates meet the rank's d_ff slice inside
+    :func:`~repro_torch.models.moe.moe_split`)."""
     padded = split.heads(cfg).padded
     out = {}
     for k, v in sp.items():
@@ -159,6 +167,11 @@ def _used_slot(cfg: ModelConfig, split, sp: dict, specs: dict) -> dict:
             out[k] = {n: split.use(w, specs[k][n], n not in ('bq', 'bk',
                                                               'bv'))
                       for n, w in v.items()}
+        elif k == 'ffn' and 'router' in v:
+            experts = {n: w for n, w in v.items() if n != 'router'}
+            out[k] = {'router': split.use(v['router'], specs[k]['router'],
+                                          False),
+                      **split.use_tree(experts, specs[k], True)}
         else:
             out[k] = split.use_tree(v, specs[k],
                                     k in ('mixer', 'cross', 'ffn'))
@@ -526,7 +539,8 @@ def decode_step(cfg: ModelConfig, params: dict, inputs: torch.Tensor,
     attention k, v and recurrent states are written in place and come back
     in the returned cache, and ``pos`` stays on the device. Every norm is
     plain, as in the reference's decode; a MoE layer reads its group sizes
-    on the host. An encoder-decoder attends to ``cache['cross']`` (see
+    on the host (on one rank; split, it runs the ``capacity`` path). An
+    encoder-decoder attends to ``cache['cross']`` (see
     :func:`fill_cross_cache`) and unembeds through ``embed``, as the
     reference's decode does (its ``forward`` uses ``unembed``).
 

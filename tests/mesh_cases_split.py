@@ -468,11 +468,81 @@ def family(rank: int, world: int, out_dir) -> dict:
                          indices=idx)
     new_h = build_hypergrad_step(cfg, k=K, rho=RHO, mesh=mesh)(
         init, h0, x['inner'], x['outer'], indices=idx)
-    return {'coords': mesh.coords, 'logits': logits, 'prefill': prefill,
-            'attn': attn_out, 'loss': loss, 'grads': grads,
-            'step': {'params': new, 'loss': metrics['loss'],
-                     'grad_norm': metrics['grad_norm']},
-            'columns': cols, 'hypergrad': hg['domain_logits'],
-            'hg_step': new_h['domain_logits'],
-            'serve': _serve(cfg, mesh, blocks, x)}
+    out = {'coords': mesh.coords, 'logits': logits, 'prefill': prefill,
+           'attn': attn_out, 'loss': loss, 'grads': grads,
+           'step': {'params': new, 'loss': metrics['loss'],
+                    'grad_norm': metrics['grad_norm']},
+           'columns': cols, 'hypergrad': hg['domain_logits'],
+           'hg_step': new_h['domain_logits'],
+           'serve': _serve(cfg, mesh, blocks, x)}
+    if x.get('f64_apply'):
+        # on x['params'] (seeded biases), the apply solved in f64
+        _, hg64 = lm_hypergrad(f64_apply(solver), inner, outer, blocks, h0,
+                               ib, ob, indices=idx)
+        out['hypergrad_f64'] = hg64['domain_logits']
+    return out
+
+
+def f64_apply(solver):
+    """``solver`` (a Nyström solver on ``flat_sharded(split=True)``) with
+    its apply solved in f64 on its own f32 sketch: the rank's rows of C
+    whitened by H_KK's eigenvectors (those above 1e-7·k of the largest
+    eigenvalue, the reference's cut), BᵀB and Bᵀv summed over the mesh by
+    the backend's weights (each parameter once), then the exact Woodbury
+    solve of (H_k + ρI) u = v on the rank's rows. The same solve as the
+    reference's ``_F64Apply`` in ``tests/test_torch_split_families.py``."""
+    import dataclasses
+
+    import torch
+
+    class F64Apply(type(solver)):
+        def apply(self, sketch, v):
+            be = self._be()
+            C, w = sketch.C.buf.double(), sketch.C.w.double()
+            H = sketch.H_KK.double()
+            lam, U = torch.linalg.eigh(0.5 * (H + H.T))
+            keep = lam > 1e-7 * (lam.abs().max() + 1e-30) * len(lam)
+            Bw = C @ (U[:, keep] / lam[keep].sqrt())
+            vf = be.vec(v).double()
+            M = be._psum(Bw.T @ (Bw * w[:, None])) + self.rho * torch.eye(
+                Bw.shape[1], dtype=torch.float64)
+            t = be._psum(Bw.T @ (vf * w))
+            u = (vf - Bw @ torch.linalg.solve(M, t)) / self.rho
+            return be.unvec(u.float(), v)
+
+    return F64Apply(**{f.name: getattr(solver, f.name)
+                       for f in dataclasses.fields(solver)})
+
+
+def moe(rank: int, world: int, out_dir) -> dict:
+    """A MoE family split on the mesh: :func:`family`'s results, and the
+    replicas that the capacity path drops in the forward of the gathered
+    logits, layer by layer on this rank's tokens (a ``moe_split`` that
+    counts them under the port's routing)."""
+    import torch
+
+    import mesh_cases_moe
+    from repro_torch.launch.steps import local_batch
+    from repro_torch.models import moe as tmoe
+    from repro_torch.models import transformer
+    from repro_torch.models.split import make_split
+    x, cfg, mesh, blocks = _family_setup(out_dir)
+    split = make_split(cfg, mesh, x['batch']['labels'].shape[0])
+    local = local_batch(x['batch'], split, 'cpu')
+    drops = []
+
+    def counting(params, h, cfg_, split_):
+        drops.append(mesh_cases_moe.port_drops(
+            params, h.reshape(-1, h.shape[-1]), cfg_))
+        return tmoe.moe_split(params, h, cfg_, split_)
+
+    transformer.moe_split = counting
+    try:
+        with torch.no_grad():
+            transformer.forward(cfg, blocks, local['inputs'], split=split)
+    finally:
+        transformer.moe_split = tmoe.moe_split
+    out = family(rank, world, out_dir)
+    out['drops'] = drops
+    return out
 

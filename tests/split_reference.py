@@ -223,3 +223,75 @@ def port_columns(jcols, cfg):
             cols[key] = [jax.tree.map(lambda x, i=i: x[:, i], cols[key])
                          for i in range(n)]
     return to_torch(cols)
+
+
+# ------------------------------------------------------------------- MoE
+#: each call's replicas over capacity, by shard, while :func:`capacity_moe`
+#: records (``record=True``)
+DROPS: list = []
+
+
+def moe_skew(params: dict, d: int) -> dict:
+    """``params`` (the reference's MoE model, numpy) with the embedding
+    rows shifted by 0.5 and every router's column 0 by 0.6/√d
+    (``tests/mesh_cases_moe.py``'s skew), so that the routing favours
+    expert 0 and replicas overflow its capacity."""
+    def draw(path, x):
+        name = getattr(path[-1], 'key', None)
+        if name == 'table' and getattr(path[0], 'key', None) == 'embed':
+            return (x + np.float32(0.5)).astype(x.dtype)
+        if name == 'router':
+            x = x.copy()
+            x[..., 0] += np.float32(0.6 / d ** 0.5)
+        return x
+
+    return jax.tree_util.tree_map_with_path(draw, params)
+
+
+def capacity_moe(shards: int, hold=0.0, record: bool = False):
+    """A stand-in for the reference's ``moe_ffn`` that computes what its
+    ``shard_map`` body does on a mesh whose batch axes hold ``shards``
+    ranks (``src/repro/models/moe.py:218-224``): the reference's own
+    ``_moe_local(impl='capacity')`` on each shard's rows of the batch (all
+    of them where ``shards`` does not divide B, as the port's
+    ``batch_split_axes`` replicates such a batch), the outputs joined, and
+    the aux loss from the routing statistics averaged over the shards (its
+    ``pmean``). Without a mesh it runs under jax 0.9.0, where the
+    reference's whole forward under a mesh fails (``constrain``).
+
+    ``hold`` (a 0/1 float, traced or not): at 1 the router reaches the
+    output with its gradient stopped, so that its gradient is the aux
+    loss's alone (a top-1 gate g/g carries none, only rounding noise);
+    the values are the same either way. ``record``: each shard's replicas
+    over capacity go to :data:`DROPS`."""
+    from repro.models import moe as jmoe
+
+    def moe_ffn(params, x, cfg):
+        B, S, d = x.shape
+        n = shards if B % shards == 0 else 1
+        E, k = cfg.n_experts, cfg.top_k
+        r = params['router']
+        body = dict(params, router=jax.lax.stop_gradient(r) * hold
+                    + r * (1 - hold))
+        outs, fracs, means = [], [], []
+        for xt in x.reshape(n, B // n * S, d):
+            outs.append(jmoe._moe_local(body, xt, cfg, impl='capacity')[0])
+            probs = jax.nn.softmax(xt.astype(jnp.float32)
+                                   @ r.astype(jnp.float32), -1)
+            idx = jax.lax.top_k(probs, k)[1]
+            onehot = jax.nn.one_hot(idx.reshape(-1), E, dtype=jnp.int32)
+            fracs.append(jnp.mean(onehot.astype(jnp.float32), axis=0))
+            means.append(probs.mean(0))
+            if record:
+                slot = jnp.sum((jnp.cumsum(onehot, 0) - onehot) * onehot, 1)
+                nk = onehot.shape[0]
+                cap = nk if nk <= 8 * E else min(
+                    nk, max(8, int(1.25 * nk / E + 7) // 8 * 8))
+                jax.debug.callback(lambda c: DROPS.append(int(c)),
+                                   jnp.sum(slot >= cap), ordered=True)
+        aux = (E * jnp.sum(jnp.mean(jnp.stack(fracs), 0)
+                           * jnp.mean(jnp.stack(means), 0))
+               * cfg.router_aux_coef)
+        return jnp.concatenate(outs).reshape(B, S, d), aux
+
+    return moe_ffn

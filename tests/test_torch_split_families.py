@@ -22,7 +22,9 @@ one ``build_hypergrad_step`` 1e-5 on the new domain logits, against the
 reference step's body, on the init (zero biases: with the seeded ones
 Qwen2-VL's sketch leaves the f32 solve ill-conditioned, which
 ``test_seeded_biases_leave_the_f32_solve_ill_conditioned`` shows on the
-reference itself); each decode step's
+reference itself; there, with the apply solved in f64 on each side's own
+f32 sketch, the split hypergradient is held to the reference's at 1e-4);
+each decode step's
 gathered logits 1e-5 (12 teacher-forced steps across the cache's blocks,
 then one past its end).
 
@@ -71,6 +73,7 @@ FAMILIES = {'qwen2_vl_7b': ('qwen2_vl_7b', {}, (1, 2)),
 LABELS = sorted(FAMILIES)
 B, S, T = TR.BATCH, TR.SEQ, 16     # T: the encoder frames of the decode
 KEY = 7                            # the reference hypergradient step's key
+SEEDED = 'qwen2_vl_7b'   # its seeded biases leave the f32 solve ill-posed
 
 
 def _batch(arch, seed, domain=False):
@@ -127,6 +130,8 @@ def started(tmp_path_factory, inputs):
             steps=[torch.from_numpy(s) for s in x['steps']])
         if 'frames' in x:
             ranks['frames'] = torch.from_numpy(x['frames'])
+        # the split hypergradient on the seeded biases, its apply in f64
+        ranks['f64_apply'] = label == SEEDED
         out[label] = SR.start_family_ranks(tmp_path_factory, 'family', label,
                                            **ranks)
     return out
@@ -284,7 +289,26 @@ class _F64Apply(NystromIHVP):
             sketch.H_KK, vf))
 
 
-def test_seeded_biases_leave_the_f32_solve_ill_conditioned(ref, inputs):
+@pytest.fixture(scope='module')
+def f64_solves(inputs) -> dict:
+    """which → (the reference's hypergradient with its apply solved in f64
+    on its f32 sketch, the eigenvalues of H_KK), for Qwen2-VL at
+    ``x['params']`` (seeded biases) and ``x['params_init']``."""
+    x = inputs[SEEDED]
+    f64 = _reference_hypergrad(x['jcfg'], _F64Apply)
+    out = {}
+    for which in ('params', 'params_init'):
+        _F64Apply.EIGS.clear()
+        out[which] = (np.asarray(f64(
+            jax.tree.map(jnp.asarray, x[which]),
+            {'domain_logits': jnp.asarray(x['h0'])}, x['inner'][0],
+            x['outer'][0], jax.random.PRNGKey(KEY))['domain_logits']),
+            _F64Apply.EIGS[0])
+    return out
+
+
+def test_seeded_biases_leave_the_f32_solve_ill_conditioned(ref, inputs,
+                                                           f64_solves):
     """Why the hypergradient gates hold on the init: on Qwen2-VL's seeded
     biases, H_KK at the draw has an eigenvalue below 1e-4 of its largest
     (above the cut, so kept), and the reference's own f32 hypergradient
@@ -295,23 +319,19 @@ def test_seeded_biases_leave_the_f32_solve_ill_conditioned(ref, inputs):
                                      model_params_from_jax)
     from repro_torch.core import NystromIHVP as TNystromIHVP
     from repro_torch.launch.steps import domain_losses, lm_hypergrad
-    label = 'qwen2_vl_7b'
+    label = SEEDED
     x = inputs[label]
     jcfg, cfg = x['jcfg'], x['cfg']
     phi = {'domain_logits': jnp.asarray(x['h0'])}
     key = jax.random.PRNGKey(KEY)
     f32 = _reference_hypergrad(jcfg)
-    f64 = _reference_hypergrad(jcfg, _F64Apply)
     inner, outer = domain_losses(cfg)
     got = {}
     for which in ('params', 'params_init'):
         jp = jax.tree.map(jnp.asarray, x[which])
         ref32 = (ref[label]['g'] if which == 'params_init' else np.asarray(
             f32(jp, phi, x['inner'][0], x['outer'][0], key)['domain_logits']))
-        _F64Apply.EIGS.clear()
-        ref64 = np.asarray(f64(jp, phi, x['inner'][0], x['outer'][0],
-                               key)['domain_logits'])
-        lam = _F64Apply.EIGS[0]
+        ref64, lam = f64_solves[which]
         top = np.abs(lam).max()
         kept = lam[lam > 1e-7 * top * len(lam)]
         _, hg = lm_hypergrad(
@@ -329,6 +349,21 @@ def test_seeded_biases_leave_the_f32_solve_ill_conditioned(ref, inputs):
     assert cond < 1e-4 and ref_err > 1e-4 and port_err <= 2 * ref_err
     _, ref_err, port_err = got['params_init']
     assert ref_err <= 1e-5 and port_err <= 1e-5
+
+
+def test_seeded_biases_f64_solves_match_the_references(runs, f64_solves):
+    """On Qwen2-VL's seeded biases, where the f32 solve is ill-conditioned
+    (:func:`test_seeded_biases_leave_the_f32_solve_ill_conditioned`), the
+    split port's hypergradient with its Nyström apply solved in f64 on its
+    own f32 sketch (``mesh_cases_split.f64_apply``: the rank's rows of C,
+    the whitened gram summed over the mesh) is the reference's with the
+    apply solved in f64 on its own f32 sketch, within 1e-4."""
+    want, _ = f64_solves['params']
+    for r in runs[SEEDED]:
+        got = r['hypergrad_f64'].numpy()
+        print(f'{SEEDED} seeded biases, f64 solves: the split port against '
+              f'the reference {SR.rel(got, want):.3e}')
+        assert SR.rel(got, want) <= 1e-4
 
 
 @pytest.mark.parametrize('label', LABELS)

@@ -167,12 +167,11 @@ class _Mesh:
 
 
 @pytest.mark.parametrize('arch,model', [
-    ('phi35_moe_42b_a66b', 2), ('jamba_v01_52b', 2), ('rwkv6_1b6', 2),
-    ('llama4_maverick_400b_a17b', 16), ('jamba_v01_52b', 8),
-    ('rwkv6_1b6', 4)])
+    ('jamba_v01_52b', 4), ('jamba_v01_52b', 2), ('rwkv6_1b6', 2),
+    ('rwkv6_1b6', 8), ('jamba_v01_52b', 8), ('rwkv6_1b6', 4)])
 def test_families_the_slice_does_not_split_raise(arch, model):
-    """MoE (Phi-3.5-MoE, Llama-4 Maverick), Mamba (Jamba) and RWKV-6
-    name ROADMAP item 12, on 'model' axes of 2 to 16."""
+    """Mamba (Jamba, whose MoE layers split) and RWKV-6 name ROADMAP item
+    12, on 'model' axes of 2 to 8."""
     cfg = get_config(arch)
     with pytest.raises(NotImplementedError, match='item 12'):
         check_splittable(cfg, _Mesh(1, model))
